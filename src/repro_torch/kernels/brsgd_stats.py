@@ -1,0 +1,161 @@
+"""Wrappers of the hand-written CUDA BrSGD kernels (``csrc/brsgd_stats.cu``).
+
+Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
+contiguity, allocates its outputs with ``torch.empty``, launches on the
+current stream, raises if the launch reports an error, reduces the
+per-block partials and adds one to its entry of :data:`LAUNCHES`.  The
+plain versions live in :mod:`.ref`; :mod:`.ops` picks between the two
+by the tensor's device.
+
+==================  ====================================================
+wrapper             replaces (src/repro/kernels/brsgd_stats.py)
+==================  ====================================================
+fused_stats         fused_stats_pallas (B1); brsgd_partials is its
+                    (scores, l1) call
+select_mean         select_mean_pallas (B2)
+masked_mean         masked_mean_pallas (B3)
+brsgd_stats         brsgd_stats_pallas (B4); cwise_median is its median
+==================  ====================================================
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import ref
+from ._build import load
+
+# worker counts the kernels are instantiated for (csrc BRSGD_DISPATCH)
+SUPPORTED_M = (4, 5, 7, 8, 16, 20, 32, 64)
+NEED_BITS = {"scores": 1, "l1": 2, "d2med": 4, "gram": 8}
+
+# launches of each kernel since the last reset_launches()
+LAUNCHES = {"fused_stats": 0, "select_mean": 0, "masked_mean": 0,
+            "brsgd_stats": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check_matrix(G, name: str):
+    if not isinstance(G, torch.Tensor) or not G.is_cuda:
+        raise ValueError(f"{name}: G must be a CUDA tensor (CPU tensors "
+                         f"take the plain version through kernels.ops)")
+    if G.dtype != torch.float32:
+        raise TypeError(f"{name}: G must be float32, got {G.dtype}")
+    if G.ndim != 2:
+        raise ValueError(f"{name}: G must be [m, d], got {tuple(G.shape)}")
+    if not G.is_contiguous():
+        raise ValueError(f"{name}: G must be contiguous")
+    m, d = G.shape
+    if m not in SUPPORTED_M:
+        raise ValueError(f"{name}: m={m} workers has no kernel instance; "
+                         f"supported: {SUPPORTED_M}")
+    if d == 0:
+        raise ValueError(f"{name}: G has no columns")
+    return m, d
+
+
+def _check_vector(v, G, n: int, name: str):
+    if v.device != G.device or v.dtype != torch.float32 or \
+            tuple(v.shape) != (n,) or not v.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous float32 [{n}] "
+                         f"tensor on {G.device}, got {v.dtype} "
+                         f"{tuple(v.shape)} on {v.device}")
+
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _n_blocks(lib, d: int) -> int:
+    threads = lib.brsgd_threads()
+    return max(1, min(-(-d // threads), lib.brsgd_max_blocks()))
+
+
+def _launch(lib, name: str, fn, G, *args):
+    with torch.cuda.device(G.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{rc} ({lib.brsgd_error_string(rc).decode()})")
+    LAUNCHES[name] += 1
+
+
+def fused_stats(G, needs) -> dict:
+    """G [m, d] -> {stat: tensor} for any subset of ``ref.STAT_NAMES``
+    in one read of G: scores/l1/d2med [m], gram [m, m]."""
+    m, d = _check_matrix(G, "fused_stats")
+    needs = tuple(n for n in ref.STAT_NAMES if n in needs)
+    if not needs:
+        return {}
+    lib = load()
+    nb = _n_blocks(lib, d)
+    parts = {n: torch.empty((nb, m, m) if n == "gram" else (nb, m),
+                            dtype=torch.float32, device=G.device)
+             for n in needs}
+    bits = sum(NEED_BITS[n] for n in needs)
+    _launch(lib, "fused_stats", lib.brsgd_fused_stats, G, _ptr(G), m, d,
+            bits, _ptr(parts.get("scores")), _ptr(parts.get("l1")),
+            _ptr(parts.get("d2med")), _ptr(parts.get("gram")), nb)
+    return {n: p.sum(dim=0) for n, p in parts.items()}
+
+
+def brsgd_partials(G):
+    """G [m, d] -> (scores [m], l1 [m]): pass 1 of local BrSGD."""
+    st = fused_stats(G, ("scores", "l1"))
+    return st["scores"], st["l1"]
+
+
+def select_mean(G, scores, l1, kth, T):
+    """Pass 2 of local BrSGD: C1∩C2 selection fused with the masked
+    mean, from the thresholds (kth, 𝔗) that ``ref.brsgd_thresholds``
+    resolved.  Returns (aggregate [d], selection weights [m])."""
+    m, d = _check_matrix(G, "select_mean")
+    _check_vector(scores, G, m, "select_mean scores")
+    _check_vector(l1, G, m, "select_mean l1")
+    sl = torch.stack([scores, l1]).contiguous()                  # [2, m]
+    pr = torch.stack([kth, 2.0 * T]).to(torch.float32)           # [2]
+    _check_vector(pr, G, 2, "select_mean thresholds")
+    out = torch.empty((d,), dtype=torch.float32, device=G.device)
+    w = torch.empty((m,), dtype=torch.float32, device=G.device)
+    lib = load()
+    _launch(lib, "select_mean", lib.brsgd_select_mean, G, _ptr(G), m, d,
+            _ptr(sl), _ptr(pr), _ptr(out), _ptr(w), _n_blocks(lib, d))
+    return out, w
+
+
+def masked_mean(G, mask):
+    """Σ w_i g_i / Σ w_i over the rows; mask [m] bool or f32 weights,
+    an empty mask divides by 1."""
+    m, d = _check_matrix(G, "masked_mean")
+    w = mask.to(device=G.device, dtype=torch.float32).contiguous()
+    _check_vector(w, G, m, "masked_mean mask")
+    out = torch.empty((d,), dtype=torch.float32, device=G.device)
+    lib = load()
+    _launch(lib, "masked_mean", lib.brsgd_masked_mean, G, _ptr(G), m, d,
+            _ptr(w), _ptr(out), _n_blocks(lib, d))
+    return out
+
+
+def brsgd_stats(G):
+    """G [m, d] -> (median [d], mean [d], scores [m], l1 [m])."""
+    m, d = _check_matrix(G, "brsgd_stats")
+    lib = load()
+    nb = _n_blocks(lib, d)
+    med = torch.empty((d,), dtype=torch.float32, device=G.device)
+    mean = torch.empty((d,), dtype=torch.float32, device=G.device)
+    sc = torch.empty((nb, m), dtype=torch.float32, device=G.device)
+    l1 = torch.empty((nb, m), dtype=torch.float32, device=G.device)
+    _launch(lib, "brsgd_stats", lib.brsgd_column_stats, G, _ptr(G), m, d,
+            _ptr(med), _ptr(mean), _ptr(sc), _ptr(l1), nb)
+    return med, mean, sc.sum(dim=0), l1.sum(dim=0)
+
+
+def cwise_median(G):
+    """Coordinate-wise median [d] (the median output of brsgd_stats)."""
+    return brsgd_stats(G)[0]

@@ -16,6 +16,9 @@ def pytest_configure(config):
         "mesh_matrix: parity tests parametrized over tests/meshes.py — "
         "CI runs `-m mesh_matrix` with REPRO_TEST_MESHES=dm so the "
         "data×model job skips everything the worker-only job covers")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips inside the test where none is present")
 
 
 @pytest.fixture

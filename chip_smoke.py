@@ -9,19 +9,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: name, count, versions, nvidia-smi name and power limit;
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc) and
      print the -Xptxas -v register / shared-memory / spill summary;
-  3. every kernel against its plain PyTorch version on the card, at the
-     LeNet main-path shape [20, 61706], a ragged [7, 1003] and [64, 4096],
-     and at [20, 61706] with one worker's row NaN (whole, or every 5th
-     column);
+  3. every kernel (B1-B5) against its plain PyTorch version on the card,
+     at the LeNet main-path shape [20, 61706], a ragged [7, 1003],
+     [64, 4096], the robustness twin's [20, 20] and the rate twin's
+     [10, 20], and at [20, 61706] with one worker's row NaN (whole, or
+     every 5th column); B5 at trim fractions 0.1, 0.25, 0.49 and 0.5;
   4. the paper loop: one make_sim_step step on the card and one on the
-     CPU from the same params and batch, then 5 card steps with the
-     launch counters checked;
+     CPU from the same params and batch (brsgd under scale at 0.25, and
+     trimmed_mean under scale at 0.1, which it trims away), then 5 card
+     steps of each with the launch counters checked;
   5. the main path: paper.train_lenet at LeNet width, m = 20, 60 steps
-     (brsgd under scale and gaussian, the mean baseline, median, krum),
+     (brsgd under scale and gaussian, the mean baseline, median, krum,
+     trimmed_mean under gaussian, multi_krum and geomedian under scale),
      with every kernel's launch counter read around it;
-  6. timing with CUDA events (bare kernel launch, wrapper call, plain
+  6. the elastic path: for every aggregator at [20, 61706], 4 arrival
+     buckets, quorum 15, the bulk masked aggregate_local on the card
+     against the same call on the CPU, and stream_aggregate against the
+     bulk call; the CLAIM subset of paper.robustness (1 seed) with its
+     launch counters; one elastic step timed;
+  7. timing with CUDA events (bare kernel launch, wrapper call, plain
      version, one library call) at [20, 61706] and [20, 8388608];
-  7. the {"kernels": [...]} line, the nvidia-smi line, and last the
+  8. the {"kernels": [...]} line, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 """
 from __future__ import annotations
@@ -41,7 +49,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 MAIN_SHAPE = (20, 61706)      # LeNet: m = 20 workers, d = 61,706 params
 HBM_SHAPE = (20, 8_388_608)   # G = 671 MB, well past the 50 MB L2
-CHECK_SHAPES = (MAIN_SHAPE, (7, 1003), (64, 4096))
+# the main path's shape, a ragged one, the largest instance, and the
+# shapes paper.robustness ([M, REG_D]) and paper.rate (m = 10) launch at
+CHECK_SHAPES = (MAIN_SHAPE, (7, 1003), (64, 4096), (20, 20), (10, 20))
 HOST_REPS = 50               # host-clock samples per step timing
 REL_TOL = 1e-5                # float outputs, relative to the largest |ref|
 SOURCE = "src/repro_torch/kernels/csrc/brsgd_stats.cu"
@@ -50,6 +60,14 @@ REPLACES = {
     "select_mean": "src/repro/kernels/brsgd_stats.py:258",
     "masked_mean": "src/repro/kernels/brsgd_stats.py:289",
     "brsgd_stats": "src/repro/kernels/brsgd_stats.py:150",
+    "trimmed_mean": "src/repro/kernels/brsgd_stats.py:327",
+}
+TRIM_FRACS = (0.1, 0.25, 0.49, 0.5)   # 0.5 takes trim_k's 2k >= m guard
+LIBRARY_CALLS = {
+    "fused_stats": None, "select_mean": "w @ G / w.sum()",
+    "masked_mean": "w @ G / w.sum()",
+    "brsgd_stats": "torch.quantile(G, 0.5, dim=0)",
+    "trimmed_mean": "sort + mean, 2 calls",
 }
 
 
@@ -110,10 +128,10 @@ def phase_build():
         if m:
             spills += int(m.group(1)) + int(m.group(2))
             stack_line = line.strip()
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and fn:
-            print(f"  ptxas {fn}: {m.group(1)} registers, {m.group(2)} B "
-                  f"smem, {stack_line}", flush=True)
+            print(f"  ptxas {fn}: {m.group(1)} registers, {m.group(2) or 0} "
+                  f"B smem, {stack_line}", flush=True)
     print(f"build: spill bytes over all kernels = {spills}", flush=True)
 
 
@@ -209,6 +227,18 @@ def _check_kernels(torch, kern, ref, G, label, rng, subsets, worst):
     emit({"check": "brsgd_stats", "input": label,
           "median_scores": "exact", "mean_bit_exact": _exact(got[1], want[1]),
           "mean_l1_rel_tol": REL_TOL})
+    # B5: trimmed mean, exact (NaN where the plain version has NaN)
+    for tf in TRIM_FRACS:
+        got = kern.trimmed_mean(G, tf)
+        want = ref.trimmed_mean_ref(G, tf)
+        torch.cuda.synchronize()
+        worst["trimmed_mean"] = max(worst["trimmed_mean"], _err(got, want))
+        if not _exact(got, want):
+            fail(f"trimmed_mean {label} trim_frac={tf}: err "
+                 f"{_err(got, want)}, NaN equal {_same_nan(got, want)}")
+    emit({"check": "trimmed_mean", "input": label, "trim_fracs": TRIM_FRACS,
+          "k": [ref.trim_k(tf, m) for tf in TRIM_FRACS], "exact": True,
+          "nan_columns": int(want.isnan().sum())})
 
 
 def phase_kernels(torch, kern, ref):
@@ -293,13 +323,16 @@ def phase_loop(torch, kern):
     if counts["fused_stats"] != 5 or counts["select_mean"] != 5:
         fail(f"5 brsgd steps launched {counts}, expected 5 fused_stats "
              f"and 5 select_mean")
+    tm_counts = _trimmed_mean_steps(torch, kern, p_cpu, p_gpu, batch, pipe,
+                                    make_sim_step, lenet)
     test = pipe.batch(99, 8)
     loss = float(lenet.lenet_loss(params, {
         "images": torch.as_tensor(test["images"][5], device="cuda"),
         "labels": torch.as_tensor(test["labels"][5], device="cuda")}))
     if not math.isfinite(loss):
         fail(f"loss after 5 card steps is {loss}")
-    emit({"check": "five_card_steps", "launches": counts, "loss": loss,
+    emit({"check": "five_card_steps", "launches": counts,
+          "trimmed_mean_launches": tm_counts, "loss": loss,
           "byzantine_selected": False})
 
     # where a step's time goes: gradients vs attack + aggregation
@@ -318,6 +351,42 @@ def phase_loop(torch, kern):
           **{f"{k}_ms": _host_ms(torch, fn) for k, fn in parts.items()}})
 
 
+def _trimmed_mean_steps(torch, kern, p_cpu, p_gpu, batch, pipe,
+                        make_sim_step, lenet):
+    """trimmed_mean under scale at alpha = 0.1 (2 byzantine rows, k = 2
+    trimmed per side, so the attack is trimmed away and the parameters
+    keep their size): one card step against one CPU step, each leaf
+    within 1e-5 of its own largest value, then 5 card steps that must
+    launch B5 exactly 5 times and nothing else.  The attack is
+    deterministic, so both devices see the same rows."""
+    from repro_torch.configs.base import ByzantineConfig
+    bcfg = ByzantineConfig(aggregator="trimmed_mean", attack="scale",
+                           alpha=0.1)
+    step_cpu = make_sim_step(lenet.lenet_loss, bcfg, 0.05, device="cpu")
+    step_gpu = make_sim_step(lenet.lenet_loss, bcfg, 0.05)
+    new_cpu, _ = step_cpu(p_cpu, batch, torch.Generator())
+    new_gpu, _ = step_gpu(p_gpu, batch, torch.Generator(device="cuda"))
+    leaves = {}
+    for k in new_cpu:
+        scale = float(new_cpu[k].abs().max())
+        leaves[k] = {"max_abs_err": _err(new_gpu[k].cpu(), new_cpu[k]),
+                     "atol": 1e-5 * scale}
+        if not (scale < 10.0 and _rel_ok(new_gpu[k].cpu(), new_cpu[k])):
+            fail(f"trimmed_mean: card and CPU step differ on {k}: "
+                 f"{leaves[k]}, largest |param| {scale}")
+    emit({"check": "step_card_vs_cpu", "aggregator": "trimmed_mean",
+          "attack": "scale", "alpha": 0.1, "leaves": leaves})
+    kern.reset_launches()
+    params, gen = p_gpu, torch.Generator(device="cuda").manual_seed(1)
+    for s in range(5):
+        params, _ = step_gpu(params, pipe.batch(s, 8), gen)
+    counts = dict(kern.LAUNCHES)
+    want = {k: 5 if k == "trimmed_mean" else 0 for k in counts}
+    if counts != want:
+        fail(f"5 trimmed_mean steps launched {counts}, expected {want}")
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # 5. the main path: Table-1 runs on the card
 # ---------------------------------------------------------------------------
@@ -326,7 +395,8 @@ def phase_main_path(torch, kern):
     from repro_torch.paper.common import train_lenet
     runs = [("mean", "none", 0.0), ("brsgd", "scale", 0.25),
             ("brsgd", "gaussian", 0.25), ("median", "gaussian", 0.25),
-            ("krum", "scale", 0.25)]
+            ("krum", "scale", 0.25), ("trimmed_mean", "gaussian", 0.1),
+            ("multi_krum", "scale", 0.25), ("geomedian", "scale", 0.25)]
     kern.reset_launches()
     acc, secs = {}, {}
     for agg, attack, alpha in runs:
@@ -339,7 +409,10 @@ def phase_main_path(torch, kern):
     emit({"check": "main_path", "steps_per_run": 60, "run_seconds": secs,
           "accuracy": {f"{a}/{t}": v for (a, t), v in acc.items()},
           "launches": launches})
-    for key in (("brsgd", "scale"), ("brsgd", "gaussian")):
+    gated = (("brsgd", "scale"), ("brsgd", "gaussian"),
+             ("trimmed_mean", "gaussian"), ("multi_krum", "scale"),
+             ("geomedian", "scale"))
+    for key in gated:
         if not acc[key] > base - 0.2:
             fail(f"{key}: accuracy {acc[key]} not within 0.2 of the "
                  f"no-attack mean baseline {base}")
@@ -350,7 +423,110 @@ def phase_main_path(torch, kern):
 
 
 # ---------------------------------------------------------------------------
-# 6. timing
+# 6. the elastic path
+# ---------------------------------------------------------------------------
+
+def phase_elastic(torch, kern):
+    import numpy as np
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import engine, threat
+    from repro_torch.data.pipeline import ArrivalSchedule
+    from repro_torch.paper import robustness as rob
+    from repro_torch.paper.common import regression_problem
+    m, d = MAIN_SHAPE
+    q = int(0.75 * m)
+    rng = np.random.default_rng(300)
+    G = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32),
+                        device="cuda")
+    G[:5] *= 1e10                                      # scale-attacked rows
+    arrival = torch.zeros(4, m, device="cuda")
+    arrival[torch.as_tensor(rng.permutation(m) % 4), torch.arange(m)] = 1.0
+    active = engine.arrival_active(arrival, q)
+    G_cpu, active_cpu = G.cpu(), active.cpu()
+    card_vs_cpu = {}
+    for agg in engine.registered():
+        cfg = ByzantineConfig(aggregator=agg, alpha=0.25, quorum=q, max_m=m)
+        got, st = engine.stream_aggregate(G, cfg, arrival, None, True)
+        want, bst = engine.aggregate_local(G, cfg, True, valid=active)
+        cpu, cst = engine.aggregate_local(G_cpu, cfg, True, valid=active_cpu)
+        torch.cuda.synchronize()
+        # the masked statistics run as torch ops on either device: the
+        # selection, medians and row-order sums agree exactly, the rest
+        # (l1 sums, gram products, geomedian's iterations) within REL_TOL
+        want_c = want.cpu()
+        exact_rule = agg in ("median", "trimmed_mean")
+        if not (torch.equal(bst.selected.cpu(), cst.selected)
+                and (_exact(want_c, cpu) if exact_rule
+                     else _rel_ok(want_c, cpu))):
+            fail(f"aggregate_local {agg} (masked): card and CPU differ "
+                 f"(max abs err {_err(want_c, cpu)}, selected "
+                 f"{bst.selected.tolist()} vs {cst.selected.tolist()})")
+        card_vs_cpu[agg] = {"bit_exact": _exact(want_c, cpu),
+                            "max_abs_err": _err(want_c, cpu)}
+        if not (_exact(got, want) and torch.equal(st.selected, bst.selected)):
+            fail(f"stream_aggregate {agg}: differs from the bulk masked "
+                 f"pass (max abs err {_err(got, want)})")
+        if int(st.selected.sum()) > q or bool((st.selected
+                                               & (active == 0)).any()):
+            fail(f"stream_aggregate {agg}: selected a dropped worker or "
+                 f"more than the quorum")
+    emit({"check": "masked_card_vs_cpu", "shape": [m, d], "quorum": q,
+          "selection": "equal", "rel_tol": REL_TOL, "rules": card_vs_cpu})
+    emit({"check": "stream_equals_bulk", "shape": [m, d], "buckets": 4,
+          "quorum": q, "aggregators": list(engine.registered()),
+          "bit_exact": True})
+
+    # the CLAIM subset of the robustness twin, at 1 seed
+    kern.reset_launches()
+    t0 = time.perf_counter()
+    clean = rob.run("mean", "none", 0.0)
+    errs = {(qq, "brsgd", a): rob.run("brsgd", a, quorum=qq)
+            for qq in rob.CLAIM_QUORUMS for a in rob.ATTACKS}
+    for a in ("scale", "negation"):
+        errs[(rob.M, "mean", a)] = rob.run("mean", a)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kern.LAUNCHES)
+    ok, lines = rob.claim(errs, clean)
+    for line in lines:
+        print(line, flush=True)
+    emit({"check": "robustness_claim_subset", "seeds": 1,
+          "clean": clean, "seconds": secs, "launches": launches,
+          "errors": {f"{k[0]}/{k[1]}/{k[2]}": v if math.isfinite(v)
+                     else str(v) for k, v in errs.items()}})
+    if not ok:
+        fail("the robustness CLAIM subset failed")
+
+    # one elastic step at q = 15 (LeNet-width G, brsgd under scale)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bcfg = ByzantineConfig(aggregator="brsgd", attack="scale", alpha=0.25,
+                           quorum=q, max_m=m)
+    fixed = ByzantineConfig(aggregator="brsgd", attack="scale", alpha=0.25)
+    Gc = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32),
+                         device="cuda")
+    w = torch.zeros(rob.D, device="cuda")
+    sched_act = torch.as_tensor(ArrivalSchedule(m, q, byz=bcfg).active(0),
+                                device="cuda")
+    _, X, y = regression_problem(m, rob.N, 0, "cuda")
+    Gr = torch.einsum("mnd,mn->md", X, torch.matmul(X, w) - y) / rob.N
+    parts = {
+        "lenet_width_elastic": lambda: engine.aggregate_local(
+            threat.apply_dense(Gc, gen, bcfg, active=active), bcfg,
+            return_state=True, valid=active),
+        "lenet_width_fixed": lambda: engine.aggregate_local(
+            threat.apply_dense(Gc, gen, fixed), fixed, return_state=True),
+        "robustness_elastic": lambda: engine.aggregate_local(
+            threat.apply_dense(Gr, gen, bcfg, active=sched_act), bcfg,
+            valid=sched_act),
+    }
+    emit({"timing": "elastic_step_brsgd_scale", "quorum": q, "m": m,
+          "reps": HOST_REPS,
+          **{f"{k}_ms": _host_ms(torch, fn) for k, fn in parts.items()}})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 7. timing
 # ---------------------------------------------------------------------------
 
 def _time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
@@ -400,6 +576,7 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps):
     _, w_sel = kern.select_mean(G, st["scores"], st["l1"], kth, T)
     mask = torch.ones(m, device="cuda")
     n_sel = int(w_sel.sum())
+    k = ref.trim_k(TRIM_FRACS[0], m)
     mp = ref.padded_workers(m)
     n_cmpx = sum(len(s) for s in ref.bitonic_stages(mp))
     sort_ops = 2 * n_cmpx * d
@@ -432,9 +609,14 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps):
             library=lambda: torch.quantile(G, 0.5, dim=0),
             nbytes=gb + 2 * d * 4 + 2 * m * 4,
             ops=(m + 1 + 2 * m) * d + sort_ops + 3 * m * d),
+        "trimmed_mean": dict(
+            fn=lambda: kern.trimmed_mean(G, TRIM_FRACS[0]),
+            plain=lambda: ref.trimmed_mean_ref(G, TRIM_FRACS[0]),
+            library=lambda: torch.sort(G, dim=0).values[k:m - k].mean(0),
+            nbytes=gb + d * 4, ops=sort_ops + (m - 2 * k) * d),
     }
     raw = _raw_launchers(torch, G, torch.stack([st["scores"], st["l1"]]),
-                         torch.stack([kth, 2.0 * T]).float(), mask)
+                         torch.stack([kth, 2.0 * T]).float(), mask, k)
     out = {}
     for name, r in rows.items():
         bound_ms, bound_by = _bound(r["nbytes"], r["ops"])
@@ -449,7 +631,7 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps):
     return out
 
 
-def _raw_launchers(torch, G, sl, pr, w):
+def _raw_launchers(torch, G, sl, pr, w, k):
     """Each kernel's bare launch through the C interface, on buffers
     allocated once: the kernel's own time, without the wrapper's checks,
     allocations and partial sums."""
@@ -483,6 +665,8 @@ def _raw_launchers(torch, G, sl, pr, w):
             P(G), m, d, P(w), P(out), nb, stream)),
         "brsgd_stats": lambda: check(lib.brsgd_column_stats(
             P(G), m, d, P(med), P(mean), P(sc), P(l1), nb, stream)),
+        "trimmed_mean": lambda: check(lib.brsgd_trimmed_mean(
+            P(G), m, d, k, P(out), nb, stream)),
     }
 
 
@@ -506,6 +690,7 @@ def main() -> int:
     worst = phase_kernels(torch, kern, ref)
     phase_loop(torch, kern)
     launches = phase_main_path(torch, kern)
+    elastic_launches = phase_elastic(torch, kern)
     main_t = phase_timing(torch, kern, ref, MAIN_SHAPE, reps=200,
                           plain_reps=20)
     hbm_t = phase_timing(torch, kern, ref, HBM_SHAPE, reps=20, plain_reps=3)
@@ -514,10 +699,12 @@ def main() -> int:
         t, h = main_t[name], hbm_t[name]
         row = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": REPLACES[name], "launches": launches[name],
+               "elastic_launches": elastic_launches[name],
                "max_abs_err": worst[name], "ms": t["kernel_ms"],
                "wrapper_ms": t["wrapper_ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+               "library_call": LIBRARY_CALLS[name],
                "shape": list(MAIN_SHAPE), "hbm_shape": list(HBM_SHAPE),
                "hbm_ms": h["kernel_ms"], "hbm_wrapper_ms": h["wrapper_ms"],
                "hbm_bound_ms": h["bound_ms"], "hbm_plain_ms": h["plain_ms"],

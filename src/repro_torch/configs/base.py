@@ -9,7 +9,8 @@ from dataclasses import dataclass
 class ByzantineConfig:
     """Robust-aggregation config — the paper's technique knobs."""
 
-    # any rule registered in core.engine: brsgd | mean | median | krum
+    # any rule registered in core.engine: brsgd | mean | median |
+    # trimmed_mean | krum | multi_krum | geomedian
     aggregator: str = "brsgd"
     beta: float = 0.5             # kept fraction (paper: beta = 1/2)
     threshold: float = 0.0        # 𝔗; 0.0 = auto (lower quartile of l1)

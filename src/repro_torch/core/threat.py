@@ -3,14 +3,16 @@
 Port of the JAX package's ``core/threat.py`` for the single-host loop.
 An :class:`AttackSpec` declares its ``scope`` (``"gradient"`` corrupts
 worker-gradient values, ``"data"`` corrupts byzantine workers' labels in
-the pipeline), the honest statistics it ``knows`` (``hsum`` Σ g_i and
-``hsqsum`` Σ g_i² over honest workers, per coordinate) and a pure rule.
+the pipeline, ``"timing"`` delays their arrival in an elastic round),
+the honest statistics it ``knows`` (``hsum`` Σ g_i and ``hsqsum`` Σ g_i²
+over honest workers, per coordinate) and a pure rule.
 
-Membership: ``"prefix"`` (workers 0..⌊αm⌋-1, the paper's setting).  The
-keyed ``"random"`` and ``"resample"`` policies are not ported yet and
-raise.  Gaussian noise is drawn from a ``torch.Generator``; its bits
-differ from ``jax.random``'s, so parity with the JAX package holds for
-the noise only in distribution.
+Membership: ``"prefix"`` (workers 0..⌊αm⌋-1, the paper's setting),
+``"random"`` (a fixed subset drawn once from ``cfg.byz_seed``) and
+``"resample"`` (a fresh subset per step, from the step's generator).
+Draws come from ``torch.Generator``s; their bits differ from
+``jax.random``'s, so the keyed policies and gaussian noise agree with
+the JAX package in distribution only.
 """
 from __future__ import annotations
 
@@ -25,31 +27,79 @@ from ..configs.base import ByzantineConfig
 KNOWLEDGE = ("hsum", "hsqsum")
 MEMBERSHIP_POLICIES = ("prefix", "random", "resample")
 
+# domain-separates a step's membership draw from its other seeds
+_MEMBERSHIP_TAG = 0x6279_7A6D  # "byzm"
+
 
 # ---------------------------------------------------------------------------
 # byzantine membership
 # ---------------------------------------------------------------------------
 
-def n_byzantine(cfg: ByzantineConfig, m: int) -> int:
-    """⌊αm⌋ — every policy corrupts exactly this many workers."""
-    return int(cfg.alpha * m)
+def n_byzantine(cfg: ByzantineConfig, m: int, n_active=None):
+    """⌊αm⌋ — every policy corrupts exactly this many workers.  With
+    ``n_active`` (a tensor, elastic rounds) it is ⌊α·n_active⌋ of the
+    workers that made the round, the product taken in float32 as the
+    JAX package takes it."""
+    if n_active is None:
+        return int(cfg.alpha * m)
+    return (cfg.alpha * n_active.to(torch.float32)).to(torch.int64)
 
 
-def membership_mask(cfg: ByzantineConfig, m: int, device="cpu"):
-    """[m] bool — which workers are byzantine under ``cfg.membership``."""
+def _membership_generator(cfg: ByzantineConfig, generator_or_step):
+    """The generator the keyed policies draw from: ``byz_seed``'s for
+    "random"; for "resample" the step's generator, or one seeded from
+    (byz_seed, step) when a step index is given."""
+    if cfg.membership == "random":
+        return torch.Generator().manual_seed(cfg.byz_seed)
+    if cfg.membership != "resample":
+        raise ValueError(f"unknown membership policy {cfg.membership!r}; "
+                         f"choose from {MEMBERSHIP_POLICIES}")
+    if generator_or_step is None:
+        raise ValueError("membership='resample' needs the step's generator "
+                         "or step index")
+    if isinstance(generator_or_step, torch.Generator):
+        return generator_or_step
+    seed = np.random.SeedSequence(
+        [cfg.byz_seed, int(generator_or_step), _MEMBERSHIP_TAG])
+    return torch.Generator().manual_seed(int(seed.generate_state(1)[0]))
+
+
+def membership_mask(cfg: ByzantineConfig, m: int, generator_or_step=None,
+                    active=None, device=None):
+    """[m] bool — which workers are byzantine under ``cfg.membership``,
+    on ``device`` (default: ``active``'s device, else the CPU).
+
+    ``generator_or_step`` is read by "resample" only.  ``active`` ([m]
+    0/1, elastic rounds) restricts the draw to the active workers:
+    ⌊α·n_active⌋ byzantines, all of them active — "prefix" takes the
+    first that many active slots, the keyed policies rank the active
+    slots by a random priority (dropped slots +inf, never drawn)."""
+    if device is None:
+        device = active.device if active is not None else "cpu"
+    if active is not None:
+        v = active.to(device) > 0
+        nb = n_byzantine(cfg, m, v.sum())
+        if cfg.membership == "prefix":
+            return v & (torch.cumsum(v.to(torch.int64), 0) <= nb)
+        gen = _membership_generator(cfg, generator_or_step)
+        u = torch.rand(m, generator=gen, device=gen.device).to(device)
+        prio = torch.where(v, u, float("inf"))
+        rank = (prio[None, :] < prio[:, None]).sum(dim=1)
+        return v & (rank < nb)
     n_byz = n_byzantine(cfg, m)
     if cfg.membership == "prefix" or n_byz == 0:
         return torch.arange(m, device=device) < n_byz
-    if cfg.membership in MEMBERSHIP_POLICIES:
-        raise NotImplementedError(f"membership={cfg.membership!r} is not "
-                                  f"ported yet; use 'prefix'")
-    raise ValueError(f"unknown membership policy {cfg.membership!r}; "
-                     f"choose from {MEMBERSHIP_POLICIES}")
+    gen = _membership_generator(cfg, generator_or_step)
+    perm = torch.randperm(m, generator=gen, device=gen.device).to(device)
+    mask = torch.zeros(m, dtype=torch.bool, device=device)
+    mask[perm[:n_byz]] = True
+    return mask
 
 
 def data_membership(cfg: ByzantineConfig, m: int, step: int = 0) -> np.ndarray:
-    """NumPy-side membership mask for data-scope corruption."""
-    return membership_mask(cfg, m).numpy()
+    """NumPy-side membership mask for the pipelines, which have no step
+    generator: "resample" draws from (byz_seed, step) instead."""
+    return membership_mask(cfg, m, step).numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -60,16 +110,20 @@ def data_membership(cfg: ByzantineConfig, m: int, step: int = 0) -> np.ndarray:
 class AttackSpec:
     """Scope-independent description of one Byzantine attack."""
     name: str
-    scope: str = "gradient"             # "gradient" | "data"
+    scope: str = "gradient"             # "gradient" | "data" | "timing"
     knows: frozenset = frozenset()      # honest stats the rule reads
     corrupt: Optional[Callable] = None  # (g, know, gen, cfg) -> evil
     corrupt_labels: Optional[Callable] = None  # (y, n_classes) -> y'
+    # timing-scope rule on one elastic round's per-worker arrival delays
+    # (numpy [m], +inf = never arrives): (delays, is_byz, cfg) -> delays'.
+    # Run by data.pipeline.ArrivalSchedule; gradients stay untouched.
+    delay: Optional[Callable] = None
     # worker-independent rule: every byzantine worker emits the same
     # row, computed once and broadcast
     shared_row: bool = False
 
     def __post_init__(self):
-        if self.scope not in ("gradient", "data"):
+        if self.scope not in ("gradient", "data", "timing"):
             raise ValueError(f"{self.name}: unknown scope {self.scope!r}")
         if self.shared_row and self.scope != "gradient":
             raise ValueError(f"{self.name}: shared_row is a gradient-scope "
@@ -80,6 +134,9 @@ class AttackSpec:
         if (self.scope == "data") != (self.corrupt_labels is not None):
             raise ValueError(f"{self.name}: data specs set corrupt_labels, "
                              f"other scopes don't")
+        if (self.scope == "timing") != (self.delay is not None):
+            raise ValueError(f"{self.name}: timing specs set delay, other "
+                             f"scopes don't")
         unknown = set(self.knows) - set(KNOWLEDGE)
         if unknown:
             raise ValueError(f"{self.name}: unknown knowledge "
@@ -157,6 +214,10 @@ register(AttackSpec("ipm", knows=frozenset({"hsum"}), corrupt=_ipm,
 # the paper's Label Shift: y -> (n_classes - 1) - y on byzantine shards
 register(AttackSpec("label_flip", scope="data",
                     corrupt_labels=lambda y, n_classes: n_classes - 1 - y))
+# byzantine workers stall (never arrive): an elastic round's quorum fills
+# from honest workers, or runs short-handed; no gradient is corrupted
+register(AttackSpec("stall", scope="timing",
+                    delay=lambda d, is_byz, cfg: np.where(is_byz, np.inf, d)))
 
 
 def is_gradient_attack(cfg: ByzantineConfig) -> bool:
@@ -166,35 +227,50 @@ def is_gradient_attack(cfg: ByzantineConfig) -> bool:
     return get_spec(cfg.attack).scope == "gradient"
 
 
-def _dense_knowledge(G, mask, knows, n_honest: int) -> dict:
-    """Honest per-coordinate moments from the full [m, d] matrix."""
+def _dense_knowledge(G, mask, knows, n_honest, active=None) -> dict:
+    """Honest per-coordinate moments from the full [m, d] matrix.  In an
+    elastic round the dropped workers are excluded too: the adversary
+    reads only gradients that were produced.  ``n_honest`` rides along
+    as a float32 tensor on G's device, so the rules divide by it with
+    IEEE division on the card too."""
     know = {}
     if knows:
-        keep = torch.where(mask[:, None], torch.zeros_like(G),
+        drop = mask if active is None else (mask | ~(active > 0))
+        keep = torch.where(drop[:, None], torch.zeros_like(G),
                            G.to(torch.float32))
         if "hsum" in knows:
             know["hsum"] = keep.sum(dim=0)
         if "hsqsum" in knows:
             know["hsqsum"] = (keep * keep).sum(dim=0)
-        know["n_honest"] = float(n_honest)
+        know["n_honest"] = torch.as_tensor(n_honest, dtype=torch.float32,
+                                           device=G.device)
     return know
 
 
-def apply_dense(G, generator, cfg: ByzantineConfig):
+def apply_dense(G, generator, cfg: ByzantineConfig, active=None):
     """Corrupt the byzantine rows of the dense worker-gradient matrix
-    G [m, d].  Data-scope attacks and alpha=0 are no-ops here (data
-    corruption happens in the pipeline).  ``generator`` (a
-    ``torch.Generator`` on G's device) drives key-driven rules
-    (gaussian); deterministic rules ignore it."""
+    G [m, d].  Data- and timing-scope attacks and alpha=0 are no-ops
+    here (data corruption happens in the pipeline, arrival timing in
+    the ArrivalSchedule).  ``generator`` (a ``torch.Generator`` on G's
+    device) drives gaussian noise and "resample" membership.
+    ``active`` ([m] 0/1) scopes an elastic round: membership and
+    knowledge are drawn over the active set only."""
     if not is_gradient_attack(cfg):
         return G
     spec = get_spec(cfg.attack)
     m = G.shape[0]
-    n_byz = n_byzantine(cfg, m)
-    if n_byz == 0:
-        return G
-    mask = membership_mask(cfg, m, G.device)
-    know = _dense_knowledge(G, mask, spec.knows, m - n_byz)
+    if active is None:
+        n_byz = n_byzantine(cfg, m)
+        if n_byz == 0:
+            return G
+        mask = membership_mask(cfg, m, generator, device=G.device)
+        n_honest = m - n_byz
+    else:
+        active = torch.as_tensor(active).to(G.device)
+        na = (active > 0).sum()
+        mask = membership_mask(cfg, m, generator, active=active)
+        n_honest = na - n_byzantine(cfg, m, na)
+    know = _dense_knowledge(G, mask, spec.knows, n_honest, active)
     if spec.shared_row:
         evil = spec.corrupt(G[0], know, generator, cfg)[None]
     else:

@@ -1,9 +1,12 @@
-"""Per-worker batch pipeline for the LeNet repro.
+"""Per-worker batch pipeline for the LeNet repro, and the arrival
+schedule of elastic rounds.
 
 Batches carry a leading worker axis [m, b, ...] (numpy).  Byzantine
 *data* corruption happens here: a data-scope ``AttackSpec`` (label_flip)
 applies its ``corrupt_labels`` rule to the byzantine workers' shards,
-per ``batch(step)``, from the config's membership mask.
+per ``batch(step)``, from the config's membership mask.  Arrival timing
+of an elastic round happens here too (:class:`ArrivalSchedule`), where a
+timing-scope spec (stall) rewrites the byzantine workers' delays.
 """
 from __future__ import annotations
 
@@ -16,13 +19,100 @@ from ..core import threat
 from .synthetic import fmnist_like
 
 
-def data_attack_spec(byz: Optional[ByzantineConfig]):
-    """The active data-scope AttackSpec, or None (gradient-scope and
-    attack-free configs corrupt nothing here)."""
+def _attack_spec(byz: Optional[ByzantineConfig], scope: str):
     if byz is None or byz.attack == "none" or byz.alpha <= 0:
         return None
     spec = threat.get_spec(byz.attack)
-    return spec if spec.scope == "data" else None
+    return spec if spec.scope == scope else None
+
+
+def data_attack_spec(byz: Optional[ByzantineConfig]):
+    """The active data-scope AttackSpec, or None (gradient-scope and
+    attack-free configs corrupt nothing here)."""
+    return _attack_spec(byz, "data")
+
+
+def timing_attack_spec(byz: Optional[ByzantineConfig]):
+    """The active timing-scope AttackSpec (stall), or None.  Timing
+    attacks act on the :class:`ArrivalSchedule`'s delays, not on data
+    or gradients."""
+    return _attack_spec(byz, "timing")
+
+
+STRAGGLE_DISTS = ("none", "exp", "pareto")
+
+
+def parse_straggle(arg: str) -> tuple:
+    """Parse a ``dist[:scale]`` straggle argument into ``(dist, scale)``.
+    ``none`` takes no scale; ``exp``/``pareto`` default to scale 1.0 and
+    reject non-positive scales."""
+    dist, sep, scale_s = str(arg).partition(":")
+    if dist not in STRAGGLE_DISTS:
+        raise ValueError(
+            f"straggle distribution {dist!r}: choose from "
+            f"{', '.join(STRAGGLE_DISTS)} (format: dist[:scale], "
+            f"e.g. exp:0.5)")
+    if not sep:
+        return dist, 1.0
+    if dist == "none":
+        raise ValueError("straggle 'none' takes no scale")
+    try:
+        scale = float(scale_s)
+    except ValueError:
+        raise ValueError(
+            f"straggle scale {scale_s!r} is not a number "
+            f"(format: dist[:scale], e.g. pareto:2.0)") from None
+    if not scale > 0:
+        raise ValueError(f"straggle scale must be positive, got {scale}")
+    return dist, scale
+
+
+class ArrivalSchedule:
+    """Per-step worker arrival delays and the quorum-selected active set.
+
+    Each step draws an arrival delay per worker from ``straggle``
+    (``none`` | ``exp`` | ``pareto``, times ``scale``), lets a
+    timing-scope attack rewrite the byzantine workers' delays (``stall``
+    pins them to +inf: they never arrive), and takes the first
+    ``quorum`` workers to arrive as the round's active set.  Draws are
+    keyed on ``(seed, step)``, so the schedule is reproducible and the
+    same as the JAX package's.  ``active(step)`` is the [m] 0/1 float32
+    mask; a worker with an infinite delay is never active, even when
+    fewer than ``quorum`` arrive (the round then runs under quorum)."""
+
+    def __init__(self, n_workers: int, quorum: int, straggle: str = "none",
+                 scale: float = 1.0, byz: Optional[ByzantineConfig] = None,
+                 seed: int = 0):
+        if straggle not in STRAGGLE_DISTS:
+            raise ValueError(f"straggle={straggle!r}: "
+                             f"choose from {', '.join(STRAGGLE_DISTS)}")
+        if not 0 < quorum <= n_workers:
+            raise ValueError(f"quorum={quorum} out of range for "
+                             f"{n_workers} workers")
+        self.m, self.quorum = n_workers, quorum
+        self.straggle, self.scale = straggle, scale
+        self.byz, self.seed = byz, seed
+
+    def delays(self, step: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, step))
+        if self.straggle == "exp":
+            d = rng.exponential(self.scale, self.m)
+        elif self.straggle == "pareto":
+            d = rng.pareto(2.0, self.m) * self.scale
+        else:
+            d = np.zeros(self.m)
+        spec = timing_attack_spec(self.byz)
+        if spec is not None:
+            is_byz = threat.data_membership(self.byz, self.m, step)
+            d = spec.delay(d, is_byz, self.byz)
+        return d
+
+    def active(self, step: int) -> np.ndarray:
+        d = self.delays(step)
+        order = np.argsort(d, kind="stable")
+        act = np.zeros(self.m, np.float32)
+        act[order[:self.quorum]] = 1.0
+        return act * np.isfinite(d)
 
 
 class ImageWorkerPipeline:

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "brsgd_column_stats": (_P, _I, _L, _P, _P, _P, _P, _I, _P),
     "brsgd_select_mean": (_P, _I, _L, _P, _P, _P, _P, _I, _P),
     "brsgd_masked_mean": (_P, _I, _L, _P, _P, _I, _P),
+    "brsgd_trimmed_mean": (_P, _I, _L, _I, _P, _I, _P),
 }
 
 

@@ -15,6 +15,7 @@ fused_stats         fused_stats_pallas (B1); brsgd_partials is its
 select_mean         select_mean_pallas (B2)
 masked_mean         masked_mean_pallas (B3)
 brsgd_stats         brsgd_stats_pallas (B4); cwise_median is its median
+trimmed_mean        trimmed_mean_pallas (B5)
 ==================  ====================================================
 """
 from __future__ import annotations
@@ -27,12 +28,12 @@ from . import ref
 from ._build import load
 
 # worker counts the kernels are instantiated for (csrc BRSGD_DISPATCH)
-SUPPORTED_M = (4, 5, 7, 8, 16, 20, 32, 64)
+SUPPORTED_M = (4, 5, 7, 8, 10, 16, 20, 32, 64)
 NEED_BITS = {"scores": 1, "l1": 2, "d2med": 4, "gram": 8}
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"fused_stats": 0, "select_mean": 0, "masked_mean": 0,
-            "brsgd_stats": 0}
+            "brsgd_stats": 0, "trimmed_mean": 0}
 
 
 def reset_launches() -> None:
@@ -159,3 +160,15 @@ def brsgd_stats(G):
 def cwise_median(G):
     """Coordinate-wise median [d] (the median output of brsgd_stats)."""
     return brsgd_stats(G)[0]
+
+
+def trimmed_mean(G, trim_frac: float):
+    """Coordinate-wise trimmed mean [d]: per column, the mean of the
+    sorted rows k..m-k-1 with k = ``ref.trim_k(trim_frac, m)``."""
+    m, d = _check_matrix(G, "trimmed_mean")
+    k = ref.trim_k(trim_frac, m)
+    out = torch.empty((d,), dtype=torch.float32, device=G.device)
+    lib = load()
+    _launch(lib, "trimmed_mean", lib.brsgd_trimmed_mean, G, _ptr(G), m, d,
+            k, _ptr(out), _n_blocks(lib, d))
+    return out

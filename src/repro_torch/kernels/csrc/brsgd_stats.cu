@@ -14,6 +14,9 @@
 //                                    the masked row mean.
 //   combine_rows_kernel<M, false> <- masked_mean_pallas (masked_mean_kernel):
 //                                    Σ w_i g_i / Σ w_i, empty mask divides by 1.
+//   trimmed_mean_kernel<M>        <- trimmed_mean_pallas (_trimmed_mean_kernel):
+//                                    per column, the mean of the sorted rows
+//                                    k..m-k-1 ([d] out, no partials).
 //
 // What bounds them: bytes.  Each kernel reads G once (m·d·4 bytes) and
 // does O(m log² m) compare-exchanges per column (O(m²) for gram), far
@@ -105,14 +108,14 @@ __device__ __forceinline__ void bitonic_sort(At at) {
 // copy of the column beside the column itself spills at M = 64.
 constexpr int SMEM_SORT_M = 64;
 
-// Median of the column g, padded with +inf to a power of two; scratch
-// holds THREADS columns of pow2_at_least(M) floats when M >= SMEM_SORT_M.
-// A NaN anywhere in the column makes the median NaN: in the plain
-// version's NaN-propagating network every output depends on every input,
-// so every sorted row is NaN there.  One test per column costs less than
-// one per compare-exchange.
+// Fills at(0..MP-1) with the column g padded with +inf to a power of two
+// and sorts it; returns whether the column holds a NaN.  A NaN anywhere
+// in the column makes every sorted row NaN in the plain version's
+// NaN-propagating network (every output depends on every input), so the
+// callers return NaN for such a column.  One test per column costs less
+// than one per compare-exchange.
 template <int M, typename At>
-__device__ __forceinline__ float sorted_median(const float (&g)[M], At at) {
+__device__ __forceinline__ bool sort_column(const float (&g)[M], At at) {
   constexpr int MP = pow2_at_least(M);
   bool any_nan = false;
 #pragma unroll
@@ -120,11 +123,34 @@ __device__ __forceinline__ float sorted_median(const float (&g)[M], At at) {
 #pragma unroll
   for (int i = 0; i < M; ++i) any_nan |= isnan(g[i]);
   bitonic_sort<MP>(at);
-  if (any_nan) return NAN;
+  return any_nan;
+}
+
+template <int M, typename At>
+__device__ __forceinline__ float sorted_median(const float (&g)[M], At at) {
+  if (sort_column<M>(g, at)) return NAN;
   if (M % 2) return at(M / 2);
   return __fmul_rn(0.5f, __fadd_rn(at(M / 2 - 1), at(M / 2)));
 }
 
+// Mean of the sorted rows k..M-k-1, summed in row order from at(k) and
+// IEEE-divided by M - 2k (ref.trimmed_mean_ref).  k is a runtime value:
+// the loop runs over every row under a predicate instead of indexing
+// with k, so below SMEM_SORT_M the column stays in registers.
+template <int M, typename At>
+__device__ __forceinline__ float sorted_trimmed_mean(const float (&g)[M], int k, At at) {
+  if (sort_column<M>(g, at)) return NAN;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    if (k <= i && i < M - k) acc = i == k ? at(i) : __fadd_rn(acc, at(i));
+  }
+  return __fdiv_rn(acc, static_cast<float>(M - 2 * k));
+}
+
+// The sort slots of this thread: registers below SMEM_SORT_M; from there
+// on its strided column of scratch, which holds THREADS columns of
+// pow2_at_least(M) floats.
 template <int M>
 __device__ __forceinline__ float column_median(const float (&g)[M], float* scratch) {
   if constexpr (M >= SMEM_SORT_M) {
@@ -133,6 +159,18 @@ __device__ __forceinline__ float column_median(const float (&g)[M], float* scrat
   } else {
     float s[pow2_at_least(M)];
     return sorted_median<M>(g, [&s](int i) -> float& { return s[i]; });
+  }
+}
+
+template <int M>
+__device__ __forceinline__ float column_trimmed_mean(const float (&g)[M], int k,
+                                                     float* scratch) {
+  if constexpr (M >= SMEM_SORT_M) {
+    float* col = scratch + threadIdx.x;
+    return sorted_trimmed_mean<M>(g, k, [col](int i) -> float& { return col[i * THREADS]; });
+  } else {
+    float s[pow2_at_least(M)];
+    return sorted_trimmed_mean<M>(g, k, [&s](int i) -> float& { return s[i]; });
   }
 }
 
@@ -299,6 +337,27 @@ combine_rows_kernel(const float* __restrict__ G, long long d,
   }
 }
 
+// B5: coordinate-wise trimmed mean out [d] with k rows trimmed per side
+// (0 <= 2k < M, checked by the wrapper).  Replaces
+// src/repro/kernels/brsgd_stats.py:_trimmed_mean_kernel (trimmed_mean_pallas).
+// Bound: bytes, G read once plus out written, (M+1)·d·4 B; the sort costs
+// the same compare-exchanges per column as B1/B4 (240 at M = 20).  One
+// thread per column, a grid-stride walk over the columns, the ragged
+// last block masked by the column test; no partials, no reduction.
+template <int M>
+__global__ void __launch_bounds__(THREADS)
+trimmed_mean_kernel(const float* __restrict__ G, long long d, int k,
+                    float* __restrict__ out) {
+  extern __shared__ float sort_scratch[];  // used from SMEM_SORT_M on
+  for (long long col = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+       col < d; col += static_cast<long long>(gridDim.x) * THREADS) {
+    float g[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) g[i] = __ldg(G + i * d + col);
+    out[col] = column_trimmed_mean<M>(g, k, sort_scratch);
+  }
+}
+
 template <int M>
 int launch_stats(const float* G, long long d, int needs, float* sc, float* l1,
                  float* d2, float* gram, float* med, float* mean, int n_blocks,
@@ -333,6 +392,15 @@ int launch_combine(const float* G, long long d, const float* w_in, const float* 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int M>
+int launch_trimmed_mean(const float* G, long long d, int k, float* out, int n_blocks,
+                        cudaStream_t stream) {
+  if (k < 0 || 2 * k >= M) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = M >= SMEM_SORT_M ? sizeof(float) * pow2_at_least(M) * THREADS : 0;
+  trimmed_mean_kernel<M><<<n_blocks, THREADS, smem, stream>>>(G, d, k, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // the worker counts the kernels are instantiated for
@@ -342,6 +410,7 @@ int launch_combine(const float* G, long long d, const float* w_in, const float* 
     case 5: { constexpr int M = 5; return CALL; }    \
     case 7: { constexpr int M = 7; return CALL; }    \
     case 8: { constexpr int M = 8; return CALL; }    \
+    case 10: { constexpr int M = 10; return CALL; }  \
     case 16: { constexpr int M = 16; return CALL; }  \
     case 20: { constexpr int M = 20; return CALL; }  \
     case 32: { constexpr int M = 32; return CALL; }  \
@@ -395,6 +464,14 @@ int brsgd_masked_mean(const void* G, int m, long long d, const void* w, void* ou
   BRSGD_DISPATCH(m, launch_combine<M>(
       static_cast<const float*>(G), d, static_cast<const float*>(w), nullptr,
       static_cast<float*>(out), nullptr, n_blocks, static_cast<cudaStream_t>(stream)))
+}
+
+// B5: trimmed mean [d], k rows dropped from each side of every column
+int brsgd_trimmed_mean(const void* G, int m, long long d, int k, void* out,
+                       int n_blocks, void* stream) {
+  BRSGD_DISPATCH(m, launch_trimmed_mean<M>(
+      static_cast<const float*>(G), d, k, static_cast<float*>(out), n_blocks,
+      static_cast<cudaStream_t>(stream)))
 }
 
 }  // extern "C"

@@ -4,6 +4,14 @@ A CUDA tensor goes to the hand-written kernel (:mod:`.brsgd_stats`),
 which launches or raises; a CPU tensor goes to the plain version
 (:mod:`.ref`).  There is no flag that sends a CUDA tensor to the plain
 version, and no fallback when a build or launch fails.
+
+The elastic ``valid=`` calls are the exception by design, as in the JAX
+package, which has no Pallas kernel for masked statistics and takes its
+jnp reference for them on the TPU too: a masked ``fused_stats``,
+``cwise_median`` or ``trimmed_mean`` runs the masked torch functions of
+:mod:`.ref` on whichever device G lies on.  The masked combine still
+goes through the masked-mean kernel (``engine.aggregate_local``).  A
+fused masked kernel is optional later work.
 """
 from __future__ import annotations
 
@@ -11,14 +19,31 @@ from . import brsgd_stats as kern
 from . import ref
 
 
-def fused_stats(G, needs) -> dict:
-    """Any subset of ``ref.STAT_NAMES`` from one read of G [m, d]."""
-    needs = tuple(n for n in ref.STAT_NAMES if n in needs)
+def _canonical(needs) -> tuple:
+    return tuple(n for n in ref.STAT_NAMES if n in needs)
+
+
+def fused_stats(G, needs, valid=None, rows=None, refs=None) -> dict:
+    """Any subset of ``ref.STAT_NAMES`` from one read of G [m, d].
+
+    ``valid`` ([m] 0/1) switches to the masked pass over the active
+    workers; ``rows``/``refs`` are the streaming-accumulator hooks (one
+    arrival bucket's output slots, shared active-set invariants)."""
+    needs = _canonical(needs)
     if not needs:
         return {}
+    if valid is not None:
+        return ref.masked_fused_stats_ref(G, needs, valid, rows=rows,
+                                          refs=refs)
     if G.is_cuda:
         return kern.fused_stats(G, needs)
     return ref.fused_stats_ref(G, needs)
+
+
+def masked_stat_refs(G, needs, valid) -> dict:
+    """Shared active-set invariants for the streaming accumulator
+    (``ref.masked_stat_refs``), computed once per G."""
+    return ref.masked_stat_refs(G, _canonical(needs), valid)
 
 
 def brsgd_partials(G):
@@ -53,7 +78,20 @@ def brsgd_stats(G):
     return ref.brsgd_stats_ref(G)
 
 
-def cwise_median(G):
+def cwise_median(G, valid=None):
+    """Coordinate-wise median [d]; over the active rows with ``valid``."""
+    if valid is not None:
+        return ref.masked_cwise_median_ref(G, valid)
     if G.is_cuda:
         return kern.cwise_median(G)
     return ref.cwise_median_ref(G)
+
+
+def trimmed_mean(G, trim_frac: float, valid=None):
+    """Coordinate-wise trimmed mean [d], k = ``ref.trim_k(trim_frac, m)``
+    per side; with ``valid`` both counts are over the active rows."""
+    if valid is not None:
+        return ref.masked_trimmed_mean_ref(G, trim_frac, valid)
+    if G.is_cuda:
+        return kern.trimmed_mean(G, trim_frac)
+    return ref.trimmed_mean_ref(G, trim_frac)

@@ -3,9 +3,10 @@
 Each function is the port of the function of the same name in the JAX
 package's ``kernels/ref.py``.  They are the oracles the CUDA kernels in
 ``csrc/brsgd_stats.cu`` are held against on the card, and the path
-``ops`` takes for a tensor that lies on the CPU.  All operate on the
-gradient matrix ``G`` of shape [m, d] (m workers, d dimensions) and run
-on whichever device G lies on.
+``ops`` takes for a tensor that lies on the CPU.  The masked (elastic)
+functions have no kernel, as in the JAX package: ``ops`` runs them on
+either device.  All operate on the gradient matrix ``G`` of shape
+[m, d] (m workers, d dimensions) and run on whichever device G lies on.
 
 Determinism: ``column_mean_ref``/``masked_mean_det`` accumulate rows in
 the fixed order 0, 1, …, m-1 and divide by a tensor on G's device, so
@@ -54,26 +55,50 @@ def padded_workers(m: int) -> int:
     return 1 << max(1, math.ceil(math.log2(m)))
 
 
-def sorted_worker_rows(G):
-    """Rows of G [m, d] sorted ascending per column — a list of m f32
-    [d] tensors, via the static bitonic network, padded with +inf rows
-    to a power of two (pad sorts last).  NaN propagates through each
-    compare-exchange (torch.minimum/maximum), as in the JAX package."""
-    x = G.to(torch.float32)
+def sorted_worker_stack(x):
+    """G [m, d] sorted ascending per column as an [m, d] f32 tensor, via
+    the static bitonic network of :func:`bitonic_stages`, padded with
+    +inf rows to a power of two (pad sorts last).  Each stage is one
+    gather, min, max and select over the stacked rows; NaN propagates
+    through each compare-exchange (torch.minimum/maximum), as in the JAX
+    package.  The CUDA kernels run the same network."""
+    x = x.to(torch.float32)
     m = x.shape[0]
     mp = padded_workers(m)
-    rows = [x[i] for i in range(m)]
-    rows += [torch.full_like(rows[0], math.inf)] * (mp - m)
+    if mp > m:
+        pad = torch.full((mp - m,) + tuple(x.shape[1:]), math.inf,
+                         dtype=torch.float32, device=x.device)
+        x = torch.cat([x, pad])
+    for perm, keep_lo in _stage_tables(mp, x.device):
+        partner = x[perm]
+        x = torch.where(keep_lo, torch.minimum(x, partner),
+                        torch.maximum(x, partner))
+    return x[:m]
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_tables(mp: int, device: torch.device):
+    """Per stage of the size-mp network: each slot's partner [mp] and
+    whether it keeps the smaller value [mp, 1], held on ``device``."""
+    tables = []
     for stage in bitonic_stages(mp):
+        perm = list(range(mp))
+        keep_lo = [False] * mp
         for i, l, asc in stage:
-            lo = torch.minimum(rows[i], rows[l])
-            hi = torch.maximum(rows[i], rows[l])
-            rows[i], rows[l] = (lo, hi) if asc else (hi, lo)
-    return rows[:m]
+            perm[i], perm[l] = l, i
+            keep_lo[i], keep_lo[l] = asc, not asc
+        tables.append((torch.tensor(perm, device=device),
+                       torch.tensor(keep_lo, device=device)[:, None]))
+    return tuple(tables)
+
+
+def sorted_worker_rows(G):
+    """:func:`sorted_worker_stack` as a list of m f32 [d] rows."""
+    return list(sorted_worker_stack(G))
 
 
 def median_from_sorted(rows):
-    """Coordinate-wise median from :func:`sorted_worker_rows` output
+    """Coordinate-wise median from :func:`sorted_worker_stack` output
     (the two-middle average halves exactly)."""
     m = len(rows)
     if m % 2:
@@ -102,7 +127,7 @@ def column_mean_ref(G):
 
 def cwise_median_ref(G):
     """Coordinate-wise median over the workers (rows) of G [m, d]."""
-    return median_from_sorted(sorted_worker_rows(G))
+    return median_from_sorted(sorted_worker_stack(G))
 
 
 def fused_stats_ref(G, needs) -> dict:
@@ -114,7 +139,7 @@ def fused_stats_ref(G, needs) -> dict:
     if "scores" in needs:
         out["scores"] = majority_score_ref(x)
     if "l1" in needs or "d2med" in needs:
-        diff = x - median_from_sorted(sorted_worker_rows(x))[None]
+        diff = x - median_from_sorted(sorted_worker_stack(x))[None]
         if "l1" in needs:
             out["l1"] = diff.abs().sum(dim=1)
         if "d2med" in needs:
@@ -230,3 +255,157 @@ def trim_k(trim_frac: float, m: int) -> int:
     if 2 * k >= m:
         k = (m - 1) // 2
     return k
+
+
+def trimmed_mean_ref(G, trim_frac: float):
+    """Coordinate-wise trimmed mean (Yin et al. 2018): the sorted rows
+    k..m-k-1 summed in row order from rows[k], IEEE-divided by m - 2k,
+    with k = :func:`trim_k`.  One summation for every m (the JAX
+    package's stack switch at m >= 33 is a CPU fusion workaround)."""
+    m = G.shape[0]
+    k = trim_k(trim_frac, m)
+    S = sorted_worker_stack(G)
+    acc = S[k]
+    for i in range(k + 1, m - k):
+        acc = acc + S[i]
+    return exact_div(acc, float(m - 2 * k))
+
+
+# ---------------------------------------------------------------------------
+# elastic (masked) statistics: pad-to-max-m + validity mask
+# ---------------------------------------------------------------------------
+# Every function below takes ``valid`` ([m] 0/1) naming the active worker
+# slots of a padded round.  Dropped slots become exact zeros (``where``,
+# never a multiplicative 0 that would turn inf into NaN), cutoffs and
+# counts are taken over the active set only, and every count stays a
+# tensor on G's device, so no call waits on the host.
+
+def quantile_index_dyn(q: float, n):
+    """:func:`quantile_nearest_index` for a count held in a tensor: the
+    same virtual index q·(n-1) in float32 and the same half-down tie
+    rule."""
+    virt = q * (n.to(torch.float32) - 1.0)
+    low = torch.floor(virt)
+    return torch.where(virt - low <= 0.5, low, low + 1.0).to(torch.int64)
+
+
+def masked_sorted_stack(x, valid):
+    """:func:`sorted_worker_stack` with the dropped rows forced to +inf:
+    rows [0, n_active) are the ascending sort of the active values."""
+    vb = (valid != 0)[:, None]
+    return sorted_worker_stack(torch.where(vb, x.to(torch.float32),
+                                           math.inf))
+
+
+def masked_median_from_stack(S, n_active):
+    """Median over the first ``n_active`` sorted rows (the two middle
+    rows averaged; an odd count reads the middle row twice, and
+    0.5·(a+a) == a).  A non-finite median becomes 0, so an empty round
+    gives zeros, never 0·inf."""
+    na = torch.clamp(n_active.to(torch.int64), min=1)
+    lo = S.index_select(0, ((na - 1) // 2).reshape(1))[0]
+    hi = S.index_select(0, (na // 2).reshape(1))[0]
+    med = 0.5 * (lo + hi)
+    return torch.where(torch.isfinite(med), med, torch.zeros_like(med))
+
+
+def masked_stat_refs(G, needs, valid) -> dict:
+    """The [d]-space invariants of the active set, computed once per G:
+    the zeroed rows ``x``, ``v`` and ``na``; the column mean and majority
+    side (``scores``); the coordinate-wise median (``l1``/``d2med``).
+
+    Each per-worker statistic is a function of that worker's row and of
+    these shared references only, which is what makes the streaming fold
+    (``engine.stream_leaf_stats``) bit-exact with the bulk pass."""
+    v = valid.to(torch.float32)
+    x = torch.where(v[:, None] > 0, G.to(torch.float32), 0.0)
+    na = v.sum()
+    refs = {"x": x, "v": v, "na": na}
+    if "scores" in needs:
+        mean_c = exact_div(det_sum_rows(x), torch.clamp(na, min=1.0))
+        n_above = torch.zeros_like(mean_c)
+        for i in range(x.shape[0]):
+            n_above = n_above + v[i] * (x[i] >= mean_c).to(torch.float32)
+        refs["mean_c"] = mean_c
+        refs["majority_is_above"] = n_above * 2.0 >= na
+    if "l1" in needs or "d2med" in needs:
+        refs["med"] = masked_median_from_stack(
+            masked_sorted_stack(x, v), (v != 0).sum())
+    return refs
+
+
+def masked_fused_stats_ref(G, needs, valid, rows=None, refs=None) -> dict:
+    """Masked :func:`fused_stats_ref`: statistics of the active workers,
+    every dropped slot an exact zero.
+
+    ``rows`` ([m] 0/1) restricts the output slots to one arrival bucket;
+    ``refs`` reuses a :func:`masked_stat_refs` result so every bucket
+    shares the same active-set invariants.  Slot i depends only on row i
+    and the refs, so partials over any partition of the active set sum
+    (over disjoint slots, x + 0 == x) to the bulk ``rows=None`` pass."""
+    if refs is None:
+        refs = masked_stat_refs(G, needs, valid)
+    x, v = refs["x"], refs["v"]
+    r = v if rows is None else v * rows.to(torch.float32)
+    out = {}
+    if "scores" in needs:
+        mean_c = refs["mean_c"]
+        side = torch.where(refs["majority_is_above"][None], x >= mean_c[None],
+                           x < mean_c[None])
+        out["scores"] = r * side.to(torch.float32).sum(dim=1)
+    if "l1" in needs or "d2med" in needs:
+        diff = x - refs["med"][None]
+        if "l1" in needs:
+            out["l1"] = r * diff.abs().sum(dim=1)
+        if "d2med" in needs:
+            out["d2med"] = r * (diff * diff).sum(dim=1)
+    if "gram" in needs:
+        xr = torch.where(r[:, None] > 0, x, 0.0)
+        out["gram"] = xr @ x.T
+    return out
+
+
+def masked_cwise_median_ref(G, valid):
+    """Coordinate-wise median over the active rows."""
+    return masked_median_from_stack(masked_sorted_stack(G, valid),
+                                    (valid != 0).sum())
+
+
+def masked_trimmed_mean_ref(G, trim_frac: float, valid):
+    """Coordinate-wise trimmed mean over the active rows: per-side trim
+    k = ⌊trim_frac·n_active⌋ (float32 product) with the :func:`trim_k`
+    guard, both counts tensors."""
+    m = G.shape[0]
+    S = masked_sorted_stack(G, valid)
+    na = (valid != 0).sum()
+    k = (trim_frac * na.to(torch.float32)).to(torch.int64)
+    k = torch.where(2 * k >= na, torch.clamp(na - 1, min=0) // 2, k)
+    ranks = torch.arange(m, device=G.device)[:, None]
+    kept = torch.where((ranks >= k) & (ranks < na - k), S, 0.0)
+    return exact_div(det_sum_rows(kept),
+                     torch.clamp(na - 2 * k, min=1).to(torch.float32))
+
+
+def masked_brsgd_select(scores, l1, beta: float, threshold: float, valid):
+    """Masked :func:`brsgd_select_mask`: both cutoffs are counting
+    quantiles over the active workers (k = ⌈β·n_active⌉ in float32,
+    clamped to [1, n_active]; auto-𝔗 the lower quartile of the active
+    l1 at :func:`quantile_index_dyn`), and no mask selects a dropped
+    worker.  Returns (selected, c1, c2, 𝔗)."""
+    m = scores.shape[0]
+    v = valid != 0
+    na = torch.clamp(v.sum(), min=1)
+    k = torch.minimum(torch.clamp(torch.ceil(
+        beta * na.to(torch.float32)).to(torch.int64), min=1), na)
+    # dropped slots take -inf scores / +inf l1, so the active order
+    # statistics sit in known rank windows of the full m-vector
+    kth = rank_select(torch.where(v, scores, -math.inf), m - k)
+    if threshold > 0:
+        T = torch.tensor(threshold, dtype=torch.float32, device=l1.device)
+    else:
+        T = rank_select(torch.where(v, l1, math.inf),
+                        quantile_index_dyn(0.25, na))
+    c1 = v & (l1 <= 2.0 * T)
+    c2 = v & (scores >= kth)
+    sel = c1 & c2
+    return torch.where(sel.any(), sel, c2), c1, c2, T

@@ -6,9 +6,9 @@ port's dependencies:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
-Tolerances: scores, weights, medians and the row-order combines exact;
-l1/d2med/gram within 1e-5 of the largest finite reference magnitude.
-NaN must sit where the plain version has it.
+Tolerances: scores, weights, medians, trimmed means and the row-order
+combines exact; l1/d2med/gram within 1e-5 of the largest finite
+reference magnitude.  NaN must sit where the plain version has it.
 """
 import numpy as np
 import pytest
@@ -18,6 +18,9 @@ from repro_torch.kernels import brsgd_stats as kern
 from repro_torch.kernels import ops, ref
 
 RTOL = 1e-5
+# LeNet's main path, a ragged d, the largest instance, and the shapes
+# paper.robustness ([M, REG_D]) and paper.rate (m = 10) launch at
+SHAPES = [(20, 61706), (7, 1003), (64, 4096), (20, 20), (10, 20)]
 
 
 def close(got, want, rtol=RTOL):
@@ -44,7 +47,7 @@ def need_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,d", [(20, 61706), (7, 1003), (64, 4096)])
+@pytest.mark.parametrize("m,d", SHAPES)
 def test_cuda_kernels_match_plain_versions(m, d):
     need_card()
     G = mat(m, d, seed=m)
@@ -87,6 +90,41 @@ def test_cuda_kernels_propagate_nan_as_plain_versions(where):
         for n in needs:
             (exact if n == "scores" else close)(got[n], want[n])
     check_pass2_and_columns(G)
+    for trim_frac in (0.1, 0.49, 0.5):
+        exact(kern.trimmed_mean(G, trim_frac),
+              ref.trimmed_mean_ref(G, trim_frac))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", SHAPES)
+@pytest.mark.parametrize("trim_frac", [0.1, 0.25, 0.49, 0.5])
+def test_trimmed_mean_kernel_matches_plain_version(m, d, trim_frac):
+    """B5 sums the kept sorted rows in the plain version's order and
+    IEEE-divides, so it agrees bit for bit (0.5 takes trim_k's guard)."""
+    need_card()
+    G = mat(m, d, seed=m + 1)
+    exact(kern.trimmed_mean(G, trim_frac), ref.trimmed_mean_ref(G, trim_frac))
+
+
+@pytest.mark.gpu
+def test_stream_equals_bulk_on_the_card():
+    """The streaming fold equals the bulk masked pass bit for bit on the
+    card too, for every registered aggregator (the combine is B3)."""
+    need_card()
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import engine
+    G = mat(20, 4096, seed=5)
+    arrival = torch.zeros(4, 20, device="cuda")
+    for w, b in enumerate(np.random.default_rng(6).permutation(20) % 4):
+        arrival[b, w] = 1.0
+    for agg in engine.registered():
+        cfg = ByzantineConfig(aggregator=agg, alpha=0.25, quorum=15,
+                              max_m=20)
+        got, st = engine.stream_aggregate(G, cfg, arrival, None, True)
+        active = engine.arrival_active(arrival, 15)
+        want, _ = engine.aggregate_local(G, cfg, True, valid=active)
+        exact(got, want)
+        assert int(st.selected.sum()) <= 15
 
 
 @pytest.mark.gpu
@@ -97,7 +135,8 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_input():
     ops.brsgd_partials(G)
     ops.masked_mean(G, torch.ones(20, device="cuda"))
     assert kern.LAUNCHES == {"fused_stats": 1, "select_mean": 0,
-                             "masked_mean": 1, "brsgd_stats": 0}
+                             "masked_mean": 1, "brsgd_stats": 0,
+                             "trimmed_mean": 0}
     with pytest.raises(ValueError, match="no kernel instance"):
         kern.fused_stats(torch.zeros(6, 10, device="cuda"), ("l1",))
     with pytest.raises(TypeError):
@@ -111,8 +150,14 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_input():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("agg", ["brsgd", "mean", "median", "krum"])
+@pytest.mark.parametrize("agg", ["brsgd", "mean", "median", "krum",
+                                 "trimmed_mean", "multi_krum", "geomedian"])
 def test_card_step_matches_cpu_step(agg):
+    """Scale is deterministic, so both devices attack the same rows.
+    trimmed_mean runs at alpha = 0.1, which its k = 2 trims away: at
+    0.25 three scaled rows survive in some columns, the parameters reach
+    ~1e6 there, and a tolerance relative to the leaf's largest value
+    would pass a wrong aggregate on the other columns."""
     need_card()
     from repro_torch.configs.base import ByzantineConfig
     from repro_torch.configs.lenet_fmnist import LeNetConfig
@@ -120,7 +165,8 @@ def test_card_step_matches_cpu_step(agg):
     from repro_torch.data.pipeline import ImageWorkerPipeline
     from repro_torch.models import lenet
     from repro_torch.models.params import init_params
-    bcfg = ByzantineConfig(aggregator=agg, attack="scale", alpha=0.25)
+    alpha = 0.1 if agg == "trimmed_mean" else 0.25
+    bcfg = ByzantineConfig(aggregator=agg, attack="scale", alpha=alpha)
     batch = ImageWorkerPipeline(20, 32, seed=0, byz=bcfg).batch(0, 8)
     p_cpu = init_params(lenet.lenet_defs(LeNetConfig()),
                         torch.Generator().manual_seed(0))

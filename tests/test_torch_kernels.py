@@ -169,7 +169,8 @@ def test_wrappers_refuse_cpu_tensors_and_count_nothing():
                                       torch.tensor(0.0), torch.tensor(1.0)),
              lambda: kern.masked_mean(G, torch.ones(8)),
              lambda: kern.brsgd_stats(G),
-             lambda: kern.cwise_median(G)]
+             lambda: kern.cwise_median(G),
+             lambda: kern.trimmed_mean(G, 0.1)]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()

@@ -7,13 +7,19 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: name, count, versions, nvidia-smi name and power limit;
-  2. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc) and
-     print the -Xptxas -v register / shared-memory / spill summary;
+  2. build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc
+     per source, all started together) and print the -Xptxas -v
+     register / shared-memory / spill summary;
   3. every kernel (B1-B5) against its plain PyTorch version on the card,
      at the LeNet main-path shape [20, 61706], a ragged [7, 1003],
      [64, 4096], the robustness twin's [20, 20] and the rate twin's
      [10, 20], and at [20, 61706] with one worker's row NaN (whole, or
      every 5th column); B5 at trim fractions 0.1, 0.25, 0.49 and 0.5;
+     B6 (flash attention) at the qwen3-0.6b prefill [B=4, H=16, Hkv=8,
+     S=512, D=128], a ragged S = 200, window 64, D = 64 and 80, and in
+     bfloat16; B7 (the WKV6 chunk) at rwkv6-7b's [4, 64, 64, 64] with w
+     in (e^-1, 1) and down to e^-3 (the clamps bite), a ragged Q = 40
+     and K = 32, also against the sequential oracle;
   4. the paper loop: one make_sim_step step on the card and one on the
      CPU from the same params and batch (brsgd under scale at 0.25, and
      trimmed_mean under scale at 0.1, which it trims away), then 5 card
@@ -27,9 +33,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      against the same call on the CPU, and stream_aggregate against the
      bulk call; the CLAIM subset of paper.robustness (1 seed) with its
      launch counters; one elastic step timed;
-  7. timing with CUDA events (bare kernel launch, wrapper call, plain
-     version, one library call) at [20, 61706] and [20, 8388608];
-  8. the {"kernels": [...]} line, the nvidia-smi line, and last the
+  7. the serve path: repro_torch.launch.serve.main on the card at full
+     width, qwen3-0.6b (28 layers) and rwkv6-7b (32 layers), batch 4,
+     prompt 512, 16 greedy tokens, 3 timed passes each, with the launch
+     counters read around each (B6 = 28 and B7 = 32 x 8 per prefill, none
+     in decode); card against the host CPU at full width cut to 2 layers
+     (prompt 80, a ragged chunk: prefill logits, 8 teacher-forced decode
+     steps over a float32 and over the bfloat16 cache, greedy tokens);
+     prefill == sequential decode on the card for both reduced configs;
+  8. timing with CUDA events (bare kernel launch, wrapper call, plain
+     version, one library call) at [20, 61706] and [20, 8388608]; B6 and
+     B7 at their serve shapes (and B6 at S = 4096);
+  9. the {"kernels": [...]} line, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 """
 from __future__ import annotations
@@ -62,6 +77,31 @@ REPLACES = {
     "brsgd_stats": "src/repro/kernels/brsgd_stats.py:150",
     "trimmed_mean": "src/repro/kernels/brsgd_stats.py:327",
 }
+SEQ_KERNELS = {
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:79"),
+    "wkv6_chunk": ("src/repro_torch/kernels/csrc/wkv6.cu",
+                   "src/repro/kernels/wkv6.py:69"),
+}
+# B6 cases (B, H, Hkv, S, D, window, dtype name): the qwen3-0.6b prefill,
+# a ragged S, a window, D = 64 and 80, bfloat16
+FLASH_CASES = ((4, 16, 8, 512, 128, 0, "float32"),
+               (1, 16, 8, 200, 128, 0, "float32"),
+               (1, 16, 8, 512, 128, 64, "float32"),
+               (2, 8, 4, 300, 64, 0, "float32"),
+               (1, 8, 8, 256, 80, 0, "float32"),
+               (4, 16, 8, 512, 128, 0, "bfloat16"))
+FLASH_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}  # rtol, atol
+# B7 cases (B, H, Q, K, log-decay range): rwkv6-7b's chunk with w in
+# (e^-1, 1), w down to e^-3, a ragged last chunk, K = 32
+WKV_CASES = ((4, 64, 64, 64, 1.0), (4, 64, 64, 64, 3.0),
+             (4, 64, 40, 64, 1.0), (4, 32, 64, 32, 1.0))
+WKV_TOL = (2e-5, 1e-5)        # y, S_out: relative to the largest |plain|
+SERVE_ARCHS = ("qwen3-0.6b", "rwkv6-7b")
+SERVE_ARGS = ("--batch", "4", "--prompt-len", "512", "--gen", "16",
+              "--repeat", "3")
+SERVE_TOL = 1e-4              # logits, relative to the largest |logit|
+BF16_CACHE_TOL = 1e-2         # decode logits over a bfloat16 cache, the same
 TRIM_FRACS = (0.1, 0.25, 0.49, 0.5)   # 0.5 takes trim_k's 2k >= m guard
 LIBRARY_CALLS = {
     "fused_stats": None, "select_mean": "w @ G / w.sum()",
@@ -110,28 +150,34 @@ def phase_device(torch):
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    path = _build.build()
-    _build.load()
+    paths = _build.build_all()
+    for name in paths:
+        _build.load(name)
     secs = time.perf_counter() - t0
-    print(f"build: {path.relative_to(ROOT)} in {secs:.1f} s", flush=True)
-    if not _build.BUILD_LOG:
-        print("build: ptxas report not measured (library reused from an "
+    libs = ", ".join(str(p.relative_to(ROOT)) for p in paths.values())
+    print(f"build: {libs} in {secs:.1f} s (one nvcc per source, in "
+          f"parallel)", flush=True)
+    if not _build.BUILD_LOGS:
+        print("build: ptxas report not measured (libraries reused from an "
               "earlier build)", flush=True)
         return
-    fn, spills, stack_line = None, 0, ""
-    for line in _build.BUILD_LOG.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            fn = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spills += int(m.group(1)) + int(m.group(2))
-            stack_line = line.strip()
-        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
-        if m and fn:
-            print(f"  ptxas {fn}: {m.group(1)} registers, {m.group(2) or 0} "
-                  f"B smem, {stack_line}", flush=True)
+    spills = 0
+    for lib, log in _build.BUILD_LOGS.items():
+        fn, stack_line = None, ""
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills += int(m.group(1)) + int(m.group(2))
+                stack_line = line.strip()
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
+                          line)
+            if m and fn:
+                print(f"  ptxas {lib} {fn}: {m.group(1)} registers, "
+                      f"{m.group(2) or 0} B smem, {stack_line}", flush=True)
     print(f"build: spill bytes over all kernels = {spills}", flush=True)
 
 
@@ -264,6 +310,73 @@ def phase_kernels(torch, kern, ref):
         _check_kernels(torch, kern, ref, G,
                        f"[20,61706] worker 4 NaN ({where})", rng, subsets,
                        worst)
+    return worst
+
+
+def _bshd(torch, B, S, H, D, seed, dtype):
+    """A [B,H,S,D] view of [B,S,H,D] data: the layout the model passes."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, S, H, D, generator=g, device="cuda")
+    return x.to(getattr(torch, dtype)).transpose(1, 2)
+
+
+def _wkv_inputs(torch, B, H, Q, K, decay, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn(B, H, Q, K, generator=g, device="cuda")
+               for _ in range(3))
+    w = torch.exp(-decay * torch.rand(B, H, Q, K, generator=g,
+                                      device="cuda"))
+    u = torch.randn(H, K, generator=g, device="cuda")
+    S0 = torch.randn(B, H, K, K, generator=g, device="cuda")
+    return r, k, v, w, u, S0
+
+
+def phase_seq_kernels(torch, ref):
+    """B6 and B7 against their plain versions (and B7 against the
+    sequential oracle where the clamps do not bite)."""
+    from repro_torch.kernels import flash_attention as fa_kern
+    from repro_torch.kernels import wkv6 as wkv_kern
+    worst = {"flash_attention": 0.0, "wkv6_chunk": 0.0}
+    for B, H, Hkv, S, D, win, dt in FLASH_CASES:
+        q, k, v = (_bshd(torch, B, S, h, D, i, dt)
+                   for i, h in enumerate((H, Hkv, Hkv)))
+        got = fa_kern.flash_attention(q, k, v, win)
+        want = ref.flash_attention_ref(q, k, v, win)
+        torch.cuda.synchronize()
+        rtol, atol = FLASH_TOL[dt]
+        a, b = got.double(), want.double()
+        err = float((a - b).abs().max())
+        excess = float(((a - b).abs() - rtol * b.abs()).max())
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        label = f"[{B},{H},{Hkv},{S},{D}] window={win} {dt}"
+        if not (excess <= atol and bool(got.isfinite().all())):
+            fail(f"flash_attention {label}: max abs err {err} beyond "
+                 f"rtol {rtol} / atol {atol}")
+        emit({"check": "flash_attention", "input": label,
+              "max_abs_err": err, "rtol": rtol, "atol": atol})
+    for B, H, Q, K, decay in WKV_CASES:
+        ins = _wkv_inputs(torch, B, H, Q, K, decay)
+        y, S_out = wkv_kern.wkv6_chunk(*ins)
+        yp, Sp = ref.wkv6_chunk_plain(*ins)
+        torch.cuda.synchronize()
+        label = f"[{B},{H},{Q},{K}] w in (e^-{decay:g}, 1)"
+        ey, es = _err(y, yp), _err(S_out, Sp)
+        worst["wkv6_chunk"] = max(worst["wkv6_chunk"], ey, es)
+        if not (_rel_ok(y, yp, WKV_TOL[0]) and _rel_ok(S_out, Sp, WKV_TOL[1])):
+            fail(f"wkv6_chunk {label}: y err {ey}, S err {es} (max|y| "
+                 f"{float(yp.abs().max())}, max|S| {float(Sp.abs().max())})")
+        row = {"check": "wkv6_chunk", "input": label, "y_max_abs_err": ey,
+               "S_max_abs_err": es, "y_rel_tol": WKV_TOL[0],
+               "S_rel_tol": WKV_TOL[1]}
+        if decay <= 1.0:
+            ys, Ss = ref.wkv6_chunk_ref(*ins)
+            row["oracle_y_err"] = _err(y, ys)
+            row["oracle_S_err"] = _err(S_out, Ss)
+            if not (_rel_ok(y, ys, WKV_TOL[0]) and _rel_ok(S_out, Ss, 1e-4)):
+                fail(f"wkv6_chunk {label}: differs from the sequential "
+                     f"oracle (y {row['oracle_y_err']}, S "
+                     f"{row['oracle_S_err']})")
+        emit(row)
     return worst
 
 
@@ -526,7 +639,221 @@ def phase_elastic(torch, kern):
 
 
 # ---------------------------------------------------------------------------
-# 7. timing
+# 7. the serve path
+# ---------------------------------------------------------------------------
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _expected_prefill(cfg, S):
+    if cfg.rwkv is not None:
+        return {"wkv6_chunk": cfg.n_layers * -(-S // min(cfg.rwkv.chunk, S))}
+    return {"flash_attention": cfg.n_layers}
+
+
+def _device_ms(torch, fn):
+    """Device time of the kernels fn() launches, by group, from
+    torch.profiler (kernels run one at a time on the one stream, so
+    their sum is the device's busy time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups = {"flash_attention": 0.0, "wkv6_chunk": 0.0, "gemm": 0.0,
+              "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        g = ("flash_attention" if "flash_kernel" in name else
+             "wkv6_chunk" if "wkv6_chunk_kernel" in name else
+             "gemm" if ("gemm" in name or "cutlass" in name
+                        or "xmma" in name) else "other")
+        groups[g] += us / 1e3
+    return groups
+
+
+def _serve_profile(torch, cfg, res):
+    """One prefill and 4 decode steps of the serve path under the
+    profiler: device ms by kernel group, and the busy share against the
+    unprofiled median host-clock times of serve.main."""
+    from repro_torch.launch import serve
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = PM.init_params(TF.param_defs(cfg), gen, device="cuda")
+    B, S, steps = res["batch"], res["prompt_len"], 4
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    cache = TF.init_cache(cfg, B, S + steps, torch.bfloat16, "cuda")
+    serve.generate(cfg, params, prompt, steps, S + steps)       # warm-up
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = TF.prefill_cache(cfg, params,
+                                                           prompt, cache)
+
+    def decode():
+        tok = state["logits"][:, -1].argmax(-1)[:, None]
+        for i in range(steps):
+            lg, state["cache"] = TF.decode_step(cfg, params, state["cache"],
+                                                tok, S + i)
+            tok = lg.reshape(B, -1).argmax(-1)[:, None]
+
+    out = {"check": "serve_profile", "arch": cfg.name}
+    for phase, fn, wall in (("prefill", prefill, res["prefill_s"]),
+                            ("decode_step", decode,
+                             res["decode_s"] / res["gen"])):
+        groups = _device_ms(torch, fn)
+        busy = sum(groups.values()) / (steps if phase == "decode_step" else 1)
+        out[phase] = {"device_ms_by_group": groups,
+                      "per": ("4 steps" if phase == "decode_step"
+                              else "prefill"),
+                      "device_busy_ms": busy, "host_clock_ms": wall * 1e3,
+                      "busy_share": busy / (wall * 1e3) if busy else
+                      "not measured (the profiler saw no device time)"}
+    emit(out)
+    del params, cache, state
+
+
+def phase_serve(torch):
+    """(a)/(b) serve.main at full width with the launch counters; (c) the
+    card against the host CPU at full width cut to 2 layers; (d) prefill
+    == sequential decode on the card for the reduced configs."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+
+    results, launches, per_prefill = {}, {}, {}
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = serve.main(["--arch", arch, *SERVE_ARGS])
+        secs = time.perf_counter() - t0
+        counts = ops.launches()
+        passes, S = res["repeat"], res["prompt_len"]
+        want = _expected_prefill(cfg, S)
+        pre = {k: n for k, n in res["launches"]["prefill"].items() if n}
+        dec = {k: n for k, n in res["launches"]["decode"].items() if n}
+        if pre != want or dec:
+            fail(f"serve {arch}: prefill launched {pre} (expected {want}), "
+                 f"decode launched {dec} (expected none)")
+        total = {k: n for k, n in counts.items() if n}
+        if total != {k: n * passes for k, n in want.items()}:
+            fail(f"serve {arch}: {passes} passes launched {total}")
+        if not res["logits_finite"]:
+            fail(f"serve {arch}: non-finite logits")
+        launches.update(total)
+        per_prefill.update(pre)
+        results[arch] = res
+        emit({"check": "serve", "arch": arch, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "batch": res["batch"],
+              "prompt_len": S, "gen": res["gen"], "passes": passes,
+              "prefill_launches": pre, "decode_launches": dec or "none",
+              "launches_all_passes": total,
+              "prefill_tok_s_median": res["prefill_tok_s"],
+              "decode_tok_s_median": res["decode_tok_s"],
+              "prefill_s_median": res["prefill_s"],
+              "decode_s_median": res["decode_s"], "seconds": secs,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "logits_finite": True})
+        _serve_profile(torch, cfg, res)
+
+    # (c) card against the host CPU, full width, 2 layers, prompt 80, with
+    # the float32 cache (held to SERVE_TOL) and the serve path's bfloat16
+    # cache (held to BF16_CACHE_TOL: decode rounds the cache entries and
+    # the attention weights to bfloat16 on both devices, from float32
+    # values that differ in their last bits, so a rounding can land one
+    # bfloat16 step, 2^-8, apart)
+    B, S, steps = 2, 80, 8
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=2)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p_gpu = PM.init_params(TF.param_defs(cfg), gen, device="cuda")
+        p_cpu = _tree_to(p_gpu, "cpu")
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device="cuda").cpu()
+        for dtype, tol in ((torch.float32, SERVE_TOL),
+                           (torch.bfloat16, BF16_CACHE_TOL)):
+            caches = {d: TF.init_cache(cfg, B, S + steps, dtype, d)
+                      for d in ("cpu", "cuda")}
+            lc, caches["cpu"] = TF.prefill_cache(cfg, p_cpu, tokens,
+                                                 caches["cpu"])
+            lg, caches["cuda"] = TF.prefill_cache(cfg, p_gpu, tokens.cuda(),
+                                                  caches["cuda"])
+            errs = [_err(lg.cpu(), lc) / float(lc.abs().max())]
+            greedy_equal = bool(torch.equal(lg[:, -1].argmax(-1).cpu(),
+                                            lc[:, -1].argmax(-1)))
+            tok = lc[:, -1].argmax(-1)[:, None]
+            for i in range(steps):
+                lc, caches["cpu"] = TF.decode_step(cfg, p_cpu, caches["cpu"],
+                                                   tok, S + i)
+                lg, caches["cuda"] = TF.decode_step(cfg, p_gpu,
+                                                    caches["cuda"],
+                                                    tok.cuda(), S + i)
+                errs.append(_err(lg.cpu(), lc) / float(lc.abs().max()))
+                nxt = lc.reshape(B, -1).argmax(-1)
+                greedy_equal &= bool(torch.equal(
+                    lg.reshape(B, -1).argmax(-1).cpu(), nxt))
+                tok = nxt[:, None]
+            dt = str(dtype).replace("torch.", "")
+            emit({"check": "serve_card_vs_cpu", "arch": arch, "n_layers": 2,
+                  "d_model": cfg.d_model, "batch": B, "prompt_len": S,
+                  "decode_steps": steps, "cache_dtype": dt,
+                  "prefill_rel_err": errs[0],
+                  "decode_rel_err_max": max(errs[1:]),
+                  "prefill_rel_tol": SERVE_TOL, "decode_rel_tol": tol,
+                  "greedy_equal": greedy_equal})
+            if errs[0] > SERVE_TOL or max(errs[1:]) > tol or not greedy_equal:
+                fail(f"serve {arch} ({dt} cache): card and CPU differ at "
+                     f"full width (relative errors {errs}, greedy equal "
+                     f"{greedy_equal})")
+        del p_gpu, p_cpu, caches
+
+    # (d) prefill == sequential decode on the card, reduced configs
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch).reduced()
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        params = PM.init_params(TF.param_defs(cfg), gen, device="cuda")
+        Bd, Sd, T = 2, 8, 12
+        tokens = torch.randint(0, cfg.vocab, (Bd, Sd), generator=gen,
+                               device="cuda")
+        lf, cf = TF.prefill_cache(cfg, params, tokens,
+                                  TF.init_cache(cfg, Bd, T, torch.float32,
+                                                "cuda"))
+        cache = TF.init_cache(cfg, Bd, T, torch.float32, "cuda")
+        ls = []
+        for s_ in range(Sd):
+            lg, cache = TF.decode_step(cfg, params, cache,
+                                       tokens[:, s_:s_ + 1], s_)
+            ls.append(lg[:, 0])
+        ls = torch.stack(ls, dim=1)
+        err = _err(lf, ls) / float(ls.abs().max())
+        leaf = max(_err(cf[g][k], cache[g][k]) / float(cache[g][k].abs().max())
+                   for g in cf for k in cf[g])
+        emit({"check": "prefill_equals_sequential_decode", "arch": cfg.name,
+              "logits_rel_err": err, "cache_rel_err": leaf,
+              "rel_tol": SERVE_TOL})
+        if err > SERVE_TOL or leaf > SERVE_TOL:
+            fail(f"{cfg.name}: prefill differs from sequential decode on the "
+                 f"card (logits {err}, cache {leaf})")
+    return results, launches, per_prefill
+
+
+# ---------------------------------------------------------------------------
+# 8. timing
 # ---------------------------------------------------------------------------
 
 def _time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
@@ -631,6 +958,62 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps):
     return out
 
 
+def _visible_pairs(S, T, window):
+    """(query, key) pairs B6's mask lets through: keys j <= i (and
+    i - j < window)."""
+    return sum(min(i + 1, T) - (max(0, i - window + 1) if window else 0)
+               for i in range(S))
+
+
+def phase_seq_timing(torch, ref):
+    """B6 and B7 by CUDA events at their serve shapes (wrapper calls: the
+    wrapper's host work overlaps the device queue), their plain versions
+    and, for B6, one library call; bound_ms from this run's shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_kern
+    from repro_torch.kernels import wkv6 as wkv_kern
+    out = {}
+    for label, (B, H, Hkv, S, D) in (("serve", (4, 16, 8, 512, 128)),
+                                     ("long", (1, 16, 8, 4096, 128))):
+        q, k, v = (_bshd(torch, B, S, h, D, i, "float32")
+                   for i, h in enumerate((H, Hkv, Hkv)))
+        kx, vx = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+        qc = q.contiguous()
+        nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
+        ops = 4 * D * B * H * _visible_pairs(S, S, 0)
+        bound_ms, bound_by = _bound(nbytes, ops)
+        reps = 50 if label == "serve" else 10
+        res = {"shape": [B, H, Hkv, S, D],
+               "ms": _time_ms(torch, lambda: fa_kern.flash_attention(
+                   q, k, v), reps),
+               "plain_ms": _time_ms(torch, lambda: ref.flash_attention_ref(
+                   q, k, v), max(2, reps // 5), 1),
+               "library_ms": _time_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qc, kx, vx, is_causal=True), reps),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+        out[f"flash_attention/{label}"] = res
+        emit({"timing": "flash_attention", **res,
+              "library_call": "F.scaled_dot_product_attention(is_causal=True)"
+                              ", float32, kv heads repeated"})
+    B, H, Q, K = 4, 64, 64, 64
+    ins = _wkv_inputs(torch, B, H, Q, K, 1.0)
+    nbytes = 4 * (4 * B * H * Q * K + H * K + 2 * B * H * K * K
+                  + B * H * Q * K)
+    tri = Q * (Q - 1) // 2
+    ops = B * H * (2 * tri * 2 * K + 2 * 2 * Q * K * K)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    res = {"shape": [B, H, Q, K],
+           "ms": _time_ms(torch, lambda: wkv_kern.wkv6_chunk(*ins), 200),
+           "plain_ms": _time_ms(torch, lambda: ref.wkv6_chunk_plain(*ins), 50),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+    out["wkv6_chunk/serve"] = res
+    emit({"timing": "wkv6_chunk", **res, "library_call": "none"})
+    return out
+
+
 def _raw_launchers(torch, G, sl, pr, w, k):
     """Each kernel's bare launch through the C interface, on buffers
     allocated once: the kernel's own time, without the wrapper's checks,
@@ -688,12 +1071,15 @@ def main() -> int:
     resolve_device("cuda")                 # TF32 off for the whole run
     phase_build()
     worst = phase_kernels(torch, kern, ref)
+    worst.update(phase_seq_kernels(torch, ref))
     phase_loop(torch, kern)
     launches = phase_main_path(torch, kern)
     elastic_launches = phase_elastic(torch, kern)
+    serve_res, serve_launches, per_prefill = phase_serve(torch)
     main_t = phase_timing(torch, kern, ref, MAIN_SHAPE, reps=200,
                           plain_reps=20)
     hbm_t = phase_timing(torch, kern, ref, HBM_SHAPE, reps=20, plain_reps=3)
+    seq_t = phase_seq_timing(torch, ref)
     kernels = []
     for name in REPLACES:
         t, h = main_t[name], hbm_t[name]
@@ -717,6 +1103,29 @@ def main() -> int:
                        hbm_gram_ms=hg["kernel_ms"],
                        hbm_gram_library_ms=hg["library_ms"])
         kernels.append(row)
+    for name, (source, replaces) in SEQ_KERNELS.items():
+        t = seq_t[f"{name}/serve"]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": serve_launches[name],
+               "launches_per_prefill": per_prefill[name],
+               "max_abs_err": worst[name], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+               "library_call": ("F.scaled_dot_product_attention"
+                                if name == "flash_attention" else "none"),
+               "shape": t["shape"]}
+        if name == "flash_attention":
+            lt = seq_t["flash_attention/long"]
+            row.update(long_shape=lt["shape"], long_ms=lt["ms"],
+                       long_plain_ms=lt["plain_ms"],
+                       long_bound_ms=lt["bound_ms"],
+                       long_library_ms=lt["library_ms"])
+        kernels.append(row)
+    emit({"serve": {a: {k: r[k] for k in ("prefill_tok_s", "decode_tok_s",
+                                          "prefill_s", "decode_s",
+                                          "n_layers", "batch", "prompt_len",
+                                          "gen", "repeat")}
+                    for a, r in serve_res.items()}})
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,17 @@
-"""Config dataclasses of the port (a copy of the JAX package's
-``ByzantineConfig`` — the port imports nothing of ``repro``)."""
+"""Config dataclasses of the port: copies of the JAX package's
+``ByzantineConfig`` and of the model-zoo specs (``AttentionSpec``,
+``MoESpec``, ``SSMSpec``, ``RWKVSpec``, ``ModelConfig``) — the port
+imports nothing of ``repro``.  ``tests/test_torch_models.py`` pins the
+copies equal to the JAX dataclasses field by field.
+
+``MoESpec`` and ``SSMSpec`` are data only here: ``ModelConfig`` names
+them, and the blocks that read them (MoE, mamba2) wait for a later
+slice of the port.
+"""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -67,3 +76,144 @@ class ByzantineConfig:
         """True when this config opts into the elastic worker set
         (pad-to-max-m + validity mask + quorum select)."""
         return bool(self.max_m or self.quorum)
+
+
+@dataclass(frozen=True)
+class AttentionSpec:
+    """Attention family description.
+
+    kind:
+      - "gqa": grouped-query attention (n_kv_heads <= n_heads)
+      - "mla": multi-head latent attention (DeepSeek-V2 / MiniCPM3)
+      - "none": attention-free layer stack (rwkv6)
+    """
+
+    kind: str = "gqa"
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    head_dim: int = 128
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    window: int = 0               # sliding window (tokens); 0 = full
+    # --- MLA-only fields ---
+    q_lora_rank: int = 0          # 0 = full-rank q projection
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+
+@dataclass(frozen=True)
+class MoESpec:
+    n_experts: int = 0            # 0 = dense FFN
+    top_k: int = 1
+    n_shared: int = 0             # shared (always-on) experts
+    d_ff_expert: int = 0          # per-expert hidden size
+    capacity_factor: float = 1.25
+    router_zloss: float = 1e-3
+    aux_loss: float = 1e-2
+
+
+@dataclass(frozen=True)
+class SSMSpec:
+    """Mamba2 (SSD) block spec."""
+
+    state_dim: int = 64
+    head_dim: int = 64
+    n_heads: int = 0              # derived: d_inner // head_dim if 0
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 256
+
+
+@dataclass(frozen=True)
+class RWKVSpec:
+    """RWKV6 ("Finch") block spec — data-dependent decay WKV."""
+
+    head_dim: int = 64
+    decay_lora: int = 64
+    mix_lora: int = 32
+    # 0 = per-token scan; Q > 0 = chunked-parallel WKV with Q-token
+    # chunks (each chunk one launch of the WKV6 chunk kernel)
+    chunk: int = 0
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    d_ff: int
+    vocab: int
+    attention: AttentionSpec
+    activation: str = "silu"      # silu | gelu | relu2 (squared relu)
+    moe: MoESpec = field(default_factory=MoESpec)
+    ssm: Optional[SSMSpec] = None
+    rwkv: Optional[RWKVSpec] = None
+    # hybrid layout: every ``hybrid_attn_every`` ssm layers, apply the
+    # single SHARED attention block (zamba2 style).  0 = not hybrid.
+    hybrid_attn_every: int = 0
+    # moe layout: the first ``n_dense_layers`` layers use the dense FFN
+    n_dense_layers: int = 0
+    # modality frontend: "none" | "vision" | "audio"
+    frontend: str = "none"
+    n_prefix_tokens: int = 0      # patch/frame embedding count for vlm/audio
+    tie_embeddings: bool = False
+    rms_eps: float = 1e-5
+    dtype: str = "bfloat16"       # decode-cache dtype on the serve path
+    source: str = ""              # citation
+
+    @property
+    def is_moe(self) -> bool:
+        return self.moe.n_experts > 0
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: same family, tiny dims (<=256 d_model,
+        2 layers, <=4 experts, float32)."""
+        att = self.attention
+        d_model = min(self.d_model, 256)
+        n_heads = min(att.n_heads, 4)
+        n_kv = (min(att.n_kv_heads, max(1, n_heads // 2))
+                if att.kind != "none" else 0)
+        red_att = replace(
+            att,
+            n_heads=n_heads,
+            n_kv_heads=max(1, n_kv),
+            head_dim=min(att.head_dim, 64),
+            q_lora_rank=min(att.q_lora_rank, 64) if att.q_lora_rank else 0,
+            kv_lora_rank=min(att.kv_lora_rank, 32) if att.kv_lora_rank else 0,
+            qk_nope_dim=min(att.qk_nope_dim, 32) if att.qk_nope_dim else 0,
+            qk_rope_dim=min(att.qk_rope_dim, 16) if att.qk_rope_dim else 0,
+            v_head_dim=min(att.v_head_dim, 32) if att.v_head_dim else 0,
+            window=min(att.window, 64) if att.window else 0,
+        )
+        moe = self.moe
+        if self.is_moe:
+            moe = replace(moe, n_experts=min(moe.n_experts, 4),
+                          top_k=min(moe.top_k, 2),
+                          n_shared=min(moe.n_shared, 1),
+                          d_ff_expert=min(moe.d_ff_expert, 128))
+        ssm = None
+        if self.ssm is not None:
+            ssm = replace(self.ssm, state_dim=min(self.ssm.state_dim, 16),
+                          head_dim=32, chunk=32)
+        rwkv = None
+        if self.rwkv is not None:
+            rwkv = replace(self.rwkv, head_dim=32, decay_lora=16, mix_lora=8)
+        return replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=2 if self.hybrid_attn_every == 0 else 4,
+            d_model=d_model,
+            d_ff=min(self.d_ff, 512),
+            vocab=min(self.vocab, 512),
+            attention=red_att,
+            moe=moe,
+            ssm=ssm,
+            rwkv=rwkv,
+            hybrid_attn_every=2 if self.hybrid_attn_every else 0,
+            n_dense_layers=min(self.n_dense_layers, 1),
+            n_prefix_tokens=min(self.n_prefix_tokens, 8),
+            dtype="float32",
+        )

@@ -1,11 +1,13 @@
-"""Build and load the CUDA kernels of ``csrc/`` (nvcc -> shared library
-with a plain C interface, bound with ctypes).
+"""Build and load the CUDA kernels of ``csrc/`` (nvcc -> one shared
+library per source, with a plain C interface, bound with ctypes).
 
 The build runs at first use, reads only the sources in this package and
 writes into ``build/kernels/`` at the repository root (git-ignored).
-The library's file name carries a hash of the source, so an edited
-kernel is never served from a stale build.  A missing ``nvcc`` or a
-failed build raises: there is no fallback to the plain versions.
+Each library's file name carries a hash of its source and of the nvcc
+flags, so an edited kernel is never served from a stale build.
+:func:`build_all` starts one nvcc per source at once and waits for all
+of them.  A missing ``nvcc`` or a failed build raises: there is no
+fallback to the plain versions.
 """
 from __future__ import annotations
 
@@ -19,27 +21,51 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "brsgd_stats.cu"
+SOURCES = {"brsgd_stats": SOURCE,
+           "flash_attention": CSRC / "flash_attention.cu",
+           "wkv6": CSRC / "wkv6.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_lib = None
-# nvcc's -Xptxas -v report of the last build in this process (registers,
-# shared memory, spills per kernel); empty when the library was reused
-BUILD_LOG = ""
+_libs: dict = {}
+# nvcc's -Xptxas -v report (registers, shared memory, spills per kernel)
+# of each library built in this process; a reused library has no entry
+BUILD_LOGS: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SIGNATURES = {
-    "brsgd_threads": (),
-    "brsgd_max_blocks": (),
-    "brsgd_fused_stats": (_P, _I, _L, _I, _P, _P, _P, _P, _I, _P),
-    "brsgd_column_stats": (_P, _I, _L, _P, _P, _P, _P, _I, _P),
-    "brsgd_select_mean": (_P, _I, _L, _P, _P, _P, _P, _I, _P),
-    "brsgd_masked_mean": (_P, _I, _L, _P, _P, _I, _P),
-    "brsgd_trimmed_mean": (_P, _I, _L, _I, _P, _I, _P),
+# every C entry of each library: argument types (the return type is int)
+SIGNATURES = {
+    "brsgd_stats": {
+        "brsgd_threads": (),
+        "brsgd_max_blocks": (),
+        "brsgd_fused_stats": (_P, _I, _L, _I, _P, _P, _P, _P, _I, _P),
+        "brsgd_column_stats": (_P, _I, _L, _P, _P, _P, _P, _I, _P),
+        "brsgd_select_mean": (_P, _I, _L, _P, _P, _P, _P, _I, _P),
+        "brsgd_masked_mean": (_P, _I, _L, _P, _P, _I, _P),
+        "brsgd_trimmed_mean": (_P, _I, _L, _I, _P, _I, _P),
+    },
+    "flash_attention": {
+        # q, k, v, o, dtype, B, H, Hkv, S, T, D, 4 x (b, h, s) strides,
+        # window, stream
+        "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                _L, _I, _P),
+    },
+    "wkv6": {
+        # r, k, v, w, u, S_in, y, S_out, B, H, Q, K, input strides,
+        # stream
+        "wkv6_chunk_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _L, _L, _L, _P),
+    },
 }
+ERROR_STRING = {"brsgd_stats": "brsgd_error_string",
+                "flash_attention": "flash_error_string",
+                "wkv6": "wkv6_error_string"}
 
 
 def find_nvcc() -> str:
@@ -56,45 +82,79 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"brsgd_stats-{digest}.so"
+def library_path(source: Path = SOURCE) -> Path:
+    h = hashlib.sha256(source.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:12]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels if this source has no library yet; returns
-    the library's path.  Raises RuntimeError with nvcc's output on a
-    failed build."""
-    global BUILD_LOG
-    out = library_path()
+def _start(name: str):
+    """Start nvcc on one source; None when its library already exists."""
+    source = SOURCES[name]
+    out = library_path(source)
     if out.exists():
-        return out
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return cmd, proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    cmd, proc, tmp, out = job
+    log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
-    BUILD_LOG = proc.stdout + proc.stderr
-    return out
+    BUILD_LOGS[name] = log
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use, with every entry's
+def build(name: str = "brsgd_stats") -> Path:
+    """Compile one source if it has no library yet; returns the
+    library's path.  Raises RuntimeError with nvcc's output on a failed
+    build."""
+    job = _start(name)
+    if job is not None:
+        _finish(name, job)
+    return library_path(SOURCES[name])
+
+
+def build_all() -> dict:
+    """Compile every source that has no library yet, one nvcc each, all
+    started together; returns {name: library path}.  Raises on the first
+    failed build, after every nvcc has ended."""
+    jobs = {name: _start(name) for name in SOURCES}
+    errors = []
+    for name, job in jobs.items():
+        if job is not None:
+            try:
+                _finish(name, job)
+            except RuntimeError as e:
+                errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: library_path(src) for name, src in SOURCES.items()}
+
+
+def load(name: str = "brsgd_stats") -> ctypes.CDLL:
+    """One kernel library, built on first use, with every entry's
     argument and return types declared."""
-    global _lib
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, args in _SIGNATURES.items():
-                fn = getattr(lib, name)
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build(name)))
+            for fn_name, args in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
-            lib.brsgd_error_string.argtypes = [ctypes.c_int]
-            lib.brsgd_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+            err = getattr(lib, ERROR_STRING[name])
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
+
+
+def error_string(name: str, rc: int) -> str:
+    return getattr(load(name), ERROR_STRING[name])(rc).decode()

@@ -1,9 +1,10 @@
 """Kernel dispatch by the tensor's device.
 
-A CUDA tensor goes to the hand-written kernel (:mod:`.brsgd_stats`),
-which launches or raises; a CPU tensor goes to the plain version
-(:mod:`.ref`).  There is no flag that sends a CUDA tensor to the plain
-version, and no fallback when a build or launch fails.
+A CUDA tensor goes to the hand-written kernel (:mod:`.brsgd_stats`,
+:mod:`.flash_attention`, :mod:`.wkv6`), which launches or raises; a CPU
+tensor goes to the plain version (:mod:`.ref`).  There is no flag that
+sends a CUDA tensor to the plain version, and no fallback when a build
+or launch fails.
 
 The elastic ``valid=`` calls are the exception by design, as in the JAX
 package, which has no Pallas kernel for masked statistics and takes its
@@ -16,7 +17,23 @@ fused masked kernel is optional later work.
 from __future__ import annotations
 
 from . import brsgd_stats as kern
+from . import flash_attention as fa_kern
 from . import ref
+from . import wkv6 as wkv_kern
+
+_COUNTERS = (kern.LAUNCHES, fa_kern.LAUNCHES, wkv_kern.LAUNCHES)
+
+
+def launches() -> dict:
+    """Launches of every kernel since the last :func:`reset_launches`
+    (a copy: {kernel name: count})."""
+    return {k: n for c in _COUNTERS for k, n in c.items()}
+
+
+def reset_launches() -> None:
+    for c in _COUNTERS:
+        for k in c:
+            c[k] = 0
 
 
 def _canonical(needs) -> tuple:
@@ -95,3 +112,19 @@ def trimmed_mean(G, trim_frac: float, valid=None):
     if G.is_cuda:
         return kern.trimmed_mean(G, trim_frac)
     return ref.trimmed_mean_ref(G, trim_frac)
+
+
+def flash_attention(q, k, v, window: int = 0):
+    """q [B,H,S,D], k/v [B,Hkv,T,D] -> [B,H,S,D]: causal (sliding-window
+    when window > 0) GQA softmax attention (B6 on the card)."""
+    if q.is_cuda:
+        return fa_kern.flash_attention(q, k, v, window)
+    return ref.flash_attention_ref(q, k, v, window)
+
+
+def wkv6_chunk(r, k, v, w, u, S_in):
+    """One RWKV-6 chunk, r/k/v/w [B,H,Q,K] -> (y [B,H,Q,K], S_out
+    [B,H,K,K]) (B7 on the card)."""
+    if r.is_cuda:
+        return wkv_kern.wkv6_chunk(r, k, v, w, u, S_in)
+    return ref.wkv6_chunk_plain(r, k, v, w, u, S_in)

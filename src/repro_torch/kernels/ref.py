@@ -1,12 +1,15 @@
-"""Plain PyTorch versions of the aggregation kernels.
+"""Plain PyTorch versions of the kernels.
 
-Each function is the port of the function of the same name in the JAX
-package's ``kernels/ref.py``.  They are the oracles the CUDA kernels in
-``csrc/brsgd_stats.cu`` are held against on the card, and the path
-``ops`` takes for a tensor that lies on the CPU.  The masked (elastic)
+The aggregation functions port the functions of the same name in the
+JAX package's ``kernels/ref.py``; the attention and WKV6 functions at
+the end port the oracles of ``kernels/flash_attention.py`` and
+``kernels/wkv6.py``.  They are the oracles the CUDA kernels in
+``csrc/`` are held against on the card, and the path ``ops`` takes for
+a tensor that lies on the CPU.  The masked (elastic)
 functions have no kernel, as in the JAX package: ``ops`` runs them on
-either device.  All operate on the gradient matrix ``G`` of shape
-[m, d] (m workers, d dimensions) and run on whichever device G lies on.
+either device.  The aggregation functions operate on the gradient
+matrix ``G`` of shape [m, d] (m workers, d dimensions); every function
+runs on whichever device its inputs lie on.
 
 Determinism: ``column_mean_ref``/``masked_mean_det`` accumulate rows in
 the fixed order 0, 1, …, m-1 and divide by a tensor on G's device, so
@@ -409,3 +412,89 @@ def masked_brsgd_select(scores, l1, beta: float, threshold: float, valid):
     c2 = v & (scores >= kth)
     sel = c1 & c2
     return torch.where(sel.any(), sel, c2), c1, c2, T
+
+
+# ---------------------------------------------------------------------------
+# attention (B6) and the WKV6 chunk (B7)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+WKV_LOG_CLAMP = 40.0
+
+
+def attention_mask(S: int, T: int, window: int, device):
+    """[S, T] bool: query i sees key j iff j <= i and (window == 0 or
+    i - j < window) — the model's ``_causal_window_mask``."""
+    qp = torch.arange(S, device=device)[:, None]
+    kp = torch.arange(T, device=device)[None, :]
+    mask = kp <= qp
+    if window:
+        mask &= (qp - kp) < window
+    return mask
+
+
+def flash_attention_ref(q, k, v, window: int = 0):
+    """q [B,H,S,D], k/v [B,Hkv,T,D] (H a multiple of Hkv) -> [B,H,S,D]
+    in q's dtype: causal softmax attention in float32 with query head h
+    on kv head h // (H/Hkv), masked logits at -1e30.  The twin of the
+    JAX package's ``flash_attention_ref`` (causal=True, the only form
+    the models run); the function B6 computes."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = H // Hkv
+    kx = k.float().repeat_interleave(G, dim=1)
+    vx = v.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kx) / math.sqrt(D)
+    mask = attention_mask(S, T, window, q.device)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", w, vx).to(q.dtype)
+
+
+def wkv6_chunk_plain(r, k, v, w, u, S_in):
+    """One RWKV-6 chunk in the factorised form B7 computes (the twin of
+    the Pallas ``_wkv_chunk_kernel`` and of one step of
+    ``rwkv6._wkv_chunked``'s scan body).
+
+    r/k/v/w [B,H,Q,K] float32 (w the per-channel decay in (0, 1]),
+    u [H,K], S_in [B,H,K,K] -> (y [B,H,Q,K], S_out [B,H,K,K]).
+    c is the inclusive cumulative log-decay, ce the exclusive one; the
+    intra-chunk factors are centred on half the chunk's decay and
+    clipped at ±40, the state factors floored at -80.  The [Q,Q] scores
+    are strictly lower triangular (``where``: an entry above the
+    diagonal never reaches y, even where its clipped factors overflow).
+    """
+    lc = WKV_LOG_CLAMP
+    logw = torch.log(w)
+    c = torch.cumsum(logw, dim=2)                       # inclusive
+    ce = c - logw                                       # exclusive
+    mid = 0.5 * c[:, :, -1:]
+    r_dec = r * torch.exp(torch.clamp(ce - mid, -lc, lc))
+    k_grow = k * torch.exp(torch.clamp(mid - c, -lc, lc))
+    Q = r.shape[2]
+    A = r_dec @ k_grow.transpose(-1, -2)                # [B,H,Q,Q]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=r.device).tril(-1)
+    A = torch.where(tri, A, torch.zeros_like(A))
+    y = A @ v
+    y = y + (r * u[None, :, None, :] * k).sum(-1, keepdim=True) * v
+    y = y + (r * torch.exp(torch.clamp(ce, min=-2 * lc))) @ S_in
+    k_end = k * torch.exp(torch.clamp(c[:, :, -1:] - c, min=-2 * lc))
+    S_out = (torch.exp(torch.clamp(c[:, :, -1], min=-2 * lc))[..., None]
+             * S_in + k_end.transpose(-1, -2) @ v)
+    return y, S_out
+
+
+def wkv6_chunk_ref(r, k, v, w, u, S_in):
+    """Sequential oracle of the chunk: the per-token recurrence
+    y_t = r_t·(S + diag(u)·k_t v_tᵀ), S <- diag(w_t)·S + k_t v_tᵀ (the
+    twin of the JAX package's ``wkv6_chunk_ref``).  Equal to
+    :func:`wkv6_chunk_plain` wherever the clamps do not bite."""
+    S = S_in.float()
+    ys = []
+    for t in range(r.shape[2]):
+        rt, kt, vt, wt = (x[:, :, t].float() for x in (r, k, v, w))
+        kv = kt[..., :, None] * vt[..., None, :]
+        ys.append(torch.einsum("bhk,bhkj->bhj", rt,
+                               S + u[None, :, :, None] * kv))
+        S = wt[..., None] * S + kv
+    return torch.stack(ys, dim=2), S

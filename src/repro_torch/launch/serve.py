@@ -1,0 +1,122 @@
+"""Serving entry point of the port: fused prefill + greedy decode at a
+fixed batch and one shared prompt length (the twin of the JAX package's
+single-shot ``python -m repro.launch.serve``, without ``--serve-loop``).
+
+    python -m repro_torch.launch.serve --arch qwen3-0.6b          # on the card
+    python -m repro_torch.launch.serve --arch rwkv6-7b --reduced --device cpu
+
+The path: init the parameters from ``--seed`` (float32, on the device),
+``init_cache`` (bfloat16 at full width, float32 for the reduced
+configs), one ``prefill_cache`` over the prompt — kernel B6 per dense
+layer, kernel B7 per rwkv layer and chunk on the card — then ``--gen``
+greedy ``decode_step``s.  Prints the prefill and decode rates (host
+clock ending in a synchronize; the median of ``--repeat`` passes) and
+the kernel launches of each phase, and asserts finite logits.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import time
+
+import torch
+
+from .. import resolve_device
+from ..configs import get_config
+from ..kernels import ops
+from ..models import params as PM
+from ..models import transformer as TF
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def generate(cfg, params, prompt, gen: int, max_len: int):
+    """One prefill + ``gen`` greedy decode steps.  Returns (tokens
+    [B, gen], last logits, prefill seconds, decode seconds, launches of
+    each phase)."""
+    dev = prompt.device
+    B, S = prompt.shape
+    dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    cache = TF.init_cache(cfg, B, max_len, dtype, dev)
+    _sync(dev)
+    n0 = ops.launches()
+    t0 = time.perf_counter()
+    logits, cache = TF.prefill_cache(cfg, params, prompt, cache)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    n1 = ops.launches()
+    toks = []
+    t0 = time.perf_counter()
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    for i in range(gen):
+        toks.append(tok[:, 0])
+        logits, cache = TF.decode_step(cfg, params, cache, tok, S + i)
+        tok = torch.argmax(logits.reshape(B, -1), dim=-1)[:, None]
+    _sync(dev)
+    t_gen = time.perf_counter() - t0
+    n2 = ops.launches()
+    launches = {"prefill": {k: n1[k] - n0[k] for k in n0},
+                "decode": {k: n2[k] - n1[k] for k in n0}}
+    out = torch.stack(toks, dim=1) if toks else prompt[:, :0]
+    return out, logits, t_prefill, t_gen, launches
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="cache length; default prompt+gen")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="timed prefill+decode passes; the rates printed "
+                         "are their medians")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    max_len = args.max_len or (args.prompt_len + args.gen)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = PM.init_params(TF.param_defs(cfg), gen, device=dev)
+    B = args.batch
+    prompt = torch.randint(0, cfg.vocab, (B, args.prompt_len), generator=gen,
+                           device=dev)
+    runs = [generate(cfg, params, prompt, args.gen, max_len)
+            for _ in range(max(1, args.repeat))]
+    toks, logits, _, _, launches = runs[-1]
+    t_prefill = statistics.median(r[2] for r in runs)
+    t_gen = statistics.median(r[3] for r in runs)
+    result = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "batch": B,
+        "prompt_len": args.prompt_len, "gen": args.gen,
+        "device": str(dev), "repeat": len(runs),
+        "prefill_s": t_prefill, "decode_s": t_gen,
+        "prefill_tok_s": B * args.prompt_len / t_prefill,
+        "decode_tok_s": B * args.gen / t_gen if args.gen else 0.0,
+        "launches": launches, "tokens": toks.cpu(),
+        "logits_finite": bool(torch.isfinite(logits).all()),
+    }
+    print(f"arch={cfg.name} layers={cfg.n_layers} B={B} "
+          f"prompt={args.prompt_len} gen={args.gen} device={dev}")
+    print(f"prefill: {t_prefill:.4f}s ({result['prefill_tok_s']:.0f} tok/s)")
+    print(f"decode : {t_gen:.4f}s ({result['decode_tok_s']:.0f} tok/s)")
+    for phase in ("prefill", "decode"):
+        ran = {k: n for k, n in launches[phase].items() if n}
+        print(f"kernel launches in the last {phase}: {ran or 'none'}")
+    print("sample tokens:", toks[0][:12].tolist())
+    assert result["logits_finite"], "NaN in serving logits"
+    return result
+
+
+if __name__ == "__main__":
+    main()

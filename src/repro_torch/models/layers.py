@@ -1,0 +1,200 @@
+"""Shared transformer layers (the port of the JAX package's
+``models/layers.py``): RMSNorm, RoPE, activations, the dense MLP and GQA
+attention (full sequence and single-token decode).
+
+Parameters are dicts in the JAX layouts ([in, out] dense, ``wq``
+[d, H, D], ``wo`` [H, D, d]).  The full-sequence attention goes through
+``ops.flash_attention`` (kernel B6 on the card); the decode attention
+stays plain torch on both devices, as the JAX package computes it
+outside any Pallas kernel (its mask is per slot, which B6 has not).
+
+Dtypes follow the JAX promotion rules of the reference: where JAX mixes
+a float32 operand with a bfloat16 cache and promotes, the port casts to
+the promoted type explicitly (``torch.einsum`` does not promote).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import AttentionSpec
+from ..kernels import ops
+from .params import ParamDef
+
+
+# ---------------------------------------------------------------------------
+# basics
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, gamma, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * gamma.float()).to(dt)
+
+
+def activate(x, kind: str):
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":           # jax.nn.gelu defaults to the tanh form
+        return F.gelu(x, approximate="tanh")
+    if kind == "relu2":          # squared ReLU (nemotron / rwkv channel-mix)
+        r = F.relu(x)
+        return r * r
+    raise ValueError(f"unknown activation {kind!r}")
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    ex = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                      device=device) / head_dim
+    return 1.0 / (theta ** ex)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, H, D] (D even), positions: [..., S].  Rotates the two
+    halves of the head dimension (not interleaved pairs)."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                     # [D/2]
+    ang = positions[..., None].float() * inv                 # [..., S, D/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _promote(a, b):
+    """a cast to the type JAX would promote a (op) b to."""
+    return a.to(torch.promote_types(a.dtype, b.dtype))
+
+
+# ---------------------------------------------------------------------------
+# dense MLP
+# ---------------------------------------------------------------------------
+
+def mlp_defs(d_model: int, d_ff: int, gated: bool) -> dict:
+    d = {
+        "w_in": ParamDef((d_model, d_ff), ("embed", "ff")),
+        "w_out": ParamDef((d_ff, d_model), ("ff", "embed")),
+    }
+    if gated:
+        d["w_gate"] = ParamDef((d_model, d_ff), ("embed", "ff"))
+    return d
+
+
+def mlp(p, x, activation: str):
+    h = x @ p["w_in"]
+    if "w_gate" in p:
+        h = activate(x @ p["w_gate"], activation) * h
+    else:
+        h = activate(h, activation)
+    return h @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional qk-norm / sliding window)
+# ---------------------------------------------------------------------------
+
+def gqa_defs(d_model: int, a: AttentionSpec) -> dict:
+    d = {
+        "wq": ParamDef((d_model, a.n_heads, a.head_dim), ("embed", "heads", "hd")),
+        "wk": ParamDef((d_model, a.n_kv_heads, a.head_dim), ("embed", "kv", "hd")),
+        "wv": ParamDef((d_model, a.n_kv_heads, a.head_dim), ("embed", "kv", "hd")),
+        "wo": ParamDef((a.n_heads, a.head_dim, d_model), ("heads", "hd", "embed")),
+    }
+    if a.qk_norm:
+        d["q_norm"] = ParamDef((a.head_dim,), (None,), init="ones")
+        d["k_norm"] = ParamDef((a.head_dim,), (None,), init="ones")
+    return d
+
+
+def _sdpa(q, k, v, mask):
+    """q [B,S,H,D], k/v [B,T,Hkv,D] with H a multiple of Hkv; mask
+    broadcasts to [B,Hkv,G,S,T].  The decode attention.
+
+    As in the reference: the row max is taken WITHOUT the mask (stale
+    cache slots take part in it), the weights are cast to v's dtype
+    before P·V (accumulated in float32), the 1/Σ normaliser (guarded at
+    1e-30) is folded into the output, and the output is in v's dtype.
+    """
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    q = q.reshape(B, S, Hkv, G, D)
+    logits = torch.einsum("bshgd,bthd->bhgst", q.float(), k.float())
+    logits = logits * (1.0 / math.sqrt(D))
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
+    l = torch.sum(p, dim=-1)                                 # [B,Hkv,G,S]
+    out = torch.einsum("bhgst,bthd->bshgd", p.to(v.dtype).float(), v.float())
+    out = out / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, S, H, D).to(v.dtype)
+
+
+def _qkv(p, a: AttentionSpec, x):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if a.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    return q, k, v
+
+
+def gqa_attention(p, a: AttentionSpec, x, positions):
+    """Full-sequence causal (sliding-window when ``a.window``) attention.
+    x: [B,S,d]; positions: [S] or [B,S].  Returns (out [B,S,d], (k, v))
+    with the roped k and v [B,S,Hkv,D] for the decode cache.  The mask
+    (the reference's ``_causal_window_mask``) is applied inside B6 and
+    its plain version ``ref.flash_attention_ref``."""
+    q, k, v = _qkv(p, a, x)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    q = apply_rope(q, positions, a.rope_theta)
+    k = apply_rope(k, positions, a.rope_theta)
+    # [B,S,H,D] -> [B,H,S,D] views: the kernel reads them through strides
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), a.window).transpose(1, 2)
+    out = torch.einsum("bshk,hkd->bsd", _promote(out, p["wo"]), p["wo"])
+    return out, (k, v)
+
+
+def _decode_pos(pos, B: int, device=None):
+    """Broadcast a scalar or per-slot ``[B]`` position vector to [B]."""
+    pos = torch.as_tensor(pos, dtype=torch.long, device=device)
+    return pos.reshape(-1).expand(B)
+
+
+def gqa_decode(p, a: AttentionSpec, x, cache_k, cache_v, pos):
+    """Single-token decode.  x: [B,1,d]; cache_k/v: [B,T,Hkv,D] rolling
+    (window) or absolute buffer; ``pos``: scalar absolute position of
+    the new token, or a per-slot ``[B]`` vector.
+
+    Writes the new K/V into the cache IN PLACE (the JAX package returns
+    new buffers; the port saves the copy) and returns (out, (cache_k,
+    cache_v)).  With a sliding window the cache is a ring buffer indexed
+    pos % T.
+    """
+    B = x.shape[0]
+    T = cache_k.shape[1]
+    q, k, v = _qkv(p, a, x)
+    posb = _decode_pos(pos, B, x.device)
+    posv = posb[:, None]                                     # [B,1]
+    q = apply_rope(q, posv, a.rope_theta)
+    k = apply_rope(k, posv, a.rope_theta)
+    slot = posb % T if a.window else posb                    # [B]
+    rows = torch.arange(B, device=x.device)
+    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+    idx = torch.arange(T, device=x.device)
+    if a.window:
+        # slot j holds absolute position: the most recent write <= pos
+        age = (slot[:, None] - idx[None, :]) % T
+        valid = age < torch.clamp(posb + 1, max=T)[:, None]
+    else:
+        valid = idx[None, :] <= posb[:, None]
+    mask = valid[:, None, None, None, :]                     # [B,1,1,1,T]
+    out = _sdpa(q, cache_k, cache_v, mask)
+    out = torch.einsum("bshk,hkd->bsd", _promote(out, p["wo"]), p["wo"])
+    return out, (cache_k, cache_v)

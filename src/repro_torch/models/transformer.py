@@ -1,0 +1,303 @@
+"""Model assembly (the port of the JAX package's
+``models/transformer.py``): config -> param defs -> forward, the decode
+cache, the fused prefill and the single-token decode step.
+
+Layers are grouped into homogeneous *segments* with stacked parameters
+(``[L, ...]`` leaves, as in the JAX package, so weights carry across
+leaf by leaf); where the JAX package scans a segment with ``lax.scan``,
+the port loops over the stacked layer axis in Python.
+
+  dense (qwen3) : [("dense", L)]
+  rwkv6         : [("rwkv", L)]
+
+The moe and hybrid (zamba2) segments wait for later slices of the port
+and raise ``NotImplementedError``.
+
+The decode cache is a nested dict of tensors.  ``prefill_cache`` and
+``decode_step`` write it IN PLACE where the JAX package returns new
+buffers (the attention K/V; the recurrent states are replaced, as their
+dtype may change), and return it.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+from . import rwkv6 as R6
+from .params import ParamDef, tree_map_defs
+
+
+class Segment(NamedTuple):
+    kind: str      # dense | rwkv  (moe | hybrid: later slices)
+    n: int         # number of stacked layers
+
+
+def segments(cfg: ModelConfig):
+    if cfg.arch_type == "ssm" and cfg.rwkv is not None:
+        return [Segment("rwkv", cfg.n_layers)]
+    if cfg.hybrid_attn_every:
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid (mamba2 + shared attention) segment "
+            f"is not ported yet (ROADMAP A.3, mamba2)")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: the moe segment is not ported yet (ROADMAP A.3, "
+            f"MoE)")
+    if cfg.attention.kind != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.attention.kind!r} attention is not ported "
+            f"yet (ROADMAP A.3, MLA)")
+    return [Segment("dense", cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# parameter definitions
+# ---------------------------------------------------------------------------
+
+def _block_defs(cfg: ModelConfig, kind: str) -> dict:
+    D = cfg.d_model
+    norm = lambda: ParamDef((D,), (None,), init="ones")  # noqa: E731
+    if kind == "dense":
+        gated = cfg.activation != "relu2"
+        return {"ln1": norm(), "attn": L.gqa_defs(D, cfg.attention),
+                "ln2": norm(), "mlp": L.mlp_defs(D, cfg.d_ff, gated)}
+    if kind == "rwkv":
+        return {"ln1": norm(), "tm": R6.rwkv6_defs(D, cfg.d_ff, cfg.rwkv),
+                "ln2": norm()}
+    raise ValueError(kind)
+
+
+def _stack(defs, n: int, axis_name="layers"):
+    return tree_map_defs(
+        lambda d: ParamDef((n,) + d.shape, (axis_name,) + d.axes, d.init,
+                           d.scale), defs)
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    defs: dict = {
+        "embed": ParamDef((cfg.vocab, D), ("vocab", "embed"), init="normal"),
+        "final_norm": ParamDef((D,), (None,), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((D, cfg.vocab), ("embed", "vocab"))
+    for i, seg in enumerate(segments(cfg)):
+        defs[f"seg_{i}"] = _stack(_block_defs(cfg, seg.kind), seg.n)
+    return defs
+
+
+def _layer(p_stack, i: int):
+    """Layer i's parameters (or cache entries): views of the stack."""
+    if isinstance(p_stack, dict):
+        return {k: _layer(v, i) for k, v in p_stack.items()}
+    return p_stack[i]
+
+
+def _stack_entries(ents: list):
+    """Per-layer dicts of tensors -> one dict of [L, ...] stacks."""
+    if isinstance(ents[0], dict):
+        return {k: _stack_entries([e[k] for e in ents]) for k in ents[0]}
+    return torch.stack(ents)
+
+
+# ---------------------------------------------------------------------------
+# block bodies (full-sequence form)
+# ---------------------------------------------------------------------------
+
+def _dense_block(cfg, p, x, positions):
+    h, (k, v) = L.gqa_attention(p["attn"], cfg.attention,
+                                L.rms_norm(x, p["ln1"], cfg.rms_eps),
+                                positions)
+    x = x + h
+    x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.rms_eps),
+                  cfg.activation)
+    return x, {"k": k, "v": v}
+
+
+def _rwkv_block(cfg, p, x):
+    h, (tm_x, wkv) = R6.rwkv6_timemix(p["tm"], cfg.rwkv,
+                                      L.rms_norm(x, p["ln1"], cfg.rms_eps))
+    x = x + h
+    h, cm_x = R6.rwkv6_channelmix(p["tm"],
+                                  L.rms_norm(x, p["ln2"], cfg.rms_eps))
+    return x + h, {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x}
+
+
+def _run_segment(cfg, seg: Segment, p_stack, x, positions,
+                 collect_cache=False):
+    """Run a stacked segment over x, layer by layer.  Returns (x, cache
+    entries): with ``collect_cache`` (the fused prefill) each layer's
+    full-sequence cache pieces stacked on a leading layer axis, in the
+    ``cache_defs`` layout; else None."""
+    ents = []
+    for i in range(seg.n):
+        p_l = _layer(p_stack, i)
+        if seg.kind == "dense":
+            x, ent = _dense_block(cfg, p_l, x, positions)
+        elif seg.kind == "rwkv":
+            x, ent = _rwkv_block(cfg, p_l, x)
+        else:
+            raise ValueError(seg.kind)
+        if collect_cache:
+            ents.append(ent)
+    return x, (_stack_entries(ents) if collect_cache else None)
+
+
+# ---------------------------------------------------------------------------
+# public forward
+# ---------------------------------------------------------------------------
+
+def embed_inputs(cfg: ModelConfig, params, tokens):
+    return params["embed"][tokens]
+
+
+def _head(cfg: ModelConfig, params, x):
+    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
+
+
+def forward(cfg: ModelConfig, params, tokens):
+    """tokens [B,S] -> logits [B,S,V]."""
+    x = embed_inputs(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i, seg in enumerate(segments(cfg)):
+        x, _ = _run_segment(cfg, seg, params[f"seg_{i}"], x, positions)
+    return _head(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# decode path (single new token against the cache / state)
+# ---------------------------------------------------------------------------
+
+def _attn_cache_defs(cfg: ModelConfig, batch: int, seq_len: int):
+    a = cfg.attention
+    T = min(a.window, seq_len) if a.window else seq_len
+    return {"k": ((batch, T, a.n_kv_heads, a.head_dim),
+                  ("batch", "seq", "kv", "hd")),
+            "v": ((batch, T, a.n_kv_heads, a.head_dim),
+                  ("batch", "seq", "kv", "hd"))}
+
+
+def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    """Shapes + logical axes of the decode cache, mirroring the param
+    stacking."""
+    out: dict = {}
+    for i, seg in enumerate(segments(cfg)):
+        if seg.kind == "dense":
+            out[f"seg_{i}"] = {
+                k: ((seg.n,) + s, ("layers",) + ax)
+                for k, (s, ax) in _attn_cache_defs(cfg, batch,
+                                                   seq_len).items()}
+        elif seg.kind == "rwkv":
+            D = cfg.d_model
+            H, K = D // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+            out[f"seg_{i}"] = {
+                "wkv": ((seg.n, batch, H, K, K),
+                        ("layers", "batch", "heads", None, None)),
+                "tm_x": ((seg.n, batch, 1, D),
+                         ("layers", "batch", None, None)),
+                "cm_x": ((seg.n, batch, 1, D),
+                         ("layers", "batch", None, None)),
+            }
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype=torch.bfloat16, device="cpu") -> dict:
+    def zeros(defs):
+        if isinstance(defs, dict):
+            return {k: zeros(v) for k, v in defs.items()}
+        return torch.zeros(defs[0], dtype=dtype, device=device)
+    return zeros(cache_defs(cfg, batch, seq_len))
+
+
+def decode_step(cfg: ModelConfig, params, cache, token, pos):
+    """token [B,1] int64; pos a scalar absolute position or a per-slot
+    ``[B]`` vector (the recurrent family ignores it).  Returns (logits
+    [B,1,V], cache) — the attention K/V written in place; the rwkv
+    entries replaced by new stacks (the state cast to the cache's dtype,
+    the token-shift carries kept in their computed dtype, as the JAX
+    scan returns them)."""
+    x = embed_inputs(cfg, params, token)
+    pos = L._decode_pos(pos, x.shape[0], x.device)      # one copy per step
+    for i, seg in enumerate(segments(cfg)):
+        p_stack, c_stack = params[f"seg_{i}"], cache[f"seg_{i}"]
+        if seg.kind == "dense":
+            for l in range(seg.n):
+                p_l = _layer(p_stack, l)
+                h, _ = L.gqa_decode(
+                    p_l["attn"], cfg.attention,
+                    L.rms_norm(x, p_l["ln1"], cfg.rms_eps),
+                    c_stack["k"][l], c_stack["v"][l], pos)
+                x = x + h
+                x = x + L.mlp(p_l["mlp"],
+                              L.rms_norm(x, p_l["ln2"], cfg.rms_eps),
+                              cfg.activation)
+        elif seg.kind == "rwkv":
+            ents = []
+            for l in range(seg.n):
+                p_l, c_l = _layer(p_stack, l), _layer(c_stack, l)
+                h, (tm_x, wkv) = R6.rwkv6_timemix(
+                    p_l["tm"], cfg.rwkv,
+                    L.rms_norm(x, p_l["ln1"], cfg.rms_eps),
+                    last_x=c_l["tm_x"], state=c_l["wkv"].float())
+                x = x + h
+                h, cm_x = R6.rwkv6_channelmix(
+                    p_l["tm"], L.rms_norm(x, p_l["ln2"], cfg.rms_eps),
+                    last_x=c_l["cm_x"])
+                x = x + h
+                ents.append({"wkv": wkv.to(c_l["wkv"].dtype), "tm_x": tm_x,
+                             "cm_x": cm_x})
+            cache[f"seg_{i}"] = _stack_entries(ents)
+        else:
+            raise ValueError(seg.kind)
+    return _head(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# fused prefill: one forward writes the whole prompt into the cache
+# ---------------------------------------------------------------------------
+
+def _seq_write(buf, ent, window: int):
+    """Write full-sequence attention entries into a decode cache buffer
+    in place.  buf: [L, B, T, ...]; ent: [L, B, S, ...].  Non-windowed
+    buffers take positions 0..S-1; windowed ring buffers keep the last
+    min(S, T) positions at slot = pos % T, where ``gqa_decode`` would
+    have left them after S sequential steps."""
+    T, S = buf.shape[2], ent.shape[2]
+    if not window and S > T:
+        raise ValueError(f"prompt length {S} exceeds cache length {T}")
+    keep = min(S, T)
+    slots = torch.arange(S - keep, S, device=buf.device) % T
+    buf[:, :, slots] = ent[:, :, S - keep:].to(buf.dtype)
+    return buf
+
+
+def _write_entries(cfg, seg: Segment, bufs, ent):
+    if seg.kind == "dense":
+        return {k: _seq_write(bufs[k], ent[k], cfg.attention.window)
+                for k in bufs}
+    if seg.kind == "rwkv":
+        return {k: ent[k].to(bufs[k].dtype) for k in bufs}
+    raise ValueError(seg.kind)
+
+
+def prefill_cache(cfg: ModelConfig, params, tokens, cache):
+    """Fused prefill: one forward over the prompt computes the
+    full-sequence logits AND writes the whole prompt's K/V (or the
+    final rwkv state) into the decode cache.
+
+    tokens: [B,S] with B matching the cache batch.  Returns (logits
+    [B,S,V], cache) positioned so ``decode_step`` continues at pos = S.
+    """
+    x = embed_inputs(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i, seg in enumerate(segments(cfg)):
+        x, ent = _run_segment(cfg, seg, params[f"seg_{i}"], x, positions,
+                              collect_cache=True)
+        cache[f"seg_{i}"] = _write_entries(cfg, seg, cache[f"seg_{i}"], ent)
+    return _head(cfg, params, x), cache

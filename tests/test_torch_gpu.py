@@ -9,13 +9,18 @@ port's dependencies:
 Tolerances: scores, weights, medians, trimmed means and the row-order
 combines exact; l1/d2med/gram within 1e-5 of the largest finite
 reference magnitude.  NaN must sit where the plain version has it.
+Flash attention (B6) rtol 2e-4 / atol 2e-5 in float32 and 1e-2 in
+bfloat16 (one bf16 rounding of the output); the WKV6 chunk (B7) within
+2e-5 of max|y| and 1e-5 of max|S| (sums in another order).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import brsgd_stats as kern
+from repro_torch.kernels import flash_attention as fa_kern
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import wkv6 as wkv_kern
 
 RTOL = 1e-5
 # LeNet's main path, a ragged d, the largest instance, and the shapes
@@ -178,3 +183,144 @@ def test_card_step_matches_cpu_step(agg):
     exact(m_gpu["selected"], m_cpu["selected"])
     for k in new_cpu:
         close(new_gpu[k], new_cpu[k])
+
+
+# ---------------------------------------------------------------------------
+# B6 and B7 at the shapes of chip_smoke.py's phase 3
+# ---------------------------------------------------------------------------
+
+# (B, H, Hkv, S, D, window, dtype): the qwen3-0.6b prefill, a ragged S, a
+# window, D = 64 and 80, and bfloat16
+FLASH_CASES = [(4, 16, 8, 512, 128, 0, torch.float32),
+               (1, 16, 8, 200, 128, 0, torch.float32),
+               (1, 16, 8, 512, 128, 64, torch.float32),
+               (2, 8, 4, 300, 64, 0, torch.float32),
+               (1, 8, 8, 256, 80, 0, torch.float32),
+               (4, 16, 8, 512, 128, 0, torch.bfloat16)]
+# (B, H, Q, K, log-decay range): rwkv6-7b's chunk with w in (e^-1, 1),
+# w down to e^-3 (the clamps bite), a ragged last chunk, K = 32
+WKV_CASES = [(4, 64, 64, 64, 1.0), (4, 64, 64, 64, 3.0),
+             (4, 64, 40, 64, 1.0), (4, 32, 64, 32, 1.0)]
+
+
+def _bshd(B, S, H, D, seed, dtype):
+    """A [B,H,S,D] view of [B,S,H,D] data: the model's layout."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, S, H, D, generator=g, device="cuda")
+    return x.to(dtype).transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,S,D,win,dtype", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain_version(B, H, Hkv, S, D, win,
+                                                      dtype):
+    need_card()
+    q, k, v = (_bshd(B, S, h, D, i, dtype)
+               for i, h in enumerate((H, Hkv, Hkv)))
+    fa_kern.reset_launches()
+    got = fa_kern.flash_attention(q, k, v, win)
+    want = ref.flash_attention_ref(q, k, v, win)
+    torch.cuda.synchronize()
+    assert fa_kern.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.stride() == q.stride()
+    tol = 2e-4 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol / 10 if dtype == torch.float32
+                               else tol)
+    # contiguous [B,H,S,D] inputs give the same numbers
+    again = fa_kern.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), win)
+    assert torch.equal(again, got)
+
+
+def _wkv_case(B, H, Q, K, decay, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r, k, v = (torch.randn(B, H, Q, K, generator=g, device="cuda")
+               for _ in range(3))
+    w = torch.exp(-decay * torch.rand(B, H, Q, K, generator=g,
+                                      device="cuda"))
+    u = torch.randn(H, K, generator=g, device="cuda")
+    S0 = torch.randn(B, H, K, K, generator=g, device="cuda")
+    return r, k, v, w, u, S0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Q,K,decay", WKV_CASES)
+def test_wkv6_chunk_kernel_matches_plain_version(B, H, Q, K, decay):
+    need_card()
+    ins = _wkv_case(B, H, Q, K, decay)
+    wkv_kern.reset_launches()
+    y, S = wkv_kern.wkv6_chunk(*ins)
+    yp, Sp = ref.wkv6_chunk_plain(*ins)
+    torch.cuda.synchronize()
+    assert wkv_kern.LAUNCHES["wkv6_chunk"] == 1
+    close(y, yp, 2e-5)
+    close(S, Sp, 1e-5)
+    if decay <= 1.0:           # the clamps do not bite: the recurrence too
+        ys, Ss = ref.wkv6_chunk_ref(*ins)
+        close(y, ys, 2e-5)
+        close(S, Ss, 1e-4)
+    # one chunk of a [B,H,S,K] buffer, passed as a strided view
+    r, k, v, w, u, S0 = ins
+    big = [torch.cat([x, x], dim=2) for x in (r, k, v, w)]
+    yv, Sv = wkv_kern.wkv6_chunk(*(x[:, :, Q:] for x in big), u, S0)
+    assert torch.equal(yv, y) and torch.equal(Sv, S)
+
+
+@pytest.mark.gpu
+def test_sequence_wrappers_refuse_bad_input():
+    need_card()
+    q = torch.zeros(1, 2, 8, 48, device="cuda")
+    with pytest.raises(ValueError, match="no kernel instance"):
+        fa_kern.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="multiple"):
+        fa_kern.flash_attention(torch.zeros(1, 3, 8, 64, device="cuda"),
+                                torch.zeros(1, 2, 8, 64, device="cuda"),
+                                torch.zeros(1, 2, 8, 64, device="cuda"))
+    ins = _wkv_case(1, 2, 65, 32, 1.0)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        wkv_kern.wkv6_chunk(*ins)
+    r, k, v, w, u, S0 = _wkv_case(1, 2, 8, 32, 1.0)
+    with pytest.raises(TypeError):
+        wkv_kern.wkv6_chunk(r.double(), k, v, w, u, S0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b"])
+def test_serve_path_on_the_card_matches_the_cpu(arch):
+    """Reduced config: the card's prefill launches B6 once per dense
+    layer or B7 once per rwkv layer and chunk, decode launches neither,
+    and the logits equal the CPU's within 1e-4 of the largest."""
+    need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    cfg = get_config(arch).reduced()
+    p_cpu = PM.init_params(TF.param_defs(cfg),
+                           torch.Generator().manual_seed(0))
+    p_gpu = _to(p_cpu, "cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 80),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        cache = TF.init_cache(cfg, 2, 88, torch.float32, dev)
+        ops.reset_launches()
+        logits, cache = TF.prefill_cache(cfg, params, tokens.to(dev), cache)
+        pre = ops.launches()
+        ops.reset_launches()
+        tok = logits[:, -1].argmax(-1)[:, None]
+        logits2, _ = TF.decode_step(cfg, params, cache, tok, 80)
+        out[dev] = (logits.cpu(), logits2.cpu(), pre, ops.launches())
+    close(out["cuda"][0], out["cpu"][0], 1e-4)
+    close(out["cuda"][1], out["cpu"][1], 1e-4)
+    want = ({"flash_attention": cfg.n_layers} if arch == "qwen3-0.6b"
+            else {"wkv6_chunk": cfg.n_layers * 2})      # 80 = 64 + 16
+    assert {k: n for k, n in out["cuda"][2].items() if n} == want
+    assert not any(out["cuda"][3].values())          # decode: no kernel
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

@@ -16,10 +16,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      [10, 20], and at [20, 61706] with one worker's row NaN (whole, or
      every 5th column); B5 at trim fractions 0.1, 0.25, 0.49 and 0.5;
      B6 (flash attention) at the qwen3-0.6b prefill [B=4, H=16, Hkv=8,
-     S=512, D=128], a ragged S = 200, window 64, D = 64 and 80, and in
-     bfloat16; B7 (the WKV6 chunk) at rwkv6-7b's [4, 64, 64, 64] with w
-     in (e^-1, 1) and down to e^-3 (the clamps bite), a ragged Q = 40
-     and K = 32, also against the sequential oracle;
+     S=512, D=128], a ragged S = 200, window 64, D = 64 and 80, in
+     bfloat16, S = 5 (below one mma tile), S one past a query and a key
+     tile, groups 1, 2 and 8, every D in both types, and the model's
+     strided views against contiguous copies; B7's one-chunk call at
+     rwkv6-7b's [4, 64, 64, 64] with w in (e^-1, 1) and down to e^-3 (the
+     clamps bite), a ragged Q = 40 and K = 32, also against the
+     sequential oracle, and B7's layer call (wkv6_seq, one launch) at
+     S in {1, 63, 64, 65, 512}, K in {32, 64}, both decay ranges, from a
+     nonzero state;
   4. the paper loop: one make_sim_step step on the card and one on the
      CPU from the same params and batch (brsgd under scale at 0.25, and
      trimmed_mean under scale at 0.1, which it trims away), then 5 card
@@ -36,14 +41,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   7. the serve path: repro_torch.launch.serve.main on the card at full
      width, qwen3-0.6b (28 layers) and rwkv6-7b (32 layers), batch 4,
      prompt 512, 16 greedy tokens, 3 timed passes each, with the launch
-     counters read around each (B6 = 28 and B7 = 32 x 8 per prefill, none
+     counters read around each (B6 = 28 and B7 = 32 per prefill, none
      in decode); card against the host CPU at full width cut to 2 layers
      (prompt 80, a ragged chunk: prefill logits, 8 teacher-forced decode
      steps over a float32 and over the bfloat16 cache, greedy tokens);
      prefill == sequential decode on the card for both reduced configs;
   8. timing with CUDA events (bare kernel launch, wrapper call, plain
-     version, one library call) at [20, 61706] and [20, 8388608]; B6 and
-     B7 at their serve shapes (and B6 at S = 4096);
+     version, one library call) at [20, 61706] and [20, 8388608]; B6 at
+     its serve shape and at S = 4096 beside SDPA, with its FP32-pipe and
+     3xTF32 tensor-core bounds; B7 per layer launch at [4, 512, 64, 64]
+     and its one-chunk call;
   9. the {"kernels": [...]} line, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 """
@@ -62,6 +69,8 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+TF32_SPLIT = 3                # 3xTF32: three TF32 products per float32 one
 MAIN_SHAPE = (20, 61706)      # LeNet: m = 20 workers, d = 61,706 params
 HBM_SHAPE = (20, 8_388_608)   # G = 671 MB, well past the 50 MB L2
 # the main path's shape, a ragged one, the largest instance, and the
@@ -80,8 +89,8 @@ REPLACES = {
 SEQ_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:79"),
-    "wkv6_chunk": ("src/repro_torch/kernels/csrc/wkv6.cu",
-                   "src/repro/kernels/wkv6.py:69"),
+    "wkv6_seq": ("src/repro_torch/kernels/csrc/wkv6.cu",
+                 "src/repro/kernels/wkv6.py:69"),
 }
 # B6 cases (B, H, Hkv, S, D, window, dtype name): the qwen3-0.6b prefill,
 # a ragged S, a window, D = 64 and 80, bfloat16
@@ -90,12 +99,21 @@ FLASH_CASES = ((4, 16, 8, 512, 128, 0, "float32"),
                (1, 16, 8, 512, 128, 64, "float32"),
                (2, 8, 4, 300, 64, 0, "float32"),
                (1, 8, 8, 256, 80, 0, "float32"),
-               (4, 16, 8, 512, 128, 0, "bfloat16"))
+               (4, 16, 8, 512, 128, 0, "bfloat16"),
+               (2, 4, 4, 5, 64, 0, "float32"),
+               (1, 2, 2, 5, 128, 0, "bfloat16"),
+               (1, 16, 2, 129, 128, 0, "float32"),
+               (1, 8, 1, 191, 128, 100, "float32"),
+               (1, 4, 2, 65, 80, 0, "bfloat16"),
+               (2, 8, 4, 300, 64, 48, "bfloat16"))
 FLASH_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}  # rtol, atol
 # B7 cases (B, H, Q, K, log-decay range): rwkv6-7b's chunk with w in
 # (e^-1, 1), w down to e^-3, a ragged last chunk, K = 32
 WKV_CASES = ((4, 64, 64, 64, 1.0), (4, 64, 64, 64, 3.0),
              (4, 64, 40, 64, 1.0), (4, 32, 64, 32, 1.0))
+# wkv6_seq (the layer call): prompt lengths, K, log-decay ranges
+WKV_SEQ_S = (1, 63, 64, 65, 512)
+WKV_SEQ_K = (32, 64)
 WKV_TOL = (2e-5, 1e-5)        # y, S_out: relative to the largest |plain|
 SERVE_ARCHS = ("qwen3-0.6b", "rwkv6-7b")
 SERVE_ARGS = ("--batch", "4", "--prompt-len", "512", "--gen", "16",
@@ -153,6 +171,7 @@ def phase_build():
     paths = _build.build_all()
     for name in paths:
         _build.load(name)
+    phase_sass(paths)
     secs = time.perf_counter() - t0
     libs = ", ".join(str(p.relative_to(ROOT)) for p in paths.values())
     print(f"build: {libs} in {secs:.1f} s (one nvcc per source, in "
@@ -179,6 +198,26 @@ def phase_build():
                 print(f"  ptxas {lib} {fn}: {m.group(1)} registers, "
                       f"{m.group(2) or 0} B smem, {stack_line}", flush=True)
     print(f"build: spill bytes over all kernels = {spills}", flush=True)
+
+
+def phase_sass(paths):
+    """B6 and B7 run their products on the tensor cores: count the HMMA
+    instructions in each library's SASS (cuobjdump beside nvcc)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        fail(f"no cuobjdump beside nvcc ({tool}): the tensor-core check "
+             f"of B6 and B7 cannot run")
+    out = {}
+    for name in ("flash_attention", "wkv6"):
+        sass = subprocess.run([str(tool), "-sass", str(paths[name])],
+                              capture_output=True, text=True, timeout=300)
+        n = sum("HMMA" in line for line in sass.stdout.splitlines())
+        if sass.returncode != 0 or n == 0:
+            fail(f"{name}: no HMMA instruction in its SASS "
+                 f"(cuobjdump rc {sass.returncode})")
+        out[name] = n
+    emit({"check": "tensor_core_sass", "hmma_instructions": out})
 
 
 # ---------------------------------------------------------------------------
@@ -336,13 +375,18 @@ def phase_seq_kernels(torch, ref):
     sequential oracle where the clamps do not bite)."""
     from repro_torch.kernels import flash_attention as fa_kern
     from repro_torch.kernels import wkv6 as wkv_kern
-    worst = {"flash_attention": 0.0, "wkv6_chunk": 0.0}
+    worst = {"flash_attention": 0.0, "wkv6_seq": 0.0}
     for B, H, Hkv, S, D, win, dt in FLASH_CASES:
         q, k, v = (_bshd(torch, B, S, h, D, i, dt)
                    for i, h in enumerate((H, Hkv, Hkv)))
         got = fa_kern.flash_attention(q, k, v, win)
         want = ref.flash_attention_ref(q, k, v, win)
+        again = fa_kern.flash_attention(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), win)
         torch.cuda.synchronize()
+        if not torch.equal(again, got):
+            fail(f"flash_attention [{B},{H},{Hkv},{S},{D}] {dt}: the "
+                 f"model's strided views and contiguous copies differ")
         rtol, atol = FLASH_TOL[dt]
         a, b = got.double(), want.double()
         err = float((a - b).abs().max())
@@ -353,7 +397,8 @@ def phase_seq_kernels(torch, ref):
             fail(f"flash_attention {label}: max abs err {err} beyond "
                  f"rtol {rtol} / atol {atol}")
         emit({"check": "flash_attention", "input": label,
-              "max_abs_err": err, "rtol": rtol, "atol": atol})
+              "max_abs_err": err, "rtol": rtol, "atol": atol,
+              "strided_equals_contiguous": True})
     for B, H, Q, K, decay in WKV_CASES:
         ins = _wkv_inputs(torch, B, H, Q, K, decay)
         y, S_out = wkv_kern.wkv6_chunk(*ins)
@@ -361,7 +406,7 @@ def phase_seq_kernels(torch, ref):
         torch.cuda.synchronize()
         label = f"[{B},{H},{Q},{K}] w in (e^-{decay:g}, 1)"
         ey, es = _err(y, yp), _err(S_out, Sp)
-        worst["wkv6_chunk"] = max(worst["wkv6_chunk"], ey, es)
+        worst["wkv6_seq"] = max(worst["wkv6_seq"], ey, es)
         if not (_rel_ok(y, yp, WKV_TOL[0]) and _rel_ok(S_out, Sp, WKV_TOL[1])):
             fail(f"wkv6_chunk {label}: y err {ey}, S err {es} (max|y| "
                  f"{float(yp.abs().max())}, max|S| {float(Sp.abs().max())})")
@@ -377,6 +422,29 @@ def phase_seq_kernels(torch, ref):
                      f"oracle (y {row['oracle_y_err']}, S "
                      f"{row['oracle_S_err']})")
         emit(row)
+    # the layer call: one launch over every chunk, from a nonzero state
+    for S in WKV_SEQ_S:
+        for K in WKV_SEQ_K:
+            for decay in (1.0, 3.0):
+                B, H = (4, 64) if (S, K) == (512, 64) else (2, 8)
+                r, k, v, w, u, S0 = _wkv_inputs(torch, B, H, S, K, decay,
+                                                seed=S + K)
+                r, k, v, w = (x.transpose(1, 2).contiguous()
+                              for x in (r, k, v, w))
+                y, S_out = wkv_kern.wkv6_seq(r, k, v, w, u, S0, 64)
+                yp, Sp = ref.wkv6_seq_plain(r, k, v, w, u, S0, 64)
+                torch.cuda.synchronize()
+                label = f"[{B},{S},{H},{K}] w in (e^-{decay:g}, 1)"
+                ey, es = _err(y, yp), _err(S_out, Sp)
+                worst["wkv6_seq"] = max(worst["wkv6_seq"], ey, es)
+                if not (_rel_ok(y, yp, WKV_TOL[0])
+                        and _rel_ok(S_out, Sp, WKV_TOL[1])):
+                    fail(f"wkv6_seq {label}: y err {ey}, S err {es} "
+                         f"(max|y| {float(yp.abs().max())}, max|S| "
+                         f"{float(Sp.abs().max())})")
+                emit({"check": "wkv6_seq", "input": label, "chunk": 64,
+                      "y_max_abs_err": ey, "S_max_abs_err": es,
+                      "y_rel_tol": WKV_TOL[0], "S_rel_tol": WKV_TOL[1]})
     return worst
 
 
@@ -650,7 +718,7 @@ def _tree_to(tree, dev):
 
 def _expected_prefill(cfg, S):
     if cfg.rwkv is not None:
-        return {"wkv6_chunk": cfg.n_layers * -(-S // min(cfg.rwkv.chunk, S))}
+        return {"wkv6_seq": cfg.n_layers}        # one launch a layer
     return {"flash_attention": cfg.n_layers}
 
 
@@ -664,7 +732,7 @@ def _device_ms(torch, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"flash_attention": 0.0, "wkv6_chunk": 0.0, "gemm": 0.0,
+    groups = {"flash_attention": 0.0, "wkv6_seq": 0.0, "gemm": 0.0,
               "other": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -674,7 +742,7 @@ def _device_ms(torch, fn):
             us = e.self_cuda_time_total
         name = e.key.lower()
         g = ("flash_attention" if "flash_kernel" in name else
-             "wkv6_chunk" if "wkv6_chunk_kernel" in name else
+             "wkv6_seq" if "wkv6_seq_kernel" in name else
              "gemm" if ("gemm" in name or "cutlass" in name
                         or "xmma" in name) else "other")
         groups[g] += us / 1e3
@@ -965,10 +1033,21 @@ def _visible_pairs(S, T, window):
                for i in range(S))
 
 
+def _tc_bound(nbytes: float, ops: float):
+    """The 3xTF32 tensor-core bound: three TF32 products per float32
+    one at 495 TFLOP/s, or the bytes, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = TF32_SPLIT * ops / TF32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_seq_timing(torch, ref):
     """B6 and B7 by CUDA events at their serve shapes (wrapper calls: the
     wrapper's host work overlaps the device queue), their plain versions
-    and, for B6, one library call; bound_ms from this run's shapes."""
+    and, for B6, one library call in the same call; bounds from this
+    run's shapes.  B6 is held to its 3xTF32 tensor-core bound and also
+    shows the FP32-pipe bound; B7 is timed per layer launch (both column
+    splits) and as its one-chunk call."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa_kern
     from repro_torch.kernels import wkv6 as wkv_kern
@@ -981,36 +1060,57 @@ def phase_seq_timing(torch, ref):
         qc = q.contiguous()
         nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
         ops = 4 * D * B * H * _visible_pairs(S, S, 0)
-        bound_ms, bound_by = _bound(nbytes, ops)
+        bound_ms, bound_by = _tc_bound(nbytes, ops)
+        fp32_ms, _ = _bound(nbytes, ops)
         reps = 50 if label == "serve" else 10
-        res = {"shape": [B, H, Hkv, S, D],
-               "ms": _time_ms(torch, lambda: fa_kern.flash_attention(
-                   q, k, v), reps),
+        kern = lambda: fa_kern.flash_attention(q, k, v)        # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(            # noqa: E731
+            qc, kx, vx, is_causal=True)
+        # kernel, library, library, kernel: the card's clocks drift
+        ms = [_time_ms(torch, kern, reps)]
+        lib_ms = [_time_ms(torch, lib, reps), _time_ms(torch, lib, reps)]
+        ms.append(_time_ms(torch, kern, reps))
+        res = {"shape": [B, H, Hkv, S, D], "ms": min(ms), "ms_runs": ms,
                "plain_ms": _time_ms(torch, lambda: ref.flash_attention_ref(
                    q, k, v), max(2, reps // 5), 1),
-               "library_ms": _time_ms(
-                   torch, lambda: F.scaled_dot_product_attention(
-                       qc, kx, vx, is_causal=True), reps),
+               "library_ms": min(lib_ms), "library_ms_runs": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
+               "fp32_bound_ms": fp32_ms,
+               "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
         out[f"flash_attention/{label}"] = res
         emit({"timing": "flash_attention", **res,
+              "bound": "3xTF32 tensor cores (3 x FLOPs / 495 TFLOP/s)",
               "library_call": "F.scaled_dot_product_attention(is_causal=True)"
                               ", float32, kv heads repeated"})
-    B, H, Q, K = 4, 64, 64, 64
-    ins = _wkv_inputs(torch, B, H, Q, K, 1.0)
-    nbytes = 4 * (4 * B * H * Q * K + H * K + 2 * B * H * K * K
-                  + B * H * Q * K)
+    # B7: one layer of rwkv6-7b's prefill, [B, S, H, K] = [4, 512, 64, 64]
+    B, S, H, K, Q = 4, 512, 64, 64, 64
+    r, k, v, w, u, S0 = _wkv_inputs(torch, B, H, S, K, 1.0)
+    r, k, v, w = (x.transpose(1, 2).contiguous() for x in (r, k, v, w))
+    nbytes = 4 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
     tri = Q * (Q - 1) // 2
-    ops = B * H * (2 * tri * 2 * K + 2 * 2 * Q * K * K)
+    ops = (S // Q) * B * H * (2 * tri * 2 * K + 2 * 2 * Q * K * K)
     bound_ms, bound_by = _bound(nbytes, ops)
-    res = {"shape": [B, H, Q, K],
-           "ms": _time_ms(torch, lambda: wkv_kern.wkv6_chunk(*ins), 200),
-           "plain_ms": _time_ms(torch, lambda: ref.wkv6_chunk_plain(*ins), 50),
+    res = {"shape": [B, S, H, K], "chunk": Q,
+           "ms": _time_ms(torch, lambda: wkv_kern.wkv6_seq(
+               r, k, v, w, u, S0, Q), 50),
+           "plain_ms": _time_ms(torch, lambda: ref.wkv6_seq_plain(
+               r, k, v, w, u, S0, Q), 10, 1),
            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "tc_bound_ms": _tc_bound(nbytes, ops)[0],
            "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
-    out["wkv6_chunk/serve"] = res
-    emit({"timing": "wkv6_chunk", **res, "library_call": "none"})
+    # the one-chunk call at [4, 64, 64, 64] (the Pallas kernel's shape)
+    ins = _wkv_inputs(torch, B, H, Q, K, 1.0)
+    cbytes = 4 * (5 * B * H * Q * K + H * K + 2 * B * H * K * K)
+    cops = B * H * (2 * tri * 2 * K + 2 * 2 * Q * K * K)
+    res.update(chunk_ms=_time_ms(torch, lambda: wkv_kern.wkv6_chunk(*ins),
+                                 200),
+               chunk_plain_ms=_time_ms(torch, lambda: ref.wkv6_chunk_plain(
+                   *ins), 50),
+               chunk_bound_ms=_bound(cbytes, cops)[0])
+    out["wkv6_seq/serve"] = res
+    emit({"timing": "wkv6_seq", **res, "library_call": "none",
+          "per": "one layer launch (8 chunks of 64)"})
     return out
 
 
@@ -1116,10 +1216,16 @@ def main() -> int:
                "shape": t["shape"]}
         if name == "flash_attention":
             lt = seq_t["flash_attention/long"]
-            row.update(long_shape=lt["shape"], long_ms=lt["ms"],
+            row.update(fp32_bound_ms=t["fp32_bound_ms"],
+                       long_shape=lt["shape"], long_ms=lt["ms"],
                        long_plain_ms=lt["plain_ms"],
                        long_bound_ms=lt["bound_ms"],
+                       long_fp32_bound_ms=lt["fp32_bound_ms"],
                        long_library_ms=lt["library_ms"])
+        else:
+            row.update(per="layer launch", chunk_ms=t["chunk_ms"],
+                       chunk_plain_ms=t["chunk_plain_ms"],
+                       chunk_bound_ms=t["chunk_bound_ms"])
         kernels.append(row)
     emit({"serve": {a: {k: r[k] for k in ("prefill_tok_s", "decode_tok_s",
                                           "prefill_s", "decode_s",

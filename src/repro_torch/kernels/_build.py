@@ -3,8 +3,9 @@ library per source, with a plain C interface, bound with ctypes).
 
 The build runs at first use, reads only the sources in this package and
 writes into ``build/kernels/`` at the repository root (git-ignored).
-Each library's file name carries a hash of its source and of the nvcc
-flags, so an edited kernel is never served from a stale build.
+Each library's file name carries a hash of its source, of the shared
+headers in ``csrc/`` and of the nvcc flags, so an edited kernel is never
+served from a stale build.
 :func:`build_all` starts one nvcc per source at once and waits for all
 of them.  A missing ``nvcc`` or a failed build raises: there is no
 fallback to the plain versions.
@@ -57,10 +58,10 @@ SIGNATURES = {
                                 _L, _I, _P),
     },
     "wkv6": {
-        # r, k, v, w, u, S_in, y, S_out, B, H, Q, K, input strides,
-        # stream
-        "wkv6_chunk_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _L, _L, _L, _P),
+        # r, k, v, w, u, S0, y, S_out, B, H, S, Q, K, input strides
+        # (batch, token, head), y strides (batch, token, head), stream
+        "wkv6_seq_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _L, _L, _L, _L, _L, _L, _P),
     },
 }
 ERROR_STRING = {"brsgd_stats": "brsgd_error_string",
@@ -84,6 +85,8 @@ def find_nvcc() -> str:
 
 def library_path(source: Path = SOURCE) -> Path:
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:12]}.so"
 
@@ -154,6 +157,15 @@ def load(name: str = "brsgd_stats") -> ctypes.CDLL:
             err.restype = ctypes.c_char_p
             _libs[name] = lib
         return _libs[name]
+
+
+def aligned(t) -> bool:
+    """Every row start of t (4-D, the last dim contiguous) lies on a
+    16-byte boundary, as the kernels' 16-byte copies need: the data
+    pointer and the three outer strides in bytes are multiples of 16."""
+    es = t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(s * es % 16 == 0 for s in t.stride()[:3]))
 
 
 def error_string(name: str, rc: int) -> str:

@@ -1,6 +1,6 @@
-// Hand-written Hopper (sm_90a) flash attention: online-softmax causal /
-// sliding-window GQA attention over one prompt (the prefill of the dense
-// transformer, models/layers.py:gqa_attention).
+// Hand-written Hopper (sm_90a) flash attention on the tensor cores:
+// online-softmax causal / sliding-window GQA attention over one prompt
+// (the prefill of the dense transformer, models/layers.py:gqa_attention).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention_pallas (_flash_kernel), and computes the function of the
@@ -8,40 +8,65 @@
 //
 //   o[b,h,i] = Σ_j softmax_j(q[b,h,i]·k[b,g,j] / √D) v[b,g,j],  g = h / (H/Hkv)
 //   over the keys j with j <= i (causal), i - j < window (window > 0) and
-//   j < T.  Masked logits are -1e30 and their p is zeroed; the output
-//   is acc / max(l, 1e-30), as in _flash_kernel.
+//   j < T.  q is scaled by 1/√D in float32 before the product, masked
+//   logits are -1e30 and their p is zeroed; the output is
+//   acc / max(l, 1e-30), as in _flash_kernel.
 //
 // What bounds it on this card: operations.  4·D FLOPs per visible (query,
-// key) pair against 2·D·(bytes per element) read per key row once per
-// query tile; at the qwen3-0.6b prefill shape [B=4, H=16, Hkv=8, S=512,
-// D=128] the bound is 4.29 GFLOP over 67 TFLOP/s FP32 = 64 µs against
-// 8 MB over 3.35 TB/s = 2.5 µs.  This first version runs on the FP32
-// pipes (no tensor cores, no TMA): right and simple first.
+// key) pair: at the qwen3-0.6b prefill [B=4, H=16, Hkv=8, S=512, D=128]
+// 4.29 GFLOP.  On the FP32 pipes (67 TFLOP/s) that is 64 µs, and the
+// kernel this one replaces ran at 4× that.  Here both products run on the
+// tensor cores in TF32 with the 3xTF32 split, which keeps float32
+// accuracy: each float32 operand x is split into big = tf32(x) and
+// small = x - big, and acc += small·big' + big·small' + big·big' (the
+// operator PyTorch's own float32 attention instantiates,
+// OpMultiplyAddFastF32; tf32_mma.cuh rounds big with an integer add and
+// mask, since cvt.rna.tf32 made the split the bottleneck).  Bound: 3 ×
+// 4.29 GFLOP / 495 TFLOP/s = 26 µs, against 8 MB of q, k, v and o over
+// 3.35 TB/s = 2.5 µs.
+//
+// Route: mma.sync.aligned.m16n8k8 TF32 (warp-level), fragments loaded from
+// shared memory.  wgmma would take both TF32 operands K-major only, so V
+// (D contiguous) would need a transposed copy in shared memory and P a
+// round trip through it; mma.sync keeps P in registers (below) and is the
+// simple, right first step on the tensor cores.
 //
 // Design:
-//   * One CTA of 128 threads per (b·h, query tile of BQ = 64 rows).  The
-//     Q tile is scaled by 1/√D on load (as _flash_kernel scales q) and
-//     stays in shared memory; K and V stream through shared memory in
-//     tiles of BK = 32 rows, converted to float32 on load.
-//   * Thread t owns query rows 4·(t/8) .. +3 and key columns (t%8) + 8·j
-//     of the score tile, and output columns (t%8) + 8·c of those rows:
-//     the running max m, normaliser l and accumulator stay in registers
-//     in float32.  Row max and row sum reduce over the 8 lanes of a row
-//     group with shuffles.  P goes through shared memory for P·V.
-//   * Rows are padded by one float in shared memory (no bank conflicts on
-//     the column reads of K and Q).
+//   * One CTA of 8 warps per (b·h, query tile of BQ = 128 rows); each warp
+//     owns 16 query rows (the mma M).  Its q rows (scaled) wait in shared
+//     memory for the whole key loop (in registers, beside the
+//     accumulator, they spilled at D = 128), and the running max m, the
+//     normaliser l and the [16, D] accumulator stay in registers in the
+//     mma accumulator layout.
+//   * K and V stream through a two-stage ring of 64-row tiles in shared
+//     memory, filled with 16-byte cp.async copies: tile t + 1 loads while
+//     tile t computes.  Rows past T are zero-filled by the copy (source
+//     size 0) and masked.  Rows are padded (K by 8, V by 4 floats or 8
+//     bf16) so the fragment loads hit 32 distinct banks.
+//   * Fragment permutations instead of shuffles: in Q·Kᵀ the mma's k index
+//     t / t+4 reads the head dims 2t / 2t+1 of q and k alike (one 8- or
+//     4-byte load per pair); in P·V it reads the keys 2t / 2t+1, which are
+//     exactly the two score columns a thread holds in the accumulator
+//     layout, so P goes from the scores to the A fragment in registers.
+//   * bfloat16 inputs: k and v are exact in TF32, so their small part is
+//     zero and each product takes two mmas (q or p split, k or v whole).
+//     The math stays float32 as in _flash_kernel (q·scale in float32,
+//     p in float32).
 //   * Key tiles wholly above the causal diagonal, or wholly before the
-//     window of every query in the tile, are skipped: they add exact
-//     zeros in _flash_kernel (p = 0, correction e^0 = 1).
-//   * Ragged S and T are masked in the kernel (keys j >= T are masked,
-//     query rows i >= S are not written): the wrapper pads nothing.
-//   * Layout: q/k/v/o are indexed through (batch, head, sequence)
-//     element strides with the head dimension contiguous, so the model's
+//     window of every query in the tile, are skipped by the CTA; a warp
+//     skips a tile none of its rows sees (exact zeros in _flash_kernel:
+//     p = 0, correction e^0 = 1).  Tiles inside the diagonal, the window
+//     edge or the ragged T take the masked path; the rest skip the mask.
+//   * Heaviest (latest) query tiles launch first.
+//   * Layout: q/k/v/o are indexed through (batch, head, sequence) element
+//     strides with the head dimension contiguous, so the model's
 //     [B, S, H, D] activations go in as [B, H, S, D] views with no copy.
-//   * float32 and bfloat16 inputs; math in float32 (expf, IEEE division),
-//     output in the input type.
-//   * Shared memory is 74 KB at D = 128 (three CTAs per SM): above the
-//     48 KB default, so each instance opts in with cudaFuncSetAttribute.
+//     The wrapper checks that every row start is 16-byte aligned.
+//   * expf and IEEE division, not the fast intrinsics.
+//   * Shared memory: 2 stages × 64 rows × (D + 8 + D + 4) floats of K/V
+//     and 128 × (D + 8) floats of q = 202 KB at D = 128 in float32 (one
+//     CTA of 8 warps per SM), above the 48 KB default, so each instance
+//     opts in with cudaFuncSetAttribute.
 //
 // Plain C interface for ctypes: the entry returns cudaGetLastError() after
 // its launch; nothing here allocates or synchronises.
@@ -49,177 +74,254 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per CTA
-constexpr int BK = 32;        // key rows per tile
-constexpr int THREADS = 128;  // 16 row groups x 8 column lanes
-constexpr int ROWS = BQ / 16;   // query rows per thread
-constexpr int KCOLS = BK / 8;   // key columns per thread
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;  // query rows per CTA
+constexpr int BK = 64;          // key rows per tile
+constexpr int NJ = BK / 8;      // score n-tiles per key tile
+constexpr int STAGES = 2;
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {
   long long b, h, s;  // element strides; the head dimension is contiguous
 };
 
-template <int D>
-constexpr int smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1);
+template <typename T>
+struct Layout {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  template <int D>
+  struct Of {
+    static constexpr int KS = D + 8;               // K row stride, elements
+    static constexpr int VS = D + (kF32 ? 4 : 8);  // V row stride
+    static constexpr int QS = D + 8;               // Q row stride, floats
+    static constexpr int STAGE = BK * (KS + VS);   // elements per stage
+    static constexpr int KV_BYTES = STAGES * STAGE * (int)sizeof(T);
+    static constexpr int BYTES = KV_BYTES + BQ * QS * (int)sizeof(float);
+    static constexpr int CHUNKS = D * (int)sizeof(T) / 16;  // per row
+  };
+};
+
+// two consecutive elements as floats
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ float group_max(float x) {
+__device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-__device__ __forceinline__ float group_sum(float x) {
+__device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 template <int D, typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void load_tile(T* sk, T* sv, const T* kb,
+                                          const T* vb, long long kss,
+                                          long long vss, int k0, int T_len,
+                                          int tid) {
+  using L = typename Layout<T>::template Of<D>;
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
+  for (int i = tid; i < BK * L::CHUNKS; i += THREADS) {
+    const int r = i / L::CHUNKS, c = (i % L::CHUNKS) * EPC;
+    const int s = k0 + r;
+    const bool in = s < T_len;
+    const long long row = in ? s : 0;  // a valid address; 0 bytes read
+    tc::cp_async16(sk + r * L::KS + c, kb + row * kss + c, in);
+    tc::cp_async16(sv + r * L::VS + c, vb + row * vss + c, in);
+  }
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(THREADS, 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int H, int group,
              int S, int T_len, Strides qs, Strides ks, Strides vs, Strides os,
              int window, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int DC = D / 8;  // output columns per thread
-  constexpr int PP = BK + 1;
-  extern __shared__ float smem[];
-  float* sq = smem;            // [BQ][DP]
-  float* sk = sq + BQ * DP;    // [BK][DP]
-  float* sv = sk + BK * DP;    // [BK][D]
-  float* sp = sv + BK * D;     // [BQ][PP]
+  using L = typename Layout<T>::template Of<D>;
+  constexpr bool EXACT = !Layout<T>::kF32;  // bf16 k, v are exact in TF32
+  constexpr int KK = D / 8;                 // k-steps of Q·Kᵀ
+  constexpr int ND = D / 8;                 // n-tiles of P·V
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  float* sq = reinterpret_cast<float*>(smem_raw + L::KV_BYTES);
 
   const int tid = threadIdx.x;
-  const int rg = tid >> 3;     // row group
-  const int cl = tid & 7;      // column lane
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, hk = h / group;
   // heaviest (latest) causal tiles first: the last wave is the light one
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int r0 = q0 + 16 * warp;  // this warp's first query row
 
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + hk * ks.h;
   const T* vb = v + b * vs.b + hk * vs.h;
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D, s = q0 + r;
-    sq[r * DP + d] = s < S ? to_f32(qb[s * qs.s + d]) * scale : 0.f;
-  }
-
-  float m_i[ROWS], l_i[ROWS], acc[ROWS][DC];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m_i[i] = NEG_INF;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
 
   // key tiles that hold a visible key for some query row of this tile
-  const int k_hi = min(T_len, q0 + BQ);
-  int k_lo = 0;
-  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int k_hi = min(T_len, min(S, q0 + BQ));
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int t_lo = k_lo / BK, t_hi = (k_hi + BK - 1) / BK;
+
+  if (t_lo < t_hi) {
+    load_tile<D, T>(smem, smem + BK * L::KS, kb, vb, ks.s, vs.s, t_lo * BK,
+                    T_len, tid);
+  }
+  tc::cp_async_commit();
+
+  // this warp's 16 query rows, scaled in float32, into shared memory
+  // (read back as mma fragments; held in registers they would spill)
+  float* sqw = sq + 16 * warp * L::QS;
+  for (int i = lane; i < 16 * (D / 2); i += 32) {
+    const int r = i / (D / 2), d = 2 * (i % (D / 2));
+    const int row = r0 + r;
+    const float2 x =
+        row < S ? load2(qb + row * qs.s + d) : make_float2(0.f, 0.f);
+    store2(sqw + r * L::QS + d, x.x * scale, x.y * scale);
+  }
+  __syncwarp();
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};
 
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * BK;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, d = i % D, s = k0 + r;
-      const bool in = s < T_len;
-      sk[r * DP + d] = in ? to_f32(kb[s * ks.s + d]) : 0.f;
-      sv[r * D + d] = in ? to_f32(vb[s * vs.s + d]) : 0.f;
+    if (t + 1 < t_hi) {
+      T* nxt = smem + ((t + 1 - t_lo) & 1) * L::STAGE;
+      load_tile<D, T>(nxt, nxt + BK * L::KS, kb, vb, ks.s, vs.s, k0 + BK,
+                      T_len, tid);
     }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // tile t has landed (tile t + 1 may be in flight)
     __syncthreads();
 
-    float sc[ROWS][KCOLS];
+    const T* sk = smem + ((t - t_lo) & 1) * L::STAGE;
+    const T* sv = sk + BK * L::KS;
+    // does any row of this warp see any key of this tile?
+    const bool skip = r0 >= S || k0 > r0 + 15 ||
+                      (window > 0 && k0 + BK - 1 <= r0 - window);
+    if (!skip) {
+      // S = (q·scale)·Kᵀ, [16, BK] per warp
+      float s[NJ][4];
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < KCOLS; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[ROWS], kv[KCOLS];
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) qv[i] = sq[(rg * ROWS + i) * DP + d];
+      for (int kk = 0; kk < KK; ++kk) {
+        // q rows g / g+8, head dims 8kk+2t, +1
+        const float2 qa = load2(sqw + g * L::QS + 8 * kk + 2 * t4);
+        const float2 qc = load2(sqw + (g + 8) * L::QS + 8 * kk + 2 * t4);
+        uint32_t ab[4], as[4];
+        tc::split4(qa.x, qc.x, qa.y, qc.y, ab, as);
 #pragma unroll
-      for (int j = 0; j < KCOLS; ++j) kv[j] = sk[(cl + 8 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < KCOLS; ++j)
-          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
+        for (int j = 0; j < NJ; ++j) {
+          const float2 kv = load2(sk + (8 * j + g) * L::KS + 8 * kk + 2 * t4);
+          tc::mma3<EXACT>(s[j], ab, as, kv.x, kv.y);
+        }
+      }
 
+      // online softmax; element e of s[j] is row g + 8·(e >> 1), key
+      // k0 + 8j + 2t + (e & 1)
+      const bool full = k0 + BK - 1 <= r0 && k0 + BK <= T_len &&
+                        (window <= 0 || r0 + 15 - k0 < window);
+      float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int qp = q0 + rg * ROWS + i;
-      bool ok[KCOLS];
-      float mx = NEG_INF;
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < KCOLS; ++j) {
-        const int kp = k0 + cl + 8 * j;
-        ok[j] = kp < T_len && kp <= qp && (window <= 0 || qp - kp < window);
-        sc[i][j] = ok[j] ? sc[i][j] : NEG_INF;
-        mx = fmaxf(mx, sc[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          if (!full) {
+            const int qp = r0 + g + 8 * (e >> 1);
+            const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
+            const bool ok = kp < T_len && kp <= qp &&
+                            (window <= 0 || qp - kp < window);
+            s[j][e] = ok ? s[j][e] : NEG_INF;
+          }
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_i[r], quad_max(mx[r]));
+        corr[r] = expf(m_i[r] - m_new);
+        m_i[r] = m_new;
       }
-      const float m_new = fmaxf(m_i[i], group_max(mx));
-      float ls = 0.f;
+      float ls[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < KCOLS; ++j) {
-        const float p = ok[j] ? expf(sc[i][j] - m_new) : 0.f;
-        sp[(rg * ROWS + i) * PP + cl + 8 * j] = p;
-        ls += p;
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // a masked logit is exactly NEG_INF; only a masked one is
+          // (visible logits are finite): its p is zeroed as in the JAX
+          // kernel's where(mask, p, 0)
+          const float p =
+              s[j][e] == NEG_INF ? 0.f : expf(s[j][e] - m_i[e >> 1]);
+          s[j][e] = p;
+          ls[e >> 1] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_i[r] = l_i[r] * corr[r] + ls[r];
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
       }
-      const float corr = expf(m_i[i] - m_new);
-      l_i[i] = l_i[i] * corr + group_sum(ls);
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[ROWS];
+      // acc += P·V: the k index t / t+4 of the mma is key 2t / 2t+1 of
+      // the n-tile, which the thread already holds as s[j][0..3]
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) pv[i] = sp[(rg * ROWS + i) * PP + j];
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t ab[4], as[4];
+        tc::split4(s[j][0], s[j][2], s[j][1], s[j][3], ab, as);
+        const T* v0 = sv + (8 * j + 2 * t4) * L::VS + g;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = sv[j * D + cl + 8 * c];
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+        for (int n = 0; n < ND; ++n) {
+          tc::mma3<EXACT>(acc[n], ab, as, to_f32(v0[8 * n]),
+                          to_f32(v0[L::VS + 8 * n]));
+        }
       }
     }
+    __syncthreads();  // this stage is consumed before it is refilled
   }
+  tc::cp_async_wait<0>();
 
   T* ob = o + b * os.b + h * os.h;
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int qp = q0 + rg * ROWS + i;
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r0 + g + 8 * r;
+    const float den = fmaxf(quad_sum(l_i[r]), 1e-30f);
     if (qp >= S) continue;
-    const float den = fmaxf(l_i[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      ob[qp * os.s + cl + 8 * c] = from_f32<T>(acc[i][c] / den);
+    for (int n = 0; n < ND; ++n)
+      store2(ob + qp * os.s + 8 * n + 2 * t4, acc[n][2 * r] / den,
+             acc[n][2 * r + 1] / den);
   }
 }
 
@@ -227,7 +329,7 @@ template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int Hkv, int S, int T_len, Strides qs, Strides ks, Strides vs,
            Strides os, int window, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D>() * sizeof(float);
+  constexpr int bytes = Layout<T>::template Of<D>::BYTES;
   auto kern = flash_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -269,7 +371,8 @@ const char* flash_error_string(int err) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Strides are in
 // elements, (batch, head, sequence) for each tensor; the head dimension
-// D is contiguous.  Causal; window > 0 adds the sliding window.  Returns
+// D is contiguous and every row start is 16-byte aligned (the wrapper
+// checks).  Causal; window > 0 adds the sliding window.  Returns
 // cudaErrorInvalidValue for a D without an instance (64, 80, 128) or a
 // bad dtype.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,

@@ -1,42 +1,63 @@
-// Hand-written Hopper (sm_90a) kernel for one RWKV-6 chunk: the chunked-
-// parallel WKV6 of the rwkv6 time-mix prefill (models/rwkv6.py:_wkv_chunked
-// calls it once per chunk of Q tokens, carrying the state).
+// Hand-written Hopper (sm_90a) kernel for the chunked RWKV-6 WKV6 scan of
+// one layer's prompt: every chunk of every (batch, head) in ONE launch,
+// with the [K, K] state kept on chip from the first chunk to the last
+// (models/rwkv6.py:_wkv_chunked calls it once per layer).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/wkv6.py:
 // wkv6_chunk_pallas (_wkv_chunk_kernel), which is one step of the scan body
-// of the JAX model's rwkv6._wkv_chunked.  For one (batch, head), with
-// r/k/v/w [Q, K], u [K] and S_in [K, K]:
+// of the JAX model's rwkv6._wkv_chunked; this kernel runs that whole scan.
+// For one (batch, head) and each chunk of Q tokens (the last one may hold
+// Q' < Q), with r/k/v/w [Q, K], u [K] and the carried state S [K, K]:
 //
-//   c    = inclusive cumsum of log w along Q;   ce = c - log w
+//   c    = inclusive cumsum of log w along the chunk;   ce = c - log w
 //   mid  = ½·c[Q-1]
 //   A    = (r·e^{clip(ce - mid, ±40)}) · (k·e^{clip(mid - c, ±40)})ᵀ, j < t
-//   y    = A·v + (Σ_k r·u·k)·v + (r·e^{max(ce, -80)})·S_in
-//   S_out = e^{max(c[Q-1], -80)}·S_in + (k·e^{max(c[Q-1] - c, -80)})ᵀ·v
+//   y    = A·v + (Σ_k r·u·k)·v + (r·e^{max(ce, -80)})·S
+//   S   <- e^{max(c[Q-1], -80)}·S + (k·e^{max(c[Q-1] - c, -80)})ᵀ·v
 //
-// What bounds it on this card: at the rwkv6-7b shape [B=4, H=64, Q=64,
-// K=64] the bytes (r, k, v, w, S_in read, y, S_out written: 29.4 MB, 8.8 µs
-// at 3.35 TB/s) and the four [64,64]x[64,64] products per (b, h) (0.54
-// GFLOP, 8.0 µs at 67 TFLOP/s FP32) are about even.  This first version
-// runs on the FP32 pipes; a kernel that keeps the state resident across
-// all chunks of a (b, h) is later work.
+// The cumsum, mid and the clamps are local to each chunk.  A ragged last
+// chunk is computed over its Q' tokens: its rows past Q' are read as
+// r = k = v = 0 and log w = 0, which is exactly the JAX pad (w = 1, zeros).
+//
+// What bounds it on this card: bytes.  At rwkv6-7b's layer [B=4, S=512,
+// H=64, K=64] r, k, v, w and y are 5 × 33.5 MB and S0, S_final 2 × 4.2 MB:
+// 176 MB, 52.6 µs at 3.35 TB/s, against 3.2 GFLOP of products, 48 µs on
+// the FP32 pipes.  The kernel it replaces ran once per chunk (8 launches a
+// layer), re-read and re-wrote the state each time and computed one output
+// per thread with two shared-memory loads per FMA: 0.86 ms a layer.
 //
 // Design:
-//   * One CTA of 256 threads per (b, h).  r, k, v, log w, the derived
-//     factors, S_in and the [Q, Q] scores live in shared memory as float32
-//     (rows padded by one float against bank conflicts): 134 KB at
-//     Q = K = 64, above the 48 KB default, so each instance opts in with
-//     cudaFuncSetAttribute.
-//   * The cumulative log-decay runs sequentially along Q, one thread per
-//     channel; every other step is spread over all threads.
-//   * Only the strictly lower triangle of A is computed; the rest is 0
-//     (an entry above the diagonal, whose clipped factors may overflow,
-//     never reaches y).
-//   * logf / expf, not the fast-math intrinsics; sums run in the order of
-//     the JAX expression ((A·v + diag·v) + r_state·S_in).
-//   * r/k/v/w are indexed through (batch, head, token) element strides
-//     with the channel contiguous, so the model's [B, H, S, K] buffers go
-//     in chunk by chunk as views.  y [B, H, Q, K], u [H, K], S_in and
-//     S_out [B, H, K, K] are contiguous.
+//   * Grid B·H: one CTA owns one (b, h) and all K value columns (256 CTAs
+//     at rwkv6-7b's shape).  Splitting the columns over two CTAs was
+//     measured slower (PERF.md): the decay factors and the [Q, Q]
+//     scores, most of a CTA's time, would run twice, and the smaller
+//     footprint still fits only one CTA per SM.
+//   * The state [K, K] is read from S0 once, stays in shared memory
+//     across all chunks, and is written to S_final once.
+//   * Prefetch: as soon as the decay factors of chunk c are built, chunk
+//     c + 1's r, k, w, v [Q, K] tiles start loading with 16-byte cp.async
+//     copies, while chunk c's products run.
+//   * The four products run on the tensor cores (mma.sync m16n8k8 TF32
+//     with the 3xTF32 split of tf32_mma.cuh, which keeps float32
+//     accuracy): A = r_dec·k_growᵀ over its 20 lower 16 × 8 tiles, then
+//     per warp 16 tokens × K/2 columns of y = A·v and r_state·S, and 16
+//     channels × K/2 columns of k_endᵀ·v.  On the FP32 pipes the same
+//     products were bound by shared-memory loads (two vector loads per 16
+//     FMAs); an mma fragment carries 1024 multiply-adds per six loads.
+//     A's entries on and above the diagonal are set to exactly 0 (the
+//     model's where: an entry above the diagonal, whose clipped factors
+//     may overflow, never reaches y).
+//   * Parallel cumsum: 4 lanes per channel hold interleaved tokens; each
+//     step of 4 tokens is a quad scan by shuffles, independent across
+//     steps, then a running carry; spread over all warps.
+//   * logf / expf, not the fast intrinsics; y sums as the JAX expression,
+//     (A·v + diag·v) + r_state·S.
+//   * Layout: r/k/v/w are read and y written through (batch, token, head)
+//     element strides with the channel contiguous, so the model's
+//     [B, S, H, K] buffers go in and come out with no copy.  u [H, K], S0
+//     and S_final [B, H, K, K] are contiguous.  The wrapper checks that
+//     every input row start is 16-byte aligned.
+//   * Shared memory: 200 KB at K = 64 (one CTA of 256 threads per SM), opted in with cudaFuncSetAttribute.
 //
 // Plain C interface for ctypes: the entry returns cudaGetLastError() after
 // its launch; nothing here allocates or synchronises.
@@ -44,139 +65,322 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_Q = 64;
+constexpr int WARPS = THREADS / 32;
+constexpr int MQ = 64;  // the longest chunk
 constexpr float LOG_CLAMP = 40.0f;
 
-__host__ __device__ constexpr int smem_floats(int Q, int K) {
-  // r, k, v, c, r_state, k_end [Q][K+1]; S [K][K+1]; A [Q][Q+1];
-  // ce (reuses r_state), diag [Q], u [K], c_last [K]
-  return 6 * Q * (K + 1) + K * (K + 1) + Q * (Q + 1) + Q + 2 * K;
+// Shared-memory layout in floats.  Row strides are picked for the mma
+// fragment loads: ≡ 8 (mod 32) where a fragment reads two neighbours of a
+// row (8-byte loads, A operands and B = Mᵀ), ≡ 4 (mod 16) where it reads
+// one element of two neighbouring rows (B = M); all keep rows 16-byte
+// aligned for the cp.async copies.
+template <int K>
+struct Smem {
+  static constexpr int XS = K + 8;    // raw r / k / w and r_dec, k_grow, r_state
+  static constexpr int VS = K + 4;    // raw v, v and the state
+  static constexpr int TS = MQ + 8;   // A [t][j] and k_endᵀ [a][t]
+  static constexpr int X_R = 0, X_K = X_R + MQ * XS, X_W = X_K + MQ * XS,
+                       X_V = X_W + MQ * XS, RD = X_V + MQ * VS,
+                       KG = RD + MQ * XS, RS = KG + MQ * XS,
+                       KET = RS + MQ * XS, AM = KET + K * TS,
+                       V = AM + MQ * TS, ST = V + MQ * VS, DIAG = ST + K * VS,
+                       ECL = DIAG + MQ, U = ECL + K, FLOATS = U + K;
+  static constexpr int BYTES = FLOATS * (int)sizeof(float);
+};
+
+// chunk [c0, c0 + Qc) of one (b, h), all K channels of r, k, w and v;
+// rows past Qc are zero-filled
+template <int K>
+__device__ __forceinline__ void load_chunk(float* sm, const float* r,
+                                           const float* k, const float* w,
+                                           const float* v, long long ss,
+                                           int c0, int Qc, int tid) {
+  using L = Smem<K>;
+  constexpr int CR = K / 4;  // 16-byte pieces per row
+  for (int i = tid; i < MQ * CR; i += THREADS) {
+    const int t = i / CR, col = (i % CR) * 4;
+    const bool in = t < Qc;
+    const long long off = (in ? (long long)(c0 + t) : 0) * ss + col;
+    tc::cp_async16(sm + L::X_R + t * L::XS + col, r + off, in);
+    tc::cp_async16(sm + L::X_K + t * L::XS + col, k + off, in);
+    tc::cp_async16(sm + L::X_W + t * L::XS + col, w + off, in);
+    tc::cp_async16(sm + L::X_V + t * L::VS + col, v + off, in);
+  }
+}
+
+// split A fragment of a k step from a row-major [m][k] array: rows m0 + g
+// and m0 + g + 8, columns 8·ks + 2t, + 1
+__device__ __forceinline__ void a_frag(const float* m, int stride, int m0,
+                                       int ks, int g, int t4,
+                                       uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  const float2 x = *reinterpret_cast<const float2*>(
+      m + (m0 + g) * stride + 8 * ks + 2 * t4);
+  const float2 y = *reinterpret_cast<const float2*>(
+      m + (m0 + g + 8) * stride + 8 * ks + 2 * t4);
+  tc::split4(x.x, y.x, x.y, y.y, big, small);
 }
 
 template <int K>
-__global__ void __launch_bounds__(THREADS)
-wkv6_chunk_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ w,
-                  const float* __restrict__ u, const float* __restrict__ S_in,
-                  float* __restrict__ y, float* __restrict__ S_out, int H,
-                  int Q, long long sb, long long sh, long long sq) {
-  constexpr int KP = K + 1;
-  const int QP = Q + 1;
-  extern __shared__ float sm[];
-  float* s_r = sm;                // r, then r_dec
-  float* s_k = s_r + Q * KP;      // k, then k_grow
-  float* s_v = s_k + Q * KP;
-  float* s_c = s_v + Q * KP;      // log w, then c
-  float* s_rs = s_c + Q * KP;     // ce, then r_state
-  float* s_ke = s_rs + Q * KP;    // k_end
-  float* s_S = s_ke + Q * KP;     // [K][KP]
-  float* s_A = s_S + K * KP;      // [Q][QP]
-  float* s_diag = s_A + Q * QP;   // [Q]
-  float* s_u = s_diag + Q;        // [K]
-  float* s_cl = s_u + K;          // [K] c[Q-1]
+__global__ void __launch_bounds__(THREADS, 1)
+wkv6_seq_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ w,
+                const float* __restrict__ u, const float* __restrict__ S0,
+                float* __restrict__ y, float* __restrict__ S_out, int H,
+                int S_len, int Q, long long sb, long long ss, long long sh,
+                long long yb, long long ys, long long yh) {
+  using L = Smem<K>;
+  constexpr int NT = K / 16;             // n-tiles of 8 per warp (two halves)
+  static_assert(K % 16 == 0 && K <= MQ && MQ == 64 &&
+                    WARPS == 8,
+                "tile shapes and the warp map of A");
+  extern __shared__ __align__(16) float sm[];
 
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const long long base = b * sb + h * sh;
-  const float* S0 = S_in + (long long)bh * K * K;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const long long ib = b * sb + h * sh;
+  const float *rb = r + ib, *kb = k + ib, *wb = w + ib, *vb = v + ib;
+  float* yo = y + b * yb + h * yh;
+  // y and S: this warp's 16 rows (tokens for y, channels for S) and its
+  // half of the K columns
+  const int mt = warp >> 1, nh = (warp & 1) * 8 * NT;
 
-  for (int i = tid; i < Q * K; i += THREADS) {
-    const int t = i / K, j = i % K;
-    const long long off = base + t * sq + j;
-    s_r[t * KP + j] = r[off];
-    s_k[t * KP + j] = k[off];
-    s_v[t * KP + j] = v[off];
-    s_c[t * KP + j] = logf(w[off]);
-  }
+  load_chunk<K>(sm, rb, kb, wb, vb, ss, 0, min(Q, S_len), tid);
+  tc::cp_async_commit();
+  const float* s0 = S0 + (long long)bh * K * K;
   for (int i = tid; i < K * K; i += THREADS)
-    s_S[(i / K) * KP + i % K] = S0[i];
-  for (int j = tid; j < K; j += THREADS) s_u[j] = u[h * K + j];
-  __syncthreads();
+    sm[L::ST + (i / K) * L::VS + i % K] = s0[i];
+  for (int i = tid; i < K; i += THREADS) sm[L::U + i] = u[h * K + i];
 
-  // bonus diagonal Σ_k (r·u)·k per token; cumulative log-decay per channel
-  for (int t = tid; t < Q; t += THREADS) {
-    float acc = 0.f;
-    for (int j = 0; j < K; ++j)
-      acc += s_r[t * KP + j] * s_u[j] * s_k[t * KP + j];
-    s_diag[t] = acc;
-  }
-  for (int j = tid; j < K; j += THREADS) {
-    float c = 0.f;
-    for (int t = 0; t < Q; ++t) {
-      const float lw = s_c[t * KP + j];
-      c += lw;
-      s_c[t * KP + j] = c;
-      s_rs[t * KP + j] = c - lw;
+  for (int c0 = 0; c0 < S_len; c0 += Q) {
+    const int Qc = min(Q, S_len - c0);
+    const int ksq = (Qc + 7) / 8;  // k steps over this chunk's tokens
+    tc::cp_async_wait<0>();
+    __syncthreads();
+
+    // ---- cumulative log-decay and the decay factors ----
+    // lane: channel a = 8·warp + lane/4 (+ 64 i), tokens 4j + lane%4; each
+    // step of 4 tokens is a quad scan, then a running carry
+    const int seg = lane & 3;
+    for (int a = 8 * warp + (lane >> 2); a < K; a += 8 * WARPS) {
+      float lw[MQ / 4], cc[MQ / 4];
+#pragma unroll
+      for (int j = 0; j < MQ / 4; ++j) {
+        const int t = 4 * j + seg;
+        lw[j] = t < Qc ? logf(sm[L::X_W + t * L::XS + a]) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < MQ / 4; ++j) {
+        float x = lw[j];
+        const float p = __shfl_up_sync(0xffffffffu, x, 1, 4);
+        cc[j] = seg >= 1 ? x + p : x;
+      }
+#pragma unroll
+      for (int j = 0; j < MQ / 4; ++j) {
+        const float p = __shfl_up_sync(0xffffffffu, cc[j], 2, 4);
+        if (seg >= 2) cc[j] += p;
+      }
+      float carry = 0.f;
+#pragma unroll
+      for (int j = 0; j < MQ / 4; ++j) {
+        const float tot = __shfl_sync(0xffffffffu, cc[j], 3, 4);
+        cc[j] = carry + cc[j];
+        carry += tot;
+      }
+      const float cl = carry, mid = 0.5f * cl;
+      if (seg == 0) sm[L::ECL + a] = expf(fmaxf(cl, -2.f * LOG_CLAMP));
+#pragma unroll
+      for (int j = 0; j < MQ / 4; ++j) {
+        const int t = 4 * j + seg;
+        const float c = cc[j], ce = c - lw[j];
+        const float rr = sm[L::X_R + t * L::XS + a];
+        const float kk = sm[L::X_K + t * L::XS + a];
+        sm[L::RD + t * L::XS + a] =
+            rr * expf(fminf(fmaxf(ce - mid, -LOG_CLAMP), LOG_CLAMP));
+        sm[L::RS + t * L::XS + a] = rr * expf(fmaxf(ce, -2.f * LOG_CLAMP));
+        sm[L::KG + t * L::XS + a] =
+            kk * expf(fminf(fmaxf(mid - c, -LOG_CLAMP), LOG_CLAMP));
+        sm[L::KET + a * L::TS + t] =
+            kk * expf(fmaxf(cl - c, -2.f * LOG_CLAMP));
+      }
     }
-    s_cl[j] = c;
-  }
-  __syncthreads();
-
-  // the centred intra-chunk factors and the state factors
-  for (int i = tid; i < Q * K; i += THREADS) {
-    const int t = i / K, j = i % K, a = t * KP + j;
-    const float c = s_c[a], ce = s_rs[a], cl = s_cl[j];
-    const float mid = 0.5f * cl;
-    const float rr = s_r[a], kk = s_k[a];
-    s_rs[a] = rr * expf(fmaxf(ce, -2.f * LOG_CLAMP));
-    s_r[a] = rr * expf(fminf(fmaxf(ce - mid, -LOG_CLAMP), LOG_CLAMP));
-    s_ke[a] = kk * expf(fmaxf(cl - c, -2.f * LOG_CLAMP));
-    s_k[a] = kk * expf(fminf(fmaxf(mid - c, -LOG_CLAMP), LOG_CLAMP));
-  }
-  __syncthreads();
-
-  // strictly lower [Q, Q] scores
-  for (int i = tid; i < Q * Q; i += THREADS) {
-    const int t = i / Q, j = i % Q;
-    float acc = 0.f;
-    if (j < t) {
-#pragma unroll 8
-      for (int a = 0; a < K; ++a)
-        acc = fmaf(s_r[t * KP + a], s_k[j * KP + a], acc);
+    // bonus diagonal Σ_k (r·u)·k per token: 4 lanes per token
+    {
+      constexpr int PER = K / 4;
+      const int t = tid >> 2, part = tid & 3;
+      float acc = 0.f;
+      for (int a = part * PER; a < (part + 1) * PER; ++a)
+        acc += sm[L::X_R + t * L::XS + a] * sm[L::U + a] *
+               sm[L::X_K + t * L::XS + a];
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (part == 0) sm[L::DIAG + t] = acc;
     }
-    s_A[t * QP + j] = acc;
+    for (int i = tid; i < MQ * K; i += THREADS)
+      sm[L::V + (i / K) * L::VS + i % K] =
+          sm[L::X_V + (i / K) * L::VS + i % K];
+    __syncthreads();
+
+    // ---- the raw tiles are consumed: start loading the next chunk ----
+    if (c0 + Q < S_len)
+      load_chunk<K>(sm, rb, kb, wb, vb, ss, c0 + Q, min(Q, S_len - c0 - Q),
+                    tid);
+    tc::cp_async_commit();
+
+    // ---- A = r_dec·k_growᵀ over the lower 16 × 8 tiles, j < t kept ----
+    // warp w: token rows 16·mt (mt = 3 - w/2) and half of their 2·mt + 2
+    // tiles, all at once (one split A fragment per k step, independent
+    // accumulator chains)
+    {
+      const int amt = 3 - (warp >> 1), nj = amt + 1;
+      const int m0 = 16 * amt, j0 = (warp & 1) * nj;
+      if (m0 < Qc) {
+        float c[4][4], cc[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[i][e] = cc[i][e] = 0.f;
+#pragma unroll 2
+        for (int ks = 0; ks < K / 8; ++ks) {
+          uint32_t ab[4], as[4];
+          a_frag(sm + L::RD, L::XS, m0, ks, g, t4, ab, as);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (i < nj) {
+              const float2 kg = *reinterpret_cast<const float2*>(
+                  sm + L::KG + (8 * (j0 + i) + g) * L::XS + 8 * ks + 2 * t4);
+              tc::mma3<false>(c[i], cc[i], ab, as, kg.x, kg.y);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (i >= nj) break;
+          const int jn = j0 + i;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = m0 + g + 8 * (e >> 1);
+            const int col = 8 * jn + 2 * t4 + (e & 1);
+            // the model's where: j < t only
+            c[i][e] = col >= row ? 0.f : c[i][e] + cc[i][e];
+          }
+          *reinterpret_cast<float2*>(sm + L::AM + (m0 + g) * L::TS + 8 * jn +
+                                     2 * t4) = make_float2(c[i][0], c[i][1]);
+          *reinterpret_cast<float2*>(sm + L::AM + (m0 + g + 8) * L::TS +
+                                     8 * jn + 2 * t4) =
+              make_float2(c[i][2], c[i][3]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- y = (A·v + diag·v) + r_state·S for 16 tokens × 8·NT columns and
+    // S' = k_endᵀ·v for 16 channels × 8·NT columns, in one loop over the
+    // k steps: up to 3·NT independent accumulator chains ----
+    const int m0 = 16 * mt;
+    const bool y_mine = m0 < Qc, s_mine = m0 < K;
+    const int kj = min(2 * mt + 2, ksq);  // A is zero past the diagonal
+    float y1[NT][4], y2[NT][4], sn[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y1[i][e] = y2[i][e] = sn[i][e] = 0.f;
+#pragma unroll 2
+    for (int ks = 0; ks < MQ / 8; ++ks) {
+      const float* v0 = sm + L::V + (8 * ks + 2 * t4) * L::VS + nh + g;
+      if (y_mine && ks < kj) {
+        uint32_t ab[4], as[4];
+        a_frag(sm + L::AM, L::TS, m0, ks, g, t4, ab, as);
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          tc::mma3<false>(y1[i], ab, as, v0[8 * i], v0[L::VS + 8 * i]);
+      }
+      if (y_mine && ks < K / 8) {
+        uint32_t ab[4], as[4];
+        a_frag(sm + L::RS, L::XS, m0, ks, g, t4, ab, as);
+        const float* s0p = sm + L::ST + (8 * ks + 2 * t4) * L::VS + nh + g;
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          tc::mma3<false>(y2[i], ab, as, s0p[8 * i], s0p[L::VS + 8 * i]);
+      }
+      if (s_mine && ks < ksq) {
+        uint32_t ab[4], as[4];
+        a_frag(sm + L::KET, L::TS, m0, ks, g, t4, ab, as);
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          tc::mma3<false>(sn[i], ab, as, v0[8 * i], v0[L::VS + 8 * i]);
+      }
+    }
+    if (y_mine) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int t = m0 + g + 8 * hf;
+        if (t >= Qc) continue;
+        const float dg = sm[L::DIAG + t];
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          const int n = nh + 8 * i + 2 * t4;
+          const float2 vv =
+              *reinterpret_cast<const float2*>(sm + L::V + t * L::VS + n);
+          const float o0 = (y1[i][2 * hf] + dg * vv.x) + y2[i][2 * hf];
+          const float o1 = (y1[i][2 * hf + 1] + dg * vv.y) + y2[i][2 * hf + 1];
+          *reinterpret_cast<float2*>(yo + (long long)(c0 + t) * ys + n) =
+              make_float2(o0, o1);
+        }
+      }
+    }
+    if (s_mine) {  // S <- e^{max(c_last, -80)}·S + k_endᵀ·v
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int a = m0 + g + 8 * hf;
+        const float e = sm[L::ECL + a];
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          const int n = nh + 8 * i + 2 * t4;
+          const float2 sv =
+              *reinterpret_cast<const float2*>(sm + L::ST + a * L::VS + n);
+          sn[i][2 * hf] = e * sv.x + sn[i][2 * hf];
+          sn[i][2 * hf + 1] = e * sv.y + sn[i][2 * hf + 1];
+        }
+      }
+    }
+    __syncthreads();  // every read of S is done
+    if (s_mine) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int a = 16 * mt + g + 8 * hf;
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          *reinterpret_cast<float2*>(sm + L::ST + a * L::VS + nh + 8 * i +
+                                     2 * t4) =
+              make_float2(sn[i][2 * hf], sn[i][2 * hf + 1]);
+      }
+    }
   }
   __syncthreads();
-
-  // y = A·v + diag·v + r_state·S_in
-  float* yo = y + (long long)bh * Q * K;
-  for (int i = tid; i < Q * K; i += THREADS) {
-    const int t = i / K, n = i % K;
-    float av = 0.f;
-    for (int j = 0; j < t; ++j) av = fmaf(s_A[t * QP + j], s_v[j * KP + n], av);
-    av += s_diag[t] * s_v[t * KP + n];
-    float rs = 0.f;
-#pragma unroll 8
-    for (int a = 0; a < K; ++a) rs = fmaf(s_rs[t * KP + a], s_S[a * KP + n], rs);
-    yo[i] = av + rs;
-  }
-
-  // S_out = e^{max(c[Q-1], -80)}·S_in + k_endᵀ·v
-  float* So = S_out + (long long)bh * K * K;
-  for (int i = tid; i < K * K; i += THREADS) {
-    const int a = i / K, n = i % K;
-    float kv = 0.f;
-    for (int j = 0; j < Q; ++j) kv = fmaf(s_ke[j * KP + a], s_v[j * KP + n], kv);
-    So[i] = expf(fmaxf(s_cl[a], -2.f * LOG_CLAMP)) * s_S[a * KP + n] + kv;
-  }
+  float* so = S_out + (long long)bh * K * K;
+  for (int i = tid; i < K * K; i += THREADS)
+    so[i] = sm[L::ST + (i / K) * L::VS + i % K];
 }
 
 template <int K>
 int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, const float* S_in, float* y, float* S_out, int B,
-           int H, int Q, long long sb, long long sh, long long sq,
-           cudaStream_t stream) {
-  const int bytes = smem_floats(Q, K) * (int)sizeof(float);
+           const float* u, const float* S0, float* y, float* S_out, int B,
+           int H, int S_len, int Q, long long sb, long long ss, long long sh,
+           long long yb, long long ys, long long yh, cudaStream_t stream) {
+  constexpr int bytes = Smem<K>::BYTES;
+  auto kern = wkv6_seq_kernel<K>;
   cudaError_t err = cudaFuncSetAttribute(
-      wkv6_chunk_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_floats(MAX_Q, K) * (int)sizeof(float));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  wkv6_chunk_kernel<K><<<B * H, THREADS, bytes, stream>>>(
-      r, k, v, w, u, S_in, y, S_out, H, Q, sb, sh, sq);
+  kern<<<B * H, THREADS, bytes, stream>>>(r, k, v, w, u, S0, y, S_out, H,
+                                         S_len, Q, sb, ss, sh, yb, ys, yh);
   return cudaGetLastError();
 }
 
@@ -188,33 +392,34 @@ const char* wkv6_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// r/k/v/w: element strides (sb, sh, sq) over (batch, head, token), the
-// channel contiguous.  y [B, H, Q, K], u [H, K], S_in and S_out
-// [B, H, K, K] contiguous.  Returns cudaErrorInvalidValue for a K
-// without an instance (32, 64) or Q outside 1..64.
-int wkv6_chunk_fwd(const void* r, const void* k, const void* v, const void* w,
-                   const void* u, const void* S_in, void* y, void* S_out, int B,
-                   int H, int Q, int K, long long sb, long long sh,
-                   long long sq, void* stream) {
-  if (B <= 0 || H <= 0 || Q <= 0 || Q > MAX_Q) return cudaErrorInvalidValue;
+// r/k/v/w [B, S, H, K] through element strides (sb, ss, sh) over (batch,
+// token, head), the channel contiguous, every row start 16-byte aligned;
+// y likewise through (yb, ys, yh).  u [H, K], S0 and S_out [B, H, K, K]
+// contiguous.  Chunks of Q tokens (1..64), the last one ragged.  Returns
+// cudaErrorInvalidValue for a K without an instance (32, 64) or Q outside
+// 1..64.
+int wkv6_seq_fwd(const void* r, const void* k, const void* v, const void* w,
+                 const void* u, const void* S0, void* y, void* S_out, int B,
+                 int H, int S_len, int Q, int K, long long sb,
+                 long long ss, long long sh, long long yb, long long ys,
+                 long long yh, void* stream) {
+  if (B <= 0 || H <= 0 || S_len <= 0 || Q <= 0 || Q > MQ)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float *rp = static_cast<const float*>(r),
               *kp = static_cast<const float*>(k),
               *vp = static_cast<const float*>(v),
               *wp = static_cast<const float*>(w),
               *up = static_cast<const float*>(u),
-              *sp = static_cast<const float*>(S_in);
+              *sp = static_cast<const float*>(S0);
   float *yp = static_cast<float*>(y), *op = static_cast<float*>(S_out);
-  switch (K) {
-    case 32:
-      return launch<32>(rp, kp, vp, wp, up, sp, yp, op, B, H, Q, sb, sh, sq,
-                        st);
-    case 64:
-      return launch<64>(rp, kp, vp, wp, up, sp, yp, op, B, H, Q, sb, sh, sq,
-                        st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (K == 32)
+    return launch<32>(rp, kp, vp, wp, up, sp, yp, op, B, H, S_len, Q, sb, ss,
+                      sh, yb, ys, yh, st);
+  if (K == 64)
+    return launch<64>(rp, kp, vp, wp, up, sp, yp, op, B, H, S_len, Q, sb, ss,
+                      sh, yb, ys, yh, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

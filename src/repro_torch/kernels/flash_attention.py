@@ -11,6 +11,13 @@ stream, raises if the launch reports an error, and adds one to
 :data:`LAUNCHES`.  The plain version is ``ref.flash_attention_ref``;
 :mod:`.ops` picks between the two by the tensor's device.  Nothing is
 padded: ragged S and T are masked inside the kernel.
+
+The kernel loads K and V tiles with 16-byte asynchronous copies, so every
+row start of q, k, v (and of the output, which takes q's strides) must be
+16-byte aligned: the wrapper checks ``data_ptr()`` and the (batch, head,
+sequence) strides with ``_build.aligned`` and raises otherwise; it never
+copies.  The model's [B, S, H, D] activations pass for every supported D
+in float32 and bfloat16.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ import ctypes
 
 import torch
 
-from ._build import error_string, load
+from ._build import aligned, error_string, load
 
 SUPPORTED_D = (64, 80, 128)     # csrc FLASH_CASE instances
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,6 +70,13 @@ def _check(q, k, v):
                          f"instance; supported: {SUPPORTED_D}")
     if min(S, k.shape[2]) == 0:
         raise ValueError("flash_attention: empty sequence")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not aligned(t):
+            raise ValueError(f"flash_attention: {name}'s rows are not "
+                             f"16-byte aligned (data_ptr % 16 = "
+                             f"{t.data_ptr() % 16}, strides {t.stride()}, "
+                             f"{t.element_size()}-byte elements): the "
+                             f"kernel copies rows in 16-byte pieces")
 
 
 def flash_attention(q, k, v, window: int = 0):

@@ -122,9 +122,18 @@ def flash_attention(q, k, v, window: int = 0):
     return ref.flash_attention_ref(q, k, v, window)
 
 
+def wkv6_seq(r, k, v, w, u, S_in, chunk: int):
+    """The chunked WKV6 scan of one layer, r/k/v/w [B,S,H,K] in chunks of
+    min(chunk, S) tokens -> (y [B,S,H,K], S_final [B,H,K,K]) (B7 on the
+    card, one launch)."""
+    if r.is_cuda:
+        return wkv_kern.wkv6_seq(r, k, v, w, u, S_in, chunk)
+    return ref.wkv6_seq_plain(r, k, v, w, u, S_in, chunk)
+
+
 def wkv6_chunk(r, k, v, w, u, S_in):
     """One RWKV-6 chunk, r/k/v/w [B,H,Q,K] -> (y [B,H,Q,K], S_out
-    [B,H,K,K]) (B7 on the card)."""
+    [B,H,K,K]) (B7's one-chunk call on the card)."""
     if r.is_cuda:
         return wkv_kern.wkv6_chunk(r, k, v, w, u, S_in)
     return ref.wkv6_chunk_plain(r, k, v, w, u, S_in)

@@ -415,7 +415,7 @@ def masked_brsgd_select(scores, l1, beta: float, threshold: float, valid):
 
 
 # ---------------------------------------------------------------------------
-# attention (B6) and the WKV6 chunk (B7)
+# attention (B6) and the WKV6 scan (B7)
 # ---------------------------------------------------------------------------
 
 NEG_INF = -1e30
@@ -482,6 +482,24 @@ def wkv6_chunk_plain(r, k, v, w, u, S_in):
     S_out = (torch.exp(torch.clamp(c[:, :, -1], min=-2 * lc))[..., None]
              * S_in + k_end.transpose(-1, -2) @ v)
     return y, S_out
+
+
+def wkv6_seq_plain(r, k, v, w, u, S_in, chunk: int):
+    """The chunked WKV6 scan B7 computes in one launch: r/k/v/w [B,S,H,K]
+    float32, u [H,K], S_in [B,H,K,K] -> (y [B,S,H,K], S_final), as
+    :func:`wkv6_chunk_plain` over chunks of Q = min(chunk, S) tokens,
+    carrying the state (the JAX ``rwkv6._wkv_chunked`` scan).  The cumsum,
+    mid and the clamps stay local to each chunk.  A ragged last chunk of
+    Q' < Q tokens is computed over its Q' tokens: the JAX pad (w = 1,
+    zeros) adds log 1 = 0 to c and 0 to every sum, so the two agree."""
+    S = r.shape[1]
+    Q = min(int(chunk), S)
+    state, ys = S_in, []
+    for c0 in range(0, S, Q):
+        part = [x[:, c0:c0 + Q].transpose(1, 2) for x in (r, k, v, w)]
+        y, state = wkv6_chunk_plain(*part, u, state)
+        ys.append(y.transpose(1, 2))
+    return torch.cat(ys, dim=1), state
 
 
 def wkv6_chunk_ref(r, k, v, w, u, S_in):

@@ -8,7 +8,8 @@ Time-mix state per head: S ∈ R^{K×K}; per token
 with w_t = exp(-exp(base + lora(x'_t))) data-dependent per channel.
 
 A prompt (S > 1 with ``chunk`` > 0) runs the chunked-parallel form, one
-``ops.wkv6_chunk`` call per chunk of Q tokens (kernel B7 on the card);
+``ops.wkv6_seq`` call per layer (kernel B7 on the card, all chunks in one
+launch);
 the single-token decode step and configs with chunk = 0 run the
 per-token recurrence ``_wkv_scan`` in plain torch on both devices, as
 the JAX package does.
@@ -88,34 +89,11 @@ def _wkv_scan(r, k, v, w, u, S0):
 
 def _wkv_chunked(r, k, v, w, u, S0, chunk: int):
     """Chunked-parallel WKV6: the prompt in chunks of Q = min(chunk, S)
-    tokens, S padded to a multiple of Q with w = 1 (a no-op decay) and
-    zeros; one ``ops.wkv6_chunk`` per chunk carries the [B,H,K,K] state
-    to the next.  r,k,v,w [B,S,H,K] -> (y [B,S,H,K], final state).
-
-    The four inputs are laid out once as [B,H,S',K]; each chunk goes to
-    the kernel as a strided view (no copy per chunk).
-    """
-    B, S, H, K = r.shape
-    Q = min(chunk, S)
-    pad = (-S) % Q
-
-    def heads_major(t, val=0.0):
-        t = t.transpose(1, 2)                                # [B,H,S,K]
-        if pad:
-            t = F.pad(t, (0, 0, 0, pad), value=val)
-        return t.contiguous()
-
-    rh, kh, vh, wh = (heads_major(r), heads_major(k), heads_major(v),
-                      heads_major(w, 1.0))
-    state = S0
-    ys = []
-    for c0 in range(0, S + pad, Q):
-        sl = slice(c0, c0 + Q)
-        y, state = ops.wkv6_chunk(rh[:, :, sl], kh[:, :, sl], vh[:, :, sl],
-                                  wh[:, :, sl], u, state)
-        ys.append(y)
-    y = torch.cat(ys, dim=2)[:, :, :S].transpose(1, 2)       # [B,S,H,K]
-    return y, state
+    tokens (the last one ragged, equal to the JAX pad of w = 1 and zeros),
+    the [B,H,K,K] state carried from chunk to chunk.  r,k,v,w [B,S,H,K]
+    -> (y [B,S,H,K], final state): one ``ops.wkv6_seq`` call, which is
+    one B7 launch on the card over the model's buffers as they are."""
+    return ops.wkv6_seq(r, k, v, w, u, S0, chunk)
 
 
 def rwkv6_timemix(p, r: RWKVSpec, x, last_x=None, state=None):

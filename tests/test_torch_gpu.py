@@ -10,8 +10,9 @@ Tolerances: scores, weights, medians, trimmed means and the row-order
 combines exact; l1/d2med/gram within 1e-5 of the largest finite
 reference magnitude.  NaN must sit where the plain version has it.
 Flash attention (B6) rtol 2e-4 / atol 2e-5 in float32 and 1e-2 in
-bfloat16 (one bf16 rounding of the output); the WKV6 chunk (B7) within
-2e-5 of max|y| and 1e-5 of max|S| (sums in another order).
+bfloat16 (one bf16 rounding of the output); the WKV6 scan and its
+one-chunk call (B7) within 2e-5 of max|y| and 1e-5 of max|S| (sums in
+another order).
 """
 import numpy as np
 import pytest
@@ -190,17 +191,27 @@ def test_card_step_matches_cpu_step(agg):
 # ---------------------------------------------------------------------------
 
 # (B, H, Hkv, S, D, window, dtype): the qwen3-0.6b prefill, a ragged S, a
-# window, D = 64 and 80, and bfloat16
+# window, D = 64 and 80, and bfloat16; S = 5 (below one mma tile), S one
+# past a 128-row query tile and a 64-row key tile, groups 1, 2 and 8, and
+# every D in both types
 FLASH_CASES = [(4, 16, 8, 512, 128, 0, torch.float32),
                (1, 16, 8, 200, 128, 0, torch.float32),
                (1, 16, 8, 512, 128, 64, torch.float32),
                (2, 8, 4, 300, 64, 0, torch.float32),
                (1, 8, 8, 256, 80, 0, torch.float32),
-               (4, 16, 8, 512, 128, 0, torch.bfloat16)]
+               (4, 16, 8, 512, 128, 0, torch.bfloat16),
+               (2, 4, 4, 5, 64, 0, torch.float32),
+               (1, 2, 2, 5, 128, 0, torch.bfloat16),
+               (1, 16, 2, 129, 128, 0, torch.float32),
+               (1, 8, 1, 191, 128, 100, torch.float32),
+               (1, 4, 2, 65, 80, 0, torch.bfloat16),
+               (2, 8, 4, 300, 64, 48, torch.bfloat16)]
 # (B, H, Q, K, log-decay range): rwkv6-7b's chunk with w in (e^-1, 1),
 # w down to e^-3 (the clamps bite), a ragged last chunk, K = 32
 WKV_CASES = [(4, 64, 64, 64, 1.0), (4, 64, 64, 64, 3.0),
              (4, 64, 40, 64, 1.0), (4, 32, 64, 32, 1.0)]
+# wkv6_seq: prompt lengths around one 64-token chunk and rwkv6-7b's 512
+WKV_SEQ_S = [1, 63, 64, 65, 512]
 
 
 def _bshd(B, S, H, D, seed, dtype):
@@ -254,7 +265,7 @@ def test_wkv6_chunk_kernel_matches_plain_version(B, H, Q, K, decay):
     y, S = wkv_kern.wkv6_chunk(*ins)
     yp, Sp = ref.wkv6_chunk_plain(*ins)
     torch.cuda.synchronize()
-    assert wkv_kern.LAUNCHES["wkv6_chunk"] == 1
+    assert wkv_kern.LAUNCHES["wkv6_seq"] == 1
     close(y, yp, 2e-5)
     close(S, Sp, 1e-5)
     if decay <= 1.0:           # the clamps do not bite: the recurrence too
@@ -266,6 +277,32 @@ def test_wkv6_chunk_kernel_matches_plain_version(B, H, Q, K, decay):
     big = [torch.cat([x, x], dim=2) for x in (r, k, v, w)]
     yv, Sv = wkv_kern.wkv6_chunk(*(x[:, :, Q:] for x in big), u, S0)
     assert torch.equal(yv, y) and torch.equal(Sv, S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", WKV_SEQ_S)
+@pytest.mark.parametrize("K", [32, 64])
+@pytest.mark.parametrize("decay", [1.0, 3.0])
+def test_wkv6_seq_kernel_matches_plain_version(S, K, decay):
+    """One launch for the whole prompt, chunks of 64 (the last ragged),
+    the state carried on chip from a nonzero S0; rwkv6-7b's [4, 512, 64,
+    64] at S = 512, K = 64."""
+    need_card()
+    B, H = (4, 64) if (S, K) == (512, 64) else (2, 8)
+    r, k, v, w, u, S0 = _wkv_case(B, H, S, K, decay, seed=S + K)
+    r, k, v, w = (x.transpose(1, 2).contiguous() for x in (r, k, v, w))
+    wkv_kern.reset_launches()
+    y, Sf = wkv_kern.wkv6_seq(r, k, v, w, u, S0, 64)
+    yp, Sp = ref.wkv6_seq_plain(r, k, v, w, u, S0, 64)
+    torch.cuda.synchronize()
+    assert wkv_kern.LAUNCHES["wkv6_seq"] == 1
+    assert y.shape == (B, S, H, K) and Sf.shape == (B, H, K, K)
+    close(y, yp, 2e-5)
+    close(Sf, Sp, 1e-5)
+    # the model passes [B,S,H,K] views of wider buffers as they are
+    big = [torch.cat([x, x], dim=3) for x in (r, k, v, w)]
+    yv, Sv = wkv_kern.wkv6_seq(*(x[..., K:] for x in big), u, S0, 64)
+    assert torch.equal(yv, y) and torch.equal(Sv, Sf)
 
 
 @pytest.mark.gpu
@@ -284,13 +321,24 @@ def test_sequence_wrappers_refuse_bad_input():
     r, k, v, w, u, S0 = _wkv_case(1, 2, 8, 32, 1.0)
     with pytest.raises(TypeError):
         wkv_kern.wkv6_chunk(r.double(), k, v, w, u, S0)
+    # rows that do not start on 16 bytes: an odd element offset, and a
+    # row stride of 65 floats; the wrappers raise, they never copy
+    flat = torch.zeros(1 + 2 * 8 * 64 * 4, device="cuda")
+    off = flat[1:].view(2, 8, 4, 64).transpose(1, 2)
+    wide = torch.zeros(2, 8, 4, 65, device="cuda")[..., 1:].transpose(1, 2)
+    for bad in (off, wide):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa_kern.flash_attention(bad, bad[:, :2], bad[:, :2])
+    rs = torch.zeros(1, 8, 2, 33, device="cuda")[..., 1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wkv_kern.wkv6_seq(rs, rs, rs, rs, u, S0[:1], 4)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b"])
 def test_serve_path_on_the_card_matches_the_cpu(arch):
     """Reduced config: the card's prefill launches B6 once per dense
-    layer or B7 once per rwkv layer and chunk, decode launches neither,
+    layer or B7 once per rwkv layer (all its chunks), decode neither,
     and the logits equal the CPU's within 1e-4 of the largest."""
     need_card()
     from repro_torch.configs import get_config
@@ -315,7 +363,7 @@ def test_serve_path_on_the_card_matches_the_cpu(arch):
     close(out["cuda"][0], out["cpu"][0], 1e-4)
     close(out["cuda"][1], out["cpu"][1], 1e-4)
     want = ({"flash_attention": cfg.n_layers} if arch == "qwen3-0.6b"
-            else {"wkv6_chunk": cfg.n_layers * 2})      # 80 = 64 + 16
+            else {"wkv6_seq": cfg.n_layers})   # one launch a layer
     assert {k: n for k, n in out["cuda"][2].items() if n} == want
     assert not any(out["cuda"][3].values())          # decode: no kernel
 

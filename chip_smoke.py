@@ -15,6 +15,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      [64, 4096], the robustness twin's [20, 20] and the rate twin's
      [10, 20], and at [20, 61706] with one worker's row NaN (whole, or
      every 5th column); B5 at trim fractions 0.1, 0.25, 0.49 and 0.5;
+     the fused brsgd launch (B1's brsgd call + B2, one cooperative
+     kernel) at the same inputs with G resident in shared memory, and at
+     [20, 2000003], where it is not, with and without a NaN worker:
+     scores, thresholds, masks and weights exact, the aggregate bit-equal
+     to masked_mean_det(G, w), a second launch the same bits;
      B6 (flash attention) at the qwen3-0.6b prefill [B=4, H=16, Hkv=8,
      S=512, D=128], a ragged S = 200, window 64, D = 64 and 80, in
      bfloat16, S = 5 (below one mma tile), S one past a query and a key
@@ -28,11 +33,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   4. the paper loop: one make_sim_step step on the card and one on the
      CPU from the same params and batch (brsgd under scale at 0.25, and
      trimmed_mean under scale at 0.1, which it trims away), then 5 card
-     steps of each with the launch counters checked;
+     steps of each with the launch counters checked (brsgd: 5 fused
+     launches and nothing else); the step timed with the fused launch
+     and with the two-pass composition it replaced, in turns; one brsgd
+     aggregate_local: device kernels per call (torch.profiler, must be
+     1) and host ms, two-pass and fused in turns;
   5. the main path: paper.train_lenet at LeNet width, m = 20, 60 steps
      (brsgd under scale and gaussian, the mean baseline, median, krum,
      trimmed_mean under gaussian, multi_krum and geomedian under scale),
-     with every kernel's launch counter read around it;
+     with every kernel's launch counter read around it and each run
+     held to its rule's kernels, once a step;
   6. the elastic path: for every aggregator at [20, 61706], 4 arrival
      buckets, quorum 15, the bulk masked aggregate_local on the card
      against the same call on the CPU, and stream_aggregate against the
@@ -47,7 +57,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      steps over a float32 and over the bfloat16 cache, greedy tokens);
      prefill == sequential decode on the card for both reduced configs;
   8. timing with CUDA events (bare kernel launch, wrapper call, plain
-     version, one library call) at [20, 61706] and [20, 8388608]; B6 at
+     version, one library call) at [20, 61706] and [20, 8388608], the
+     fused brsgd launch against the two-pass composition in turns (it
+     must not be slower) and on a sweep of grids; B6 at
      its serve shape and at S = 4096 beside SDPA, with its FP32-pipe and
      3xTF32 tensor-core bounds; B7 per layer launch at [4, 512, 64, 64]
      and its one-chunk call;
@@ -56,6 +68,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -85,7 +98,23 @@ REPLACES = {
     "masked_mean": "src/repro/kernels/brsgd_stats.py:289",
     "brsgd_stats": "src/repro/kernels/brsgd_stats.py:150",
     "trimmed_mean": "src/repro/kernels/brsgd_stats.py:327",
+    # B1's brsgd call (brsgd_partials_pallas, pallas_call at :199) and B2
+    "brsgd_aggregate": "src/repro/kernels/brsgd_stats.py:258",
 }
+ALSO_REPLACES = {"brsgd_aggregate": ["src/repro/kernels/brsgd_stats.py:199"]}
+# the fused brsgd launch: a shape whose G does not stay in shared memory
+NONRESIDENT_SHAPE = (20, 2_000_003)
+# (beta, threshold / d): the paper's auto rule at two betas, C1 emptied
+# (the C2 fallback), and a given 𝔗 that keeps about half of N(0, 1) rows
+# (their l1 to the median is ~0.8 d)
+FUSED_CASES = ((0.5, 0.0), (0.25, 0.0), (0.5, 1e-9), (0.5, 0.4))
+# the kernels each main-path run launches, once a step
+MAIN_PATH_KERNELS = {"mean": {"masked_mean"}, "brsgd": {"brsgd_aggregate"},
+                     "median": {"brsgd_stats"},
+                     "krum": {"fused_stats", "masked_mean"},
+                     "trimmed_mean": {"trimmed_mean"},
+                     "multi_krum": {"fused_stats", "masked_mean"},
+                     "geomedian": {"fused_stats", "masked_mean"}}
 SEQ_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:79"),
@@ -122,7 +151,8 @@ SERVE_TOL = 1e-4              # logits, relative to the largest |logit|
 BF16_CACHE_TOL = 1e-2         # decode logits over a bfloat16 cache, the same
 TRIM_FRACS = (0.1, 0.25, 0.49, 0.5)   # 0.5 takes trim_k's 2k >= m guard
 LIBRARY_CALLS = {
-    "fused_stats": None, "select_mean": "w @ G / w.sum()",
+    "fused_stats": None, "brsgd_aggregate": None,
+    "select_mean": "w @ G / w.sum()",
     "masked_mean": "w @ G / w.sum()",
     "brsgd_stats": "torch.quantile(G, 0.5, dim=0)",
     "trimmed_mean": "sort + mean, 2 calls",
@@ -326,6 +356,50 @@ def _check_kernels(torch, kern, ref, G, label, rng, subsets, worst):
           "nan_columns": int(want.isnan().sum())})
 
 
+def _check_fused(torch, kern, ref, G, label, worst):
+    """The fused brsgd launch against its plain version on G, for each of
+    FUSED_CASES: scores exact and l1 within REL_TOL of the plain pass;
+    kth, 𝔗, the masks and w exact against the plain threshold and mask
+    steps applied to the kernel's own scores and l1; the aggregate
+    bit-equal to masked_mean_det(G, w); a second launch the same bits."""
+    m, d = G.shape
+    plan = kern.launch_plan(G)
+    want = ref.fused_stats_ref(G, ("scores", "l1"))
+    n_sel = []
+    for beta, per_col in FUSED_CASES:
+        thr = per_col * d
+        r = kern.brsgd_aggregate(G, beta, thr)
+        again = kern.brsgd_aggregate(G, beta, thr)
+        kth, T = ref.brsgd_thresholds(r.scores, r.l1, beta, thr)
+        sel, c1, c2 = ref.brsgd_masks(r.scores, r.l1, kth, T)
+        agg_want = ref.masked_mean_det(G, r.w)
+        torch.cuda.synchronize()
+        bad = [n for n, ok in (
+            ("scores", _exact(r.scores, want["scores"])),
+            ("l1", _rel_ok(r.l1, want["l1"])),
+            ("kth", _exact(r.kth, kth)), ("threshold", _exact(r.threshold, T)),
+            ("selected", _exact(r.selected, sel)), ("c1", _exact(r.c1, c1)),
+            ("c2", _exact(r.c2, c2)), ("w", _exact(r.w, sel.float())),
+            ("aggregate", _exact(r.agg, agg_want)),
+            ("repeat", all(_exact(a, b) for a, b in zip(again, r))))
+            if not ok]
+        worst["brsgd_aggregate"] = max(worst["brsgd_aggregate"],
+                                       _err(r.l1, want["l1"]),
+                                       _err(r.agg, agg_want))
+        if bad:
+            fail(f"brsgd_aggregate {label} beta={beta} threshold={thr}: "
+                 f"{bad} differ (l1 err {_err(r.l1, want['l1'])}, "
+                 f"aggregate err {_err(r.agg, agg_want)})")
+        n_sel.append(int(r.selected.sum()))
+    emit({"check": "brsgd_aggregate", "input": label, "grid": plan.grid,
+          "resident": plan.resident, "smem_bytes": plan.smem,
+          "cases": [list(c) for c in FUSED_CASES], "n_selected": n_sel,
+          "scores_kth_threshold_masks_w": "exact", "l1_rel_tol": REL_TOL,
+          "aggregate": "bit-equal to masked_mean_det(G, w)",
+          "repeat": "bit-equal"})
+    return plan
+
+
 def phase_kernels(torch, kern, ref):
     import itertools
     import numpy as np
@@ -338,6 +412,9 @@ def phase_kernels(torch, kern, ref):
                             device="cuda")
         _check_kernels(torch, kern, ref, G, f"[{m},{d}]", rng, subsets,
                        worst)
+        if not _check_fused(torch, kern, ref, G, f"[{m},{d}]",
+                            worst).resident:
+            fail(f"brsgd_aggregate [{m},{d}]: G does not stay resident")
     # one worker's gradient holds NaN: the sort and the scores must
     # propagate it as the plain versions do
     for where, cols in (("row", slice(None)), ("every 5th column",
@@ -346,9 +423,21 @@ def phase_kernels(torch, kern, ref):
         g = rng.normal(size=MAIN_SHAPE).astype(np.float32)
         g[4, cols] = np.nan
         G = torch.as_tensor(g, device="cuda")
-        _check_kernels(torch, kern, ref, G,
-                       f"[20,61706] worker 4 NaN ({where})", rng, subsets,
-                       worst)
+        label = f"[20,61706] worker 4 NaN ({where})"
+        _check_kernels(torch, kern, ref, G, label, rng, subsets, worst)
+        _check_fused(torch, kern, ref, G, label, worst)
+    # the fused launch where G does not fit in shared memory: pass 2
+    # reads it again
+    m, d = NONRESIDENT_SHAPE
+    rng = np.random.default_rng(250)
+    g = rng.normal(size=(m, d)).astype(np.float32)
+    for label in (f"[{m},{d}]", f"[{m},{d}] worker 4 NaN (every 5th "
+                                f"column)"):
+        if "NaN" in label:
+            g[4, ::5] = np.nan
+        G = torch.as_tensor(g, device="cuda")
+        if _check_fused(torch, kern, ref, G, label, worst).resident:
+            fail(f"brsgd_aggregate {label}: expected G not resident")
     return worst
 
 
@@ -452,7 +541,7 @@ def phase_seq_kernels(torch, ref):
 # 4. the paper loop, card against CPU, and the launch counters
 # ---------------------------------------------------------------------------
 
-def phase_loop(torch, kern):
+def phase_loop(torch, kern, ref):
     from repro_torch.configs.base import ByzantineConfig
     from repro_torch.configs.lenet_fmnist import LeNetConfig
     from repro_torch.core import engine, threat
@@ -501,9 +590,9 @@ def phase_loop(torch, kern):
             fail(f"step {s}: a byzantine worker (0-4) was selected: "
                  f"{met['selected'].tolist()}")
     counts = dict(kern.LAUNCHES)
-    if counts["fused_stats"] != 5 or counts["select_mean"] != 5:
-        fail(f"5 brsgd steps launched {counts}, expected 5 fused_stats "
-             f"and 5 select_mean")
+    if {k: n for k, n in counts.items() if n} != {"brsgd_aggregate": 5}:
+        fail(f"5 brsgd steps launched {counts}, expected 5 brsgd_aggregate "
+             f"and nothing else")
     tm_counts = _trimmed_mean_steps(torch, kern, p_cpu, p_gpu, batch, pipe,
                                     make_sim_step, lenet)
     test = pipe.batch(99, 8)
@@ -527,9 +616,19 @@ def phase_loop(torch, kern):
         "apply_dense+aggregate_local": lambda: engine.aggregate_local(
             threat.apply_dense(G, gen, bcfg), bcfg, return_state=True),
     }
+    res = {f"{k}_ms": _host_ms(torch, fn) for k, fn in parts.items()}
+    # the step with the two-pass composition the engine ran before the
+    # fused launch, in turns with the fused one: two-pass, fused, fused,
+    # two-pass
+    step = parts["step"]
+    turns = []
+    for two_pass in (True, False, False, True):
+        with _two_pass_engine(engine, kern, ref, two_pass):
+            turns.append(_host_ms(torch, step))
+    res["step_turns_ms"] = {"order": ["two-pass", "fused", "fused",
+                                      "two-pass"], "runs": turns}
     emit({"timing": "paper_step_brsgd_scale", "m": 20, "batch": 8,
-          "reps": HOST_REPS,
-          **{f"{k}_ms": _host_ms(torch, fn) for k, fn in parts.items()}})
+          "reps": HOST_REPS, **res})
 
 
 def _trimmed_mean_steps(torch, kern, p_cpu, p_gpu, batch, pipe,
@@ -568,6 +667,88 @@ def _trimmed_mean_steps(torch, kern, p_cpu, p_gpu, batch, pipe,
     return counts
 
 
+def _two_pass_brsgd(kern, ref, engine, G, cfg, return_state):
+    """The brsgd path of engine.aggregate_local before the fused launch:
+    B1's (scores, l1) call with its two partial sums, ref.brsgd_thresholds,
+    B2, and the masks of the state."""
+    scores, l1 = kern.brsgd_partials(G)
+    kth, T = ref.brsgd_thresholds(scores, l1, cfg.beta, cfg.threshold)
+    agg, w = kern.select_mean(G, scores, l1, kth, T)
+    if not return_state:
+        return agg
+    _, c1, c2 = ref.brsgd_masks(scores, l1, kth, T)
+    return agg, engine.BrSGDState(w > 0, c1, c2, scores, l1, T)
+
+
+@contextlib.contextmanager
+def _two_pass_engine(engine, kern, ref, on: bool):
+    """While ``on``, engine.aggregate_local takes the two-pass composition
+    for a fixed brsgd round (every other call is unchanged); the yardstick
+    the fused launch is timed against in the same call."""
+    fused = engine.aggregate_local
+
+    def aggregate_local(G, cfg, return_state=False, spec=None, valid=None):
+        if cfg.aggregator != "brsgd" or spec is not None or valid is not None:
+            return fused(G, cfg, return_state, spec, valid)
+        return _two_pass_brsgd(kern, ref, engine, G, cfg, return_state)
+
+    if on:
+        engine.aggregate_local = aggregate_local
+    try:
+        yield
+    finally:
+        engine.aggregate_local = fused
+
+
+def _device_kernels(torch, fn, reps: int = 10) -> dict:
+    """Device kernels per fn() call, counted by torch.profiler over reps
+    calls after one warm-up: {"per_call": n, "by_name": {name: count}}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA}
+    return {"per_call": sum(names.values()) / reps,
+            "by_name": {k[:60]: n / reps for k, n in names.items()}}
+
+
+def phase_aggregation(torch, kern, ref):
+    """One brsgd engine.aggregate_local(return_state=True) at the paper's
+    shape, five scaled workers: device kernels per call (torch.profiler)
+    and host ms ending in a synchronize (median, p80 of HOST_REPS), the
+    two-pass composition and the fused launch in turns."""
+    import numpy as np
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import engine
+    rng = np.random.default_rng(11)
+    G = torch.as_tensor(rng.normal(size=MAIN_SHAPE).astype(np.float32),
+                        device="cuda")
+    G[:5] *= 1e10
+    cfg = ByzantineConfig(aggregator="brsgd", alpha=0.25)
+    call = lambda: engine.aggregate_local(G, cfg, return_state=True)  # noqa
+    kernels, host = {}, []
+    for name, on in (("two_pass", True), ("fused", False)):
+        with _two_pass_engine(engine, kern, ref, on):
+            kernels[name] = _device_kernels(torch, call)
+    for on in (True, False, False, True):
+        with _two_pass_engine(engine, kern, ref, on):
+            host.append(_host_ms(torch, call))
+    res = {"shape": list(MAIN_SHAPE), "device_kernels_per_call": kernels,
+           "host_ms": {"order": ["two-pass", "fused", "fused", "two-pass"],
+                       "runs": host}}
+    emit({"timing": "brsgd_aggregate_local", **res})
+    if kernels["fused"]["per_call"] != 1:
+        fail(f"a brsgd aggregate_local issued {kernels['fused']} device "
+             f"kernels, expected the one fused launch")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # 5. the main path: Table-1 runs on the card
 # ---------------------------------------------------------------------------
@@ -579,17 +760,21 @@ def phase_main_path(torch, kern):
             ("krum", "scale", 0.25), ("trimmed_mean", "gaussian", 0.1),
             ("multi_krum", "scale", 0.25), ("geomedian", "scale", 0.25)]
     kern.reset_launches()
-    acc, secs = {}, {}
+    acc, secs, per_run = {}, {}, {}
     for agg, attack, alpha in runs:
+        before = dict(kern.LAUNCHES)
         t0 = time.perf_counter()
         acc[(agg, attack)], _ = train_lenet(agg, attack, alpha, steps=60)
         torch.cuda.synchronize()
         secs[f"{agg}/{attack}"] = time.perf_counter() - t0
+        per_run[f"{agg}/{attack}"] = {k: n - before[k]
+                                      for k, n in kern.LAUNCHES.items()
+                                      if n - before[k]}
     launches = dict(kern.LAUNCHES)
     base = acc[("mean", "none")]
     emit({"check": "main_path", "steps_per_run": 60, "run_seconds": secs,
           "accuracy": {f"{a}/{t}": v for (a, t), v in acc.items()},
-          "launches": launches})
+          "launches": launches, "launches_per_run": per_run})
     gated = (("brsgd", "scale"), ("brsgd", "gaussian"),
              ("trimmed_mean", "gaussian"), ("multi_krum", "scale"),
              ("geomedian", "scale"))
@@ -597,8 +782,16 @@ def phase_main_path(torch, kern):
         if not acc[key] > base - 0.2:
             fail(f"{key}: accuracy {acc[key]} not within 0.2 of the "
                  f"no-attack mean baseline {base}")
-    for name, n in launches.items():
-        if n == 0:
+    # each run launches exactly its rule's kernels, once a step; B2's
+    # standalone launch is off the path since the fused kernel took its
+    # place (phases 3 and 8 still hold it against its plain version)
+    for agg, attack, _ in runs:
+        want = {k: 60 for k in MAIN_PATH_KERNELS[agg]}
+        if per_run[f"{agg}/{attack}"] != want:
+            fail(f"{agg}/{attack} launched {per_run[f'{agg}/{attack}']}, "
+                 f"expected {want}")
+    for name in set().union(*MAIN_PATH_KERNELS.values()):
+        if launches[name] == 0:
             fail(f"kernel {name} was never launched on the main path")
     return launches
 
@@ -1009,6 +1202,14 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps):
             plain=lambda: ref.trimmed_mean_ref(G, TRIM_FRACS[0]),
             library=lambda: torch.sort(G, dim=0).values[k:m - k].mean(0),
             nbytes=gb + d * 4, ops=sort_ops + (m - 2 * k) * d),
+        # G read once, out written; pass 1's operations and the combine
+        # of the selected rows (the thresholds are O(m^2), none of d)
+        "brsgd_aggregate": dict(
+            fn=lambda: kern.brsgd_aggregate(G, 0.5, 0.0),
+            plain=lambda: ref.brsgd_aggregate_plain(G, 0.5, 0.0),
+            library=None, nbytes=gb + d * 4 + 9 * m * 4,
+            ops=(m + 1 + 2 * m) * d + sort_ops + 3 * m * d
+            + 2 * n_sel * d + d),
     }
     raw = _raw_launchers(torch, G, torch.stack([st["scores"], st["l1"]]),
                          torch.stack([kth, 2.0 * T]).float(), mask, k)
@@ -1023,7 +1224,47 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps):
                "bound_ms": bound_ms, "bound_by": bound_by}
         out[name] = res
         emit({"timing": name, "shape": [m, d], **res})
+    out["brsgd_aggregate"].update(_fused_turns(torch, kern, ref, G, reps,
+                                               raw, out))
     return out
+
+
+def _fused_turns(torch, kern, ref, G, reps, raw, rows):
+    """The fused launch against the two-pass composition on the same G in
+    one call, in turns (two-pass, fused, fused, two-pass), both through
+    their wrappers; the bare kernels of both; and the bare fused launch
+    on other grids (every grid the card holds at once, G resident where
+    it fits)."""
+    from repro_torch.configs.base import ByzantineConfig
+    m, d = G.shape
+    cfg = ByzantineConfig(aggregator="brsgd")
+    two_pass = lambda: _two_pass_brsgd(kern, ref, None, G, cfg,  # noqa: E731
+                                       False)
+    fused = lambda: kern.brsgd_aggregate(G, 0.5, 0.0)            # noqa: E731
+    turns = [_time_ms(torch, f, reps) for f in (two_pass, fused, fused,
+                                                 two_pass)]
+    plan = kern.launch_plan(G)
+    sweep = []
+    for grid in sorted({132, 264, 396, 528, plan.grid, plan.grid // 2}):
+        for resident in (True, False):
+            fn = raw["brsgd_aggregate@"](grid, resident)
+            if fn is not None:
+                sweep.append({"grid": grid, "resident": resident,
+                              "ms": _time_ms(torch, fn, reps)})
+    res = {"two_pass_ms": min(turns[0], turns[3]),
+           "fused_wrapper_turns_ms": min(turns[1], turns[2]),
+           "turns_ms": {"order": ["two-pass", "fused", "fused", "two-pass"],
+                        "runs": turns},
+           "two_pass_kernels_ms": rows["fused_stats"]["kernel_ms"]
+           + rows["select_mean"]["kernel_ms"],
+           "grid": plan.grid, "resident": plan.resident,
+           "smem_bytes": plan.smem, "grid_sweep": sweep}
+    emit({"timing": "brsgd_aggregate_vs_two_pass", "shape": [m, d], **res})
+    if min(turns[1], turns[2]) > min(turns[0], turns[3]):
+        fail(f"brsgd_aggregate [{m},{d}]: the fused launch "
+             f"({min(turns[1], turns[2])} ms) is slower than the two-pass "
+             f"composition ({min(turns[0], turns[3])} ms) in this call")
+    return res
 
 
 def _visible_pairs(S, T, window):
@@ -1120,6 +1361,8 @@ def _raw_launchers(torch, G, sl, pr, w, k):
     allocations and partial sums."""
     import ctypes
     from repro_torch.kernels import _build
+    from repro_torch.kernels import brsgd_stats as kern
+    from repro_torch.kernels import ref
     lib = _build.load()
     m, d = G.shape
     nb = max(1, min(-(-d // lib.brsgd_threads()), lib.brsgd_max_blocks()))
@@ -1137,6 +1380,24 @@ def _raw_launchers(torch, G, sl, pr, w, k):
         if rc != 0:
             fail(f"bare kernel launch returned CUDA error {rc}")
 
+    # the fused launch on its plan, or on another grid (None where the
+    # card cannot hold that grid at once)
+    plan = kern.launch_plan(G)
+    k_idx, q_idx = ref.brsgd_rank_indices(m, 0.5)
+    small = torch.empty(3 * m + 2 + m, **f32)
+
+    def fused_at(grid, resident):
+        smem = kern.aggregate_smem(m, d, grid, resident)
+        n = ctypes.c_int(0)
+        check(lib.brsgd_aggregate_coresident(m, smem, ctypes.byref(n)))
+        if (grid > n.value or smem > kern.SMEM_BLOCK_LIMIT
+                - kern.AGG_STATIC_SMEM or grid > -(-d // kern.THREADS)):
+            return None
+        parts = torch.empty(2 * m * (grid + 1), **f32)
+        return lambda: check(lib.brsgd_aggregate(
+            P(G), m, d, k_idx, q_idx, 0.0, int(resident), P(parts),
+            P(small), P(out), grid, stream))
+
     return {
         "fused_stats": lambda: check(lib.brsgd_fused_stats(
             P(G), m, d, 3, P(sc), P(l1), None, None, nb, stream)),
@@ -1150,6 +1411,8 @@ def _raw_launchers(torch, G, sl, pr, w, k):
             P(G), m, d, P(med), P(mean), P(sc), P(l1), nb, stream)),
         "trimmed_mean": lambda: check(lib.brsgd_trimmed_mean(
             P(G), m, d, k, P(out), nb, stream)),
+        "brsgd_aggregate": fused_at(plan.grid, plan.resident),
+        "brsgd_aggregate@": fused_at,
     }
 
 
@@ -1172,7 +1435,8 @@ def main() -> int:
     phase_build()
     worst = phase_kernels(torch, kern, ref)
     worst.update(phase_seq_kernels(torch, ref))
-    phase_loop(torch, kern)
+    phase_loop(torch, kern, ref)
+    agg_t = phase_aggregation(torch, kern, ref)
     launches = phase_main_path(torch, kern)
     elastic_launches = phase_elastic(torch, kern)
     serve_res, serve_launches, per_prefill = phase_serve(torch)
@@ -1195,6 +1459,17 @@ def main() -> int:
                "hbm_ms": h["kernel_ms"], "hbm_wrapper_ms": h["wrapper_ms"],
                "hbm_bound_ms": h["bound_ms"], "hbm_plain_ms": h["plain_ms"],
                "hbm_library_ms": h["library_ms"]}
+        if name == "brsgd_aggregate":
+            row.update(also_replaces=ALSO_REPLACES[name],
+                       grid=t["grid"], resident=t["resident"],
+                       hbm_grid=h["grid"], hbm_resident=h["resident"],
+                       two_pass_ms=t["two_pass_ms"],
+                       two_pass_kernels_ms=t["two_pass_kernels_ms"],
+                       hbm_two_pass_ms=h["two_pass_ms"],
+                       hbm_two_pass_kernels_ms=h["two_pass_kernels_ms"],
+                       device_kernels_per_aggregate_local={
+                           k: v["per_call"] for k, v in
+                           agg_t["device_kernels_per_call"].items()})
         if name == "fused_stats":
             g, hg = main_t["fused_stats[gram]"], hbm_t["fused_stats[gram]"]
             row.update(gram_ms=g["kernel_ms"],

@@ -425,9 +425,10 @@ def aggregate_local(G, cfg: ByzantineConfig, return_state: bool = False,
                     spec: AggregatorSpec | None = None, valid=None):
     """Run one aggregator on the worker-gradient matrix G [m, d] -> [d].
 
-    brsgd takes the two-pass path: pass 1 emits only the [m] partials
-    (scores, l1), pass 2 fuses selection with the masked mean — G is
-    read twice and no [d]-sized intermediate is written.
+    brsgd takes the fused path (``ops.brsgd_aggregate``): pass 1 emits
+    only the [m] partials (scores, l1), the thresholds are resolved, and
+    pass 2 fuses selection with the masked mean — on the card all in one
+    launch, with no [d]-sized intermediate written.
 
     ``valid`` ([m] 0/1) runs the elastic masked variant: statistics,
     quantiles and the combine cover the active rows only, and dropped
@@ -455,15 +456,13 @@ def aggregate_local(G, cfg: ByzantineConfig, return_state: bool = False,
         return (out, None) if return_state else out
 
     if spec.name == "brsgd":
-        # thresholds resolved once; pass 2 recomputes the mask per block
-        # and returns it as w, the state adds C1 and C2 for diagnostics
-        scores, l1 = ops.brsgd_partials(G)
-        kth, T = ref.brsgd_thresholds(scores, l1, cfg.beta, cfg.threshold)
-        agg, w = ops.brsgd_select_mean(G, scores, l1, kth, T)
+        # one launch on the card: pass 1, the thresholds, pass 2; the
+        # state is views of what that launch wrote
+        r = ops.brsgd_aggregate(G, cfg.beta, cfg.threshold)
         if not return_state:
-            return agg
-        _, c1, c2 = ref.brsgd_masks(scores, l1, kth, T)
-        return agg, BrSGDState(w > 0, c1, c2, scores, l1, T)
+            return r.agg
+        return r.agg, BrSGDState(r.selected, r.c1, r.c2, r.scores, r.l1,
+                                 r.threshold)
 
     stats = leaf_stats(G, spec.stats, m)
     w, st, _denom = resolve_select(spec, stats, cfg, m, G.device)

@@ -39,6 +39,7 @@ BUILD_LOGS: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # every C entry of each library: argument types (the return type is int)
 SIGNATURES = {
     "brsgd_stats": {
@@ -49,6 +50,10 @@ SIGNATURES = {
         "brsgd_select_mean": (_P, _I, _L, _P, _P, _P, _P, _I, _P),
         "brsgd_masked_mean": (_P, _I, _L, _P, _P, _I, _P),
         "brsgd_trimmed_mean": (_P, _I, _L, _I, _P, _I, _P),
+        # G, m, d, k_idx, q_idx, threshold, resident, partials, small_out,
+        # out, grid, stream
+        "brsgd_aggregate": (_P, _I, _L, _I, _I, _F, _I, _P, _P, _P, _I, _P),
+        "brsgd_aggregate_coresident": (_I, _L, _P),
     },
     "flash_attention": {
         # q, k, v, o, dtype, B, H, Hkv, S, T, D, 4 x (b, h, s) strides,

@@ -13,6 +13,9 @@ wrapper             replaces (src/repro/kernels/brsgd_stats.py)
 fused_stats         fused_stats_pallas (B1); brsgd_partials is its
                     (scores, l1) call
 select_mean         select_mean_pallas (B2)
+brsgd_aggregate     brsgd_partials_pallas -> ref.brsgd_thresholds ->
+                    select_mean_pallas (B1's brsgd call + B2) in one
+                    cooperative launch
 masked_mean         masked_mean_pallas (B3)
 brsgd_stats         brsgd_stats_pallas (B4); cwise_median is its median
 trimmed_mean        trimmed_mean_pallas (B5)
@@ -21,6 +24,7 @@ trimmed_mean        trimmed_mean_pallas (B5)
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,7 +37,15 @@ NEED_BITS = {"scores": 1, "l1": 2, "d2med": 4, "gram": 8}
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"fused_stats": 0, "select_mean": 0, "masked_mean": 0,
-            "brsgd_stats": 0, "trimmed_mean": 0}
+            "brsgd_stats": 0, "trimmed_mean": 0, "brsgd_aggregate": 0}
+
+# the fused kernel's shared-memory budget (csrc: THREADS, SMEM_SORT_M,
+# SMEM_BLOCK_LIMIT, AGG_STATIC_SMEM): the most one block may hold on
+# sm_90 (227 KB), less what its static arrays keep
+THREADS = 128
+SMEM_SORT_M = 64
+SMEM_BLOCK_LIMIT = 232448
+AGG_STATIC_SMEM = 4096
 
 
 def reset_launches() -> None:
@@ -110,6 +122,99 @@ def brsgd_partials(G):
     """G [m, d] -> (scores [m], l1 [m]): pass 1 of local BrSGD."""
     st = fused_stats(G, ("scores", "l1"))
     return st["scores"], st["l1"]
+
+
+class AggregatePlan(NamedTuple):
+    """The fused kernel's launch: ``grid`` co-resident blocks, whether G
+    stays in shared memory between the passes, and the dynamic shared
+    memory of each block in bytes."""
+    grid: int
+    resident: bool
+    smem: int
+
+
+def aggregate_smem(m: int, d: int, grid: int, resident: bool) -> int:
+    """Dynamic shared memory of the fused kernel on ``grid`` blocks (the
+    csrc ``aggregate_smem``): the sort columns from SMEM_SORT_M on, and
+    when resident one [m, THREADS] slot per tile of the fullest block."""
+    n_tiles = -(-d // THREADS)
+    sort = 4 * ref.padded_workers(m) * THREADS if m >= SMEM_SORT_M else 0
+    return sort + (4 * -(-n_tiles // grid) * m * THREADS if resident else 0)
+
+
+def aggregate_plan(m: int, d: int, coresident) -> AggregatePlan:
+    """Grid and residency of the fused kernel for G [m, d].
+
+    ``coresident(smem)`` is the number of blocks the card holds at once
+    when each asks for ``smem`` bytes of dynamic shared memory.  The grid
+    is min(tiles, co-resident blocks); G stays resident when some number
+    of tiles per block fits in shared memory with the grid that number
+    implies still co-resident — the fewest tiles per block that does."""
+    limit = SMEM_BLOCK_LIMIT - AGG_STATIC_SMEM
+    n_tiles = -(-d // THREADS)
+    grid0 = min(n_tiles, coresident(aggregate_smem(m, d, 1, False)))
+    if grid0 < 1:
+        raise RuntimeError(f"brsgd_aggregate: no block of m={m} fits on "
+                           f"the card")
+    per_block = -(-n_tiles // grid0)
+    while per_block <= n_tiles:
+        grid = -(-n_tiles // per_block)
+        smem = aggregate_smem(m, d, grid, True)
+        if smem > limit:
+            break
+        if grid <= coresident(smem):
+            return AggregatePlan(grid, True, smem)
+        per_block += 1
+    return AggregatePlan(grid0, False, aggregate_smem(m, d, grid0, False))
+
+
+_plans: dict = {}
+
+
+def launch_plan(G) -> AggregatePlan:
+    """:func:`aggregate_plan` for G [m, d] on G's card, with the card's
+    own co-resident block counts; computed once per (card, m, d)."""
+    m, d = _check_matrix(G, "brsgd_aggregate")
+    key = (G.device.index, m, d)
+    if key not in _plans:
+        lib = load()
+
+        def coresident(smem):
+            n = ctypes.c_int(0)
+            rc = lib.brsgd_aggregate_coresident(m, smem, ctypes.byref(n))
+            if rc != 0:
+                raise RuntimeError(
+                    f"brsgd_aggregate: occupancy query failed with CUDA "
+                    f"error {rc} ({lib.brsgd_error_string(rc).decode()})")
+            return n.value
+        with torch.cuda.device(G.device):
+            _plans[key] = aggregate_plan(m, d, coresident)
+    return _plans[key]
+
+
+def brsgd_aggregate(G, beta: float, threshold: float) -> ref.BrSGDAggregate:
+    """Local BrSGD, G [m, d] -> aggregate [d] and its diagnostics, in one
+    cooperative launch: pass 1, the thresholds resolved on the card, pass
+    2.  Every output is a view of the two buffers the launch writes."""
+    plan = launch_plan(G)                      # checks G
+    m, d = G.shape
+    lib = load()
+    k_idx, q_idx = ref.brsgd_rank_indices(m, beta)
+    n_float = 3 * m + 2                        # scores, l1, w, kth, 𝔗
+    n_small = 4 * n_float + 3 * m              # then sel, c1, c2 as bytes
+    off = -(-n_small // 16) * 16               # then partials and totals
+    buf = torch.empty(off + 4 * 2 * m * (plan.grid + 1), dtype=torch.uint8,
+                      device=G.device)
+    out = torch.empty((d,), dtype=torch.float32, device=G.device)
+    _launch(lib, "brsgd_aggregate", lib.brsgd_aggregate, G, _ptr(G), m, d,
+            k_idx, -1 if threshold > 0 else q_idx, threshold,
+            int(plan.resident), ctypes.c_void_p(buf.data_ptr() + off),
+            _ptr(buf), _ptr(out), plan.grid)
+    f = buf[:4 * n_float].view(torch.float32)
+    mk = buf[4 * n_float:n_small].view(torch.bool)
+    return ref.BrSGDAggregate(out, f[2 * m:3 * m], mk[:m], mk[m:2 * m],
+                              mk[2 * m:], f[:m], f[m:2 * m], f[3 * m],
+                              f[3 * m + 1])
 
 
 def select_mean(G, scores, l1, kth, T):

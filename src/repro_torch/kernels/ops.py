@@ -80,6 +80,15 @@ def brsgd_select_mean(G, scores, l1, kth, T):
     return ref.masked_mean_det(G, w), w
 
 
+def brsgd_aggregate(G, beta: float, threshold: float) -> ref.BrSGDAggregate:
+    """Local BrSGD from G [m, d] to the aggregate and its diagnostics
+    (``ref.BrSGDAggregate``): on the card one cooperative launch that
+    resolves the thresholds itself, on the CPU the plain composition."""
+    if G.is_cuda:
+        return kern.brsgd_aggregate(G, beta, threshold)
+    return ref.brsgd_aggregate_plain(G, beta, threshold)
+
+
 def masked_mean(G, mask):
     """Masked (bool) or weighted (f32) row mean Σ w_i g_i / Σ w_i in row
     order (``ref.masked_mean_det`` on the CPU)."""

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -222,16 +223,23 @@ def quantile_nearest_index(q: float, m: int) -> int:
     return low if (virt - low) <= 0.5 else low + 1
 
 
+def brsgd_rank_indices(m: int, beta: float):
+    """The :func:`rank_select` indices of the two cutoffs over m workers:
+    (m - k for the kth score, k = max(1, ⌈β·m⌉); the lower quartile of
+    l1, the auto 𝔗)."""
+    k = max(1, math.ceil(beta * m))
+    return m - k, quantile_nearest_index(0.25, m)
+
+
 def brsgd_thresholds(scores, l1, beta: float, threshold: float):
     """Resolved C1/C2 cutoffs of paper Algorithm 2: (kth score, 𝔗),
     both counting quantiles; k = max(1, ⌈β·m⌉)."""
-    m = scores.shape[0]
-    k = max(1, math.ceil(beta * m))
-    kth = rank_select(scores, m - k)
+    k_idx, q_idx = brsgd_rank_indices(scores.shape[0], beta)
+    kth = rank_select(scores, k_idx)
     if threshold > 0:
         T = torch.tensor(threshold, dtype=torch.float32, device=l1.device)
     else:
-        T = rank_select(l1, quantile_nearest_index(0.25, m))
+        T = rank_select(l1, q_idx)
     return kth, T
 
 
@@ -249,6 +257,32 @@ def brsgd_select_mask(scores, l1, beta: float, threshold: float):
     Returns (selected, c1, c2, 𝔗) — all [m] bool except 𝔗."""
     kth, T = brsgd_thresholds(scores, l1, beta, threshold)
     return (*brsgd_masks(scores, l1, kth, T), T)
+
+
+class BrSGDAggregate(NamedTuple):
+    """One local BrSGD aggregation: the aggregate and its diagnostics."""
+    agg: torch.Tensor          # [d] Σ w_i g_i / Σ w_i
+    w: torch.Tensor            # [m] f32 selection weights
+    selected: torch.Tensor     # [m] bool, C1 ∩ C2 (after the fallback)
+    c1: torch.Tensor           # [m] bool, l1 <= 2𝔗
+    c2: torch.Tensor           # [m] bool, score >= kth
+    scores: torch.Tensor       # [m]
+    l1: torch.Tensor           # [m]
+    kth: torch.Tensor          # the resolved score cutoff
+    threshold: torch.Tensor    # the resolved 𝔗
+
+
+def brsgd_aggregate_plain(G, beta: float, threshold: float) -> BrSGDAggregate:
+    """Local BrSGD from G [m, d] to the aggregate: the (scores, l1) pass,
+    the resolved thresholds, the masks and the row-order masked mean —
+    the function the fused kernel computes in one launch."""
+    st = fused_stats_ref(G, ("scores", "l1"))
+    scores, l1 = st["scores"], st["l1"]
+    kth, T = brsgd_thresholds(scores, l1, beta, threshold)
+    sel, c1, c2 = brsgd_masks(scores, l1, kth, T)
+    w = sel.to(torch.float32)
+    return BrSGDAggregate(masked_mean_det(G, w), w, sel, c1, c2, scores, l1,
+                          kth, T)
 
 
 def trim_k(trim_frac: float, m: int) -> int:

@@ -142,7 +142,7 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_input():
     ops.masked_mean(G, torch.ones(20, device="cuda"))
     assert kern.LAUNCHES == {"fused_stats": 1, "select_mean": 0,
                              "masked_mean": 1, "brsgd_stats": 0,
-                             "trimmed_mean": 0}
+                             "trimmed_mean": 0, "brsgd_aggregate": 0}
     with pytest.raises(ValueError, match="no kernel instance"):
         kern.fused_stats(torch.zeros(6, 10, device="cuda"), ("l1",))
     with pytest.raises(TypeError):
@@ -153,6 +153,108 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_input():
         kern.select_mean(G, torch.zeros(20, device="cuda"),
                          torch.zeros(20, device="cuda"),
                          torch.tensor(0.0), torch.tensor(1.0))
+
+
+# the fused brsgd launch: chip_smoke's CHECK_SHAPES (resident in shared
+# memory) and one shape whose G is not, so pass 2 reads it again
+FUSED_SHAPES = SHAPES + [(20, 2_000_003)]
+FUSED_CASES = [(0.5, 0.0), (0.25, 0.0), (0.5, 1e-6), (0.25, 5.0)]
+
+
+def check_fused(G, beta, threshold):
+    """The fused kernel against the plain version on G: scores exact and
+    l1 within RTOL; kth, 𝔗, the masks and w exact against the plain
+    threshold and mask steps applied to the kernel's own scores and l1;
+    the aggregate bit-equal to masked_mean_det(G, w); a second launch the
+    same bits; one launch each."""
+    kern.reset_launches()
+    r = kern.brsgd_aggregate(G, beta, threshold)
+    again = kern.brsgd_aggregate(G, beta, threshold)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["brsgd_aggregate"] == 2
+    assert sum(kern.LAUNCHES.values()) == 2
+    want = ref.fused_stats_ref(G, ("scores", "l1"))
+    exact(r.scores, want["scores"])
+    close(r.l1, want["l1"])
+    kth, T = ref.brsgd_thresholds(r.scores, r.l1, beta, threshold)
+    sel, c1, c2 = ref.brsgd_masks(r.scores, r.l1, kth, T)
+    for got, w in ((r.kth, kth), (r.threshold, T), (r.selected, sel),
+                   (r.c1, c1), (r.c2, c2), (r.w, sel.float())):
+        exact(got, w)
+    exact(r.agg, ref.masked_mean_det(G, r.w))
+    for a, b in zip(again, r):
+        exact(a, b)
+    return r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", FUSED_SHAPES)
+@pytest.mark.parametrize("beta,threshold", FUSED_CASES)
+def test_fused_brsgd_kernel_matches_plain_version(m, d, beta, threshold):
+    need_card()
+    G = mat(m, d, seed=m + 2)
+    G[: max(1, m // 4)] *= 30.0                      # outlying workers
+    plan = kern.launch_plan(G)
+    assert plan.resident == (d != 2_000_003)
+    check_fused(G, beta, threshold)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", kern.SUPPORTED_M)
+@pytest.mark.parametrize("where", ["row", "scattered"])
+def test_fused_brsgd_kernel_every_m_with_a_nan_worker(m, where):
+    need_card()
+    G = mat(m, 5003, seed=m + 40)
+    if where == "row":
+        G[m // 2] = float("nan")
+    else:
+        G[m // 2, ::7] = float("nan")
+    check_fused(G, 0.5, 0.0)
+    check_fused(G, 0.5, 1.0)
+
+
+@pytest.mark.gpu
+def test_fused_brsgd_kernel_not_resident_with_a_nan_worker():
+    need_card()
+    G = mat(20, 2_000_003, seed=9)
+    G[3, ::11] = float("nan")
+    check_fused(G, 0.5, 0.0)
+
+
+@pytest.mark.gpu
+def test_brsgd_aggregation_is_one_launch():
+    """engine.aggregate_local(brsgd, return_state=True) launches the
+    fused kernel once and nothing else of the port; the state is views
+    of its buffers, equal to the plain composition's."""
+    need_card()
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import engine
+    G = mat(20, 61706, seed=12)
+    G[:5] *= 1e10
+    cfg = ByzantineConfig(aggregator="brsgd", alpha=0.25)
+    ops.reset_launches()
+    agg, st = engine.aggregate_local(G, cfg, return_state=True)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in ops.launches().items() if n} == \
+        {"brsgd_aggregate": 1}
+    assert not st.selected[:5].any()
+    r = ref.brsgd_aggregate_plain(G, cfg.beta, cfg.threshold)
+    exact(st.selected, r.selected)
+    exact(agg, ref.masked_mean_det(G, st.selected.float()))
+
+
+@pytest.mark.gpu
+def test_fused_brsgd_wrapper_refuses_bad_input():
+    need_card()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kern.brsgd_aggregate(torch.zeros(20, 10), 0.5, 0.0)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        kern.brsgd_aggregate(torch.zeros(6, 10, device="cuda"), 0.5, 0.0)
+    with pytest.raises(TypeError):
+        kern.brsgd_aggregate(torch.zeros(20, 10, device="cuda",
+                                         dtype=torch.float64), 0.5, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kern.brsgd_aggregate(mat(20, 64).T.contiguous().T, 0.5, 0.0)
 
 
 @pytest.mark.gpu

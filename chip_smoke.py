@@ -5,11 +5,18 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --kernel-times SRC`` instead times the BrSGD
+kernels of the repro_torch package under SRC (device time by
+torch.profiler, and CUDA events) at the two timing shapes and checks
+nothing: run it on this tree's src and on a parent commit's, unpacked
+beside it, in turns, to compare kernels on one card.
+
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: name, count, versions, nvidia-smi name and power limit;
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc
      per source, all started together) and print the -Xptxas -v
-     register / shared-memory / spill summary;
+     register / shared-memory / spill summary; from the SASS, the HMMA
+     count of B6 and B7 and B3's load batching at m = 20;
   3. every kernel (B1-B5) against its plain PyTorch version on the card,
      at the LeNet main-path shape [20, 61706], a ragged [7, 1003],
      [64, 4096], the robustness twin's [20, 20] and the rate twin's
@@ -19,7 +26,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      kernel) at the same inputs with G resident in shared memory, and at
      [20, 2000003], where it is not, with and without a NaN worker:
      scores, thresholds, masks and weights exact, the aggregate bit-equal
-     to masked_mean_det(G, w), a second launch the same bits;
+     to masked_mean_det(G, w), a second launch the same bits; the fused
+     select launch (B1's gram pass + the rule + B3, one cooperative
+     kernel) for krum, multi_krum and geomedian at the same inputs, with
+     a duplicated worker, and at [20, 2000003]: gram within 1e-5, krum
+     scores within 1e-5 and weights exact (against the plain rule on the
+     launch's own scores and against the plain composition), geomedian's
+     weights within 1e-5, the aggregate bit-equal to masked_mean_det(G,
+     w); B3 bit-equal with 0/1, float and unit weights;
      B6 (flash attention) at the qwen3-0.6b prefill [B=4, H=16, Hkv=8,
      S=512, D=128], a ragged S = 200, window 64, D = 64 and 80, in
      bfloat16, S = 5 (below one mma tile), S one past a query and a key
@@ -35,9 +49,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      trimmed_mean under scale at 0.1, which it trims away), then 5 card
      steps of each with the launch counters checked (brsgd: 5 fused
      launches and nothing else); the step timed with the fused launch
-     and with the two-pass composition it replaced, in turns; one brsgd
-     aggregate_local: device kernels per call (torch.profiler, must be
-     1) and host ms, two-pass and fused in turns;
+     and with the two-pass composition it replaced, in turns; one
+     aggregate_local of every select rule (brsgd, mean, krum, multi_krum,
+     geomedian): device kernels per call (torch.profiler, must be 1) and
+     host ms, the eager composition and the one launch in turns; the
+     paper step of each select rule, both ways in turns;
   5. the main path: paper.train_lenet at LeNet width, m = 20, 60 steps
      (brsgd under scale and gaussian, the mean baseline, median, krum,
      trimmed_mean under gaussian, multi_krum and geomedian under scale),
@@ -57,9 +73,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      steps over a float32 and over the bfloat16 cache, greedy tokens);
      prefill == sequential decode on the card for both reduced configs;
   8. timing with CUDA events (bare kernel launch, wrapper call, plain
-     version, one library call) at [20, 61706] and [20, 8388608], the
+     version, one library call) and each bare kernel's device time
+     (torch.profiler) at [20, 61706] and [20, 8388608] (the fused select
+     launch first held against its plain version on those inputs), the
      fused brsgd launch against the two-pass composition in turns (it
-     must not be slower) and on a sweep of grids; B6 at
+     must not be slower) and on a sweep of grids; the fused select launch
+     of each gram rule; B6 at
      its serve shape and at S = 4096 beside SDPA, with its FP32-pipe and
      3xTF32 tensor-core bounds; B7 per layer launch at [4, 512, 64, 64]
      and its one-chunk call;
@@ -100,8 +119,13 @@ REPLACES = {
     "trimmed_mean": "src/repro/kernels/brsgd_stats.py:327",
     # B1's brsgd call (brsgd_partials_pallas, pallas_call at :199) and B2
     "brsgd_aggregate": "src/repro/kernels/brsgd_stats.py:258",
+    # B1's gram call (fused_stats_pallas, :199) and B3 (:289)
+    "select_aggregate": "src/repro/kernels/brsgd_stats.py:199",
 }
-ALSO_REPLACES = {"brsgd_aggregate": ["src/repro/kernels/brsgd_stats.py:199"]}
+ALSO_REPLACES = {"brsgd_aggregate": ["src/repro/kernels/brsgd_stats.py:199"],
+                 "select_aggregate": ["src/repro/kernels/brsgd_stats.py:289"]}
+# the gram rules of the fused select launch
+GRAM_RULES = ("krum", "multi_krum", "geomedian")
 # the fused brsgd launch: a shape whose G does not stay in shared memory
 NONRESIDENT_SHAPE = (20, 2_000_003)
 # (beta, threshold / d): the paper's auto rule at two betas, C1 emptied
@@ -111,10 +135,10 @@ FUSED_CASES = ((0.5, 0.0), (0.25, 0.0), (0.5, 1e-9), (0.5, 0.4))
 # the kernels each main-path run launches, once a step
 MAIN_PATH_KERNELS = {"mean": {"masked_mean"}, "brsgd": {"brsgd_aggregate"},
                      "median": {"brsgd_stats"},
-                     "krum": {"fused_stats", "masked_mean"},
+                     "krum": {"select_aggregate"},
                      "trimmed_mean": {"trimmed_mean"},
-                     "multi_krum": {"fused_stats", "masked_mean"},
-                     "geomedian": {"fused_stats", "masked_mean"}}
+                     "multi_krum": {"select_aggregate"},
+                     "geomedian": {"select_aggregate"}}
 SEQ_KERNELS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:79"),
@@ -151,7 +175,7 @@ SERVE_TOL = 1e-4              # logits, relative to the largest |logit|
 BF16_CACHE_TOL = 1e-2         # decode logits over a bfloat16 cache, the same
 TRIM_FRACS = (0.1, 0.25, 0.49, 0.5)   # 0.5 takes trim_k's 2k >= m guard
 LIBRARY_CALLS = {
-    "fused_stats": None, "brsgd_aggregate": None,
+    "fused_stats": None, "brsgd_aggregate": None, "select_aggregate": None,
     "select_mean": "w @ G / w.sum()",
     "masked_mean": "w @ G / w.sum()",
     "brsgd_stats": "torch.quantile(G, 0.5, dim=0)",
@@ -232,7 +256,8 @@ def phase_build():
 
 def phase_sass(paths):
     """B6 and B7 run their products on the tensor cores: count the HMMA
-    instructions in each library's SASS (cuobjdump beside nvcc)."""
+    instructions in each library's SASS (cuobjdump beside nvcc).  Also
+    B3's load batching at m = 20, read from its SASS."""
     from repro_torch.kernels import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     if not tool.exists():
@@ -248,6 +273,27 @@ def phase_sass(paths):
                  f"(cuobjdump rc {sass.returncode})")
         out[name] = n
     emit({"check": "tensor_core_sass", "hmma_instructions": out})
+    # B3 at m = 20: how many global loads of a column go out before the
+    # first add that consumes one (the longest run of LDG without an
+    # FADD/FMUL between them in its SASS)
+    # (the column loop: after the barrier that ends thread 0's weight setup)
+    sass = subprocess.run([str(tool), "-sass", str(paths["brsgd_stats"])],
+                          capture_output=True, text=True, timeout=300).stdout
+    body = next((f for f in sass.split("Function : ")
+                 if "masked_mean_kernelILi20E" in f.split("\n", 1)[0]), "")
+    body = body.split("BAR.SYNC", 1)[-1]
+    run = longest = loads = 0
+    for line in body.splitlines():
+        if "LDG" in line:
+            loads += 1
+            run += 1
+            longest = max(longest, run)
+        elif "FADD" in line or "FMUL" in line:
+            run = 0
+    if loads == 0:
+        fail("masked_mean_kernel<20>: no global load found in its SASS")
+    emit({"check": "masked_mean_sass", "m": 20, "loop_ldg_instructions": loads,
+          "longest_load_run": longest})
 
 
 # ---------------------------------------------------------------------------
@@ -314,21 +360,30 @@ def _check_kernels(torch, kern, ref, G, label, rng, subsets, worst):
     emit({"check": "select_mean", "input": label, "w": "exact",
           "n_selected": int(w.sum()), "agg_bit_exact": _exact(agg, want),
           "agg_max_abs_err": _err(agg, want), "rel_tol": REL_TOL})
-    # B3: masked mean with a random 0/1 mask, and the empty mask
-    mask = torch.as_tensor(rng.random(m) < 0.6, device="cuda")
-    got = kern.masked_mean(G, mask)
-    want = ref.masked_mean_det(G, mask)
-    empty = kern.masked_mean(G, torch.zeros(m, dtype=torch.bool,
-                                            device="cuda"))
+    # B3: masked mean with a random 0/1 mask, float weights, unit weights
+    # (the mean, which also writes w and w > 0) and the empty mask, each
+    # bit-equal to masked_mean_det
+    weights = {"0/1": torch.as_tensor(rng.random(m) < 0.6, device="cuda"),
+               "float": torch.as_tensor(rng.random(m).astype("float32"),
+                                        device="cuda"),
+               "empty": torch.zeros(m, dtype=torch.bool, device="cuda")}
+    errs = {}
+    for kind, w in weights.items():
+        got, want = kern.masked_mean(G, w), ref.masked_mean_det(G, w)
+        torch.cuda.synchronize()
+        errs[kind] = _err(got, want)
+        if not _exact(got, want):
+            fail(f"masked_mean {label} ({kind} weights): err {errs[kind]}")
+    r = kern.select_aggregate(G, "mean")
+    want = ref.masked_mean_det(G, torch.ones(m, device="cuda"))
     torch.cuda.synchronize()
-    if not _rel_ok(got, want):
-        fail(f"masked_mean {label}: err {_err(got, want)}")
-    if not _exact(empty, torch.zeros_like(empty)):
-        fail(f"masked_mean {label}: empty mask is not all zeros")
-    worst["masked_mean"] = max(worst["masked_mean"], _err(got, want))
+    if not (_exact(r.agg, want) and bool((r.w == 1).all())
+            and bool(r.selected.all())):
+        fail(f"masked_mean {label} (unit weights): err {_err(r.agg, want)}")
+    worst["masked_mean"] = max(worst["masked_mean"], *errs.values())
     emit({"check": "masked_mean", "input": label,
-          "bit_exact": _exact(got, want), "max_abs_err": _err(got, want),
-          "rel_tol": REL_TOL})
+          "weights": list(weights) + ["unit"],
+          "bit_equal_to_masked_mean_det": True})
     # B4: median, mean, scores, l1
     got = kern.brsgd_stats(G)
     want = ref.brsgd_stats_ref(G)
@@ -400,6 +455,119 @@ def _check_fused(torch, kern, ref, G, label, worst):
     return plan
 
 
+def _select_cases(m):
+    """(rule, host arguments) of the fused select launch at m workers:
+    the engine's own for a fixed round at alpha = 0.25."""
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import engine
+    cfg = ByzantineConfig(alpha=0.25)
+    return [(rule, engine.rule_args(engine.get_spec(rule), cfg, m))
+            for rule in GRAM_RULES]
+
+
+ON_WORKER = 1e-2    # Weiszfeld's iterate within 1% of max‖g_i‖ of a worker
+ON_WORKER_W = 1e-2  # the weight there: within 1% of the plain version's
+
+
+def _geomedian_check(G, w, want_w, S, agg=None, want_agg=None) -> dict:
+    """geomedian's weights (and aggregate) against the plain version.
+    w_i = 1/‖g_i − z‖ with ‖g_i − z‖² = S_ii − 2(Sw)_i/W + wᵀSw/W², a
+    difference of gram terms up to max S_ii: where the iterate z sits on
+    worker i, w_i is set by rounding.  Rows the plain iterate stays
+    ON_WORKER · √max S_ii or farther from hold w within REL_TOL of the
+    largest such weight; rows nearer must be copies of one worker, the
+    card's argmax, with w within ON_WORKER_W of the plain's; the
+    aggregate within REL_TOL of the plain one, plus, where the iterate
+    sits on worker i, ON_WORKER_W of max|g_i − agg|.  Returns the
+    verdict and the numbers it was reached on."""
+    if bool(want_w.isnan().any()):
+        ok = _rel_ok(w, want_w) and (agg is None or _rel_ok(agg, want_agg))
+        return {"ok": ok, "on_worker_rows": 0, "w_err": _err(w, want_w)}
+    root = float(S.diagonal().max()) ** 0.5
+    on = want_w * root * ON_WORKER > 1.0
+    off = want_w[~on]
+    w_err = _err(w[~on], off) if off.numel() else 0.0
+    w_atol = REL_TOL * float(off.abs().max()) if off.numel() else 0.0
+    res = {"ok": w_err <= w_atol, "on_worker_rows": int(on.sum()),
+           "w_err": w_err, "w_atol": w_atol}
+    slack = 0.0
+    if bool(on.any()):
+        i = int(w.argmax())
+        ratio = float((w[on].double() / want_w[on].double() - 1.0).abs()
+                      .max())
+        res["on_worker_w_rel_err"] = ratio
+        res["ok"] &= bool((G[on] == G[i]).all()) and ratio <= ON_WORKER_W
+        if agg is not None:
+            slack = ON_WORKER_W * float((G[i] - want_agg).abs().max())
+    if agg is not None:
+        fin = want_agg[want_agg.isfinite()].double().abs()
+        scale = float(fin.max()) if fin.numel() else 0.0
+        res["agg_err"] = _err(agg, want_agg)
+        res["agg_atol"] = REL_TOL * scale + slack
+        res["ok"] &= (_same_nan(agg, want_agg)
+                      and res["agg_err"] <= res["agg_atol"])
+    return res
+
+
+def _check_select(torch, kern, ref, G, label, worst):
+    """The fused select launch against its plain version on G for each
+    gram rule: gram (and d2med) within REL_TOL; krum / multi_krum scores
+    within REL_TOL and weights exact, against the plain rule on the
+    launch's own scores and against the plain composition; geomedian's
+    weights against both by _geomedian_check; the aggregate bit-equal to
+    masked_mean_det(G, w); a second launch the same bits.  Returns the
+    plans."""
+    m, d = G.shape
+    plans = {}
+    for rule, args in _select_cases(m):
+        plans[rule] = plan = kern.launch_plan(G, rule)
+        r = kern.select_aggregate(G, rule, **args)
+        again = kern.select_aggregate(G, rule, **args)
+        want = ref.select_aggregate_plain(G, rule, **args)
+        agg_want = ref.masked_mean_det(G, r.w)
+        torch.cuda.synchronize()
+        checks = [("gram", _rel_ok(r.gram, want.gram)),
+                  ("selected", _exact(r.selected, r.w > 0)),
+                  ("aggregate", _exact(r.agg, agg_want)),
+                  ("repeat", all(_exact(a, b) for a, b in zip(again, r)
+                                 if b is not None))]
+        geo = None
+        if rule == "geomedian":
+            geo = _geomedian_check(G, r.w, want.w, want.gram, r.agg,
+                                   want.agg)
+            own = ref.geomedian_weights(r.gram, r.d2med, args["iters"],
+                                        args["eps"])
+            checks += [("d2med", _rel_ok(r.d2med, want.d2med)),
+                       ("w", geo["ok"]),
+                       ("w_from_own_gram",
+                        _geomedian_check(G, r.w, own, r.gram)["ok"])]
+        else:
+            own = (ref.krum_weights(r.scores) if rule == "krum"
+                   else ref.multi_krum_weights(r.scores, args["k"]))
+            checks += [("scores", _rel_ok(r.scores, want.scores)),
+                       ("w_from_own_scores", _exact(r.w, own)),
+                       ("w", _exact(r.w, want.w))]
+        bad = [n for n, ok in checks if not ok]
+        worst["select_aggregate"] = max(worst["select_aggregate"],
+                                        _err(r.agg, agg_want),
+                                        geo["w_err"] if geo else
+                                        _err(r.w, want.w))
+        if bad:
+            fail(f"select_aggregate {rule} {label}: {bad} differ (w err "
+                 f"{_err(r.w, want.w)}, gram err {_err(r.gram, want.gram)}, "
+                 f"geomedian {geo})")
+        emit({"check": "select_aggregate", "rule": rule, "input": label,
+              "args": args, "grid": plan.grid, "resident": plan.resident,
+              "smem_bytes": plan.smem, "n_selected": int(r.selected.sum()),
+              "gram_rel_tol": REL_TOL,
+              "w": (f"within {REL_TOL} of the largest weight off a worker"
+                    if geo else "exact"),
+              **({"geomedian": geo} if geo else {}),
+              "aggregate": "bit-equal to masked_mean_det(G, w)",
+              "repeat": "bit-equal"})
+    return plans
+
+
 def phase_kernels(torch, kern, ref):
     import itertools
     import numpy as np
@@ -415,6 +583,14 @@ def phase_kernels(torch, kern, ref):
         if not _check_fused(torch, kern, ref, G, f"[{m},{d}]",
                             worst).resident:
             fail(f"brsgd_aggregate [{m},{d}]: G does not stay resident")
+        G[: max(1, m // 4)] *= -4.0                    # outlying workers
+        plans = _check_select(torch, kern, ref, G, f"[{m},{d}] outliers",
+                              worst)
+        if not all(p.resident for p in plans.values()):
+            fail(f"select_aggregate [{m},{d}]: G does not stay resident")
+        G[m - 1] = G[m // 2]                           # tied scores
+        _check_select(torch, kern, ref, G, f"[{m},{d}] duplicate worker",
+                      worst)
     # one worker's gradient holds NaN: the sort and the scores must
     # propagate it as the plain versions do
     for where, cols in (("row", slice(None)), ("every 5th column",
@@ -426,6 +602,7 @@ def phase_kernels(torch, kern, ref):
         label = f"[20,61706] worker 4 NaN ({where})"
         _check_kernels(torch, kern, ref, G, label, rng, subsets, worst)
         _check_fused(torch, kern, ref, G, label, worst)
+        _check_select(torch, kern, ref, G, label, worst)
     # the fused launch where G does not fit in shared memory: pass 2
     # reads it again
     m, d = NONRESIDENT_SHAPE
@@ -438,6 +615,9 @@ def phase_kernels(torch, kern, ref):
         G = torch.as_tensor(g, device="cuda")
         if _check_fused(torch, kern, ref, G, label, worst).resident:
             fail(f"brsgd_aggregate {label}: expected G not resident")
+        if any(p.resident for p in _check_select(torch, kern, ref, G, label,
+                                                 worst).values()):
+            fail(f"select_aggregate {label}: expected G not resident")
     return worst
 
 
@@ -623,12 +803,26 @@ def phase_loop(torch, kern, ref):
     step = parts["step"]
     turns = []
     for two_pass in (True, False, False, True):
-        with _two_pass_engine(engine, kern, ref, two_pass):
+        with _eager_engine(engine, kern, ref, two_pass):
             turns.append(_host_ms(torch, step))
     res["step_turns_ms"] = {"order": ["two-pass", "fused", "fused",
                                       "two-pass"], "runs": turns}
     emit({"timing": "paper_step_brsgd_scale", "m": 20, "batch": 8,
           "reps": HOST_REPS, **res})
+    # the paper step of the other select rules, the eager composition the
+    # engine ran before the one launch and the launch, in turns
+    for rule in ("mean",) + GRAM_RULES:
+        rcfg = ByzantineConfig(aggregator=rule, attack="scale", alpha=0.25)
+        rstep = make_sim_step(lenet.lenet_loss, rcfg, 0.05)
+        turns = []
+        for eager in (True, False, False, True):
+            with _eager_engine(engine, kern, ref, eager):
+                turns.append(_host_ms(torch, lambda: rstep(
+                    params, pipe.batch(7, 8), gen)))
+        emit({"timing": f"paper_step_{rule}_scale", "m": 20, "batch": 8,
+              "reps": HOST_REPS, "step_turns_ms": {
+                  "order": ["eager", "one launch", "one launch", "eager"],
+                  "runs": turns}})
 
 
 def _trimmed_mean_steps(torch, kern, p_cpu, p_gpu, batch, pipe,
@@ -680,17 +874,36 @@ def _two_pass_brsgd(kern, ref, engine, G, cfg, return_state):
     return agg, engine.BrSGDState(w > 0, c1, c2, scores, l1, T)
 
 
+def _eager_select(engine, G, cfg, return_state):
+    """A fixed round of a select rule other than brsgd as the engine ran
+    it before that round became one launch: B1's call and its partial
+    sums (leaf_stats), the rule as torch ops and the weights' guard
+    (resolve_select; for the mean, host-made unit weights copied to the
+    card), then B3 (_combine_rows)."""
+    spec = engine.get_spec(cfg.aggregator)
+    m = G.shape[0]
+    stats = engine.leaf_stats(G, spec.stats, m)
+    w, st, _denom = engine.resolve_select(spec, stats, cfg, m, G.device)
+    agg = engine._combine_rows(G, w)
+    return (agg, st) if return_state else agg
+
+
 @contextlib.contextmanager
-def _two_pass_engine(engine, kern, ref, on: bool):
-    """While ``on``, engine.aggregate_local takes the two-pass composition
-    for a fixed brsgd round (every other call is unchanged); the yardstick
-    the fused launch is timed against in the same call."""
+def _eager_engine(engine, kern, ref, on: bool):
+    """While ``on``, engine.aggregate_local takes, for a fixed round of a
+    select rule, the composition it ran before that round became one
+    launch: brsgd's two-pass composition (_two_pass_brsgd), the other
+    rules' eager path (_eager_select).  Every other call is unchanged.
+    The yardstick the one launch is timed against in the same call."""
     fused = engine.aggregate_local
 
     def aggregate_local(G, cfg, return_state=False, spec=None, valid=None):
-        if cfg.aggregator != "brsgd" or spec is not None or valid is not None:
+        if (spec is not None or valid is not None
+                or engine.get_spec(cfg.aggregator).column is not None):
             return fused(G, cfg, return_state, spec, valid)
-        return _two_pass_brsgd(kern, ref, engine, G, cfg, return_state)
+        if cfg.aggregator == "brsgd":
+            return _two_pass_brsgd(kern, ref, engine, G, cfg, return_state)
+        return _eager_select(engine, G, cfg, return_state)
 
     if on:
         engine.aggregate_local = aggregate_local
@@ -700,29 +913,38 @@ def _two_pass_engine(engine, kern, ref, on: bool):
         engine.aggregate_local = fused
 
 
-def _device_kernels(torch, fn, reps: int = 10) -> dict:
+def _device_kernels(torch, fn, reps: int = 10, tries: int = 5) -> dict:
     """Device kernels per fn() call, counted by torch.profiler over reps
-    calls after one warm-up: {"per_call": n, "by_name": {name: count}}."""
+    calls after one warm-up: {"per_call": n, "by_name": {name: count},
+    "traces": t}.  fn issues the same kernels every call, so a trace in
+    which a kernel shows a count that is not a multiple of reps (or no
+    kernel at all) lost records: it is taken again, up to ``tries``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    names = {e.key: e.count for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA}
+    for t in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if names and all(n % reps == 0 for n in names.values()):
+            break
     return {"per_call": sum(names.values()) / reps,
-            "by_name": {k[:60]: n / reps for k, n in names.items()}}
+            "by_name": {k[:60]: n / reps for k, n in names.items()},
+            "traces": t}
 
 
 def phase_aggregation(torch, kern, ref):
-    """One brsgd engine.aggregate_local(return_state=True) at the paper's
-    shape, five scaled workers: device kernels per call (torch.profiler)
-    and host ms ending in a synchronize (median, p80 of HOST_REPS), the
-    two-pass composition and the fused launch in turns."""
+    """One engine.aggregate_local(return_state=True) of each select rule
+    at the paper's shape, five scaled workers: device kernels per call
+    (torch.profiler; a host-to-device copy counts too) and host ms ending
+    in a synchronize (median, p80 of HOST_REPS), the eager composition
+    (brsgd: the two-pass one) and the one launch in turns.  The one
+    launch must be one device kernel."""
     import numpy as np
     from repro_torch.configs.base import ByzantineConfig
     from repro_torch.core import engine
@@ -730,23 +952,28 @@ def phase_aggregation(torch, kern, ref):
     G = torch.as_tensor(rng.normal(size=MAIN_SHAPE).astype(np.float32),
                         device="cuda")
     G[:5] *= 1e10
-    cfg = ByzantineConfig(aggregator="brsgd", alpha=0.25)
-    call = lambda: engine.aggregate_local(G, cfg, return_state=True)  # noqa
-    kernels, host = {}, []
-    for name, on in (("two_pass", True), ("fused", False)):
-        with _two_pass_engine(engine, kern, ref, on):
-            kernels[name] = _device_kernels(torch, call)
-    for on in (True, False, False, True):
-        with _two_pass_engine(engine, kern, ref, on):
-            host.append(_host_ms(torch, call))
-    res = {"shape": list(MAIN_SHAPE), "device_kernels_per_call": kernels,
-           "host_ms": {"order": ["two-pass", "fused", "fused", "two-pass"],
-                       "runs": host}}
-    emit({"timing": "brsgd_aggregate_local", **res})
-    if kernels["fused"]["per_call"] != 1:
-        fail(f"a brsgd aggregate_local issued {kernels['fused']} device "
-             f"kernels, expected the one fused launch")
-    return res
+    out = {}
+    for rule in ("brsgd", "mean") + GRAM_RULES:
+        cfg = ByzantineConfig(aggregator=rule, alpha=0.25)
+        call = lambda: engine.aggregate_local(  # noqa: E731
+            G, cfg, return_state=True)
+        old = "two_pass" if rule == "brsgd" else "eager"
+        kernels, host = {}, []
+        for name, on in ((old, True), ("fused", False)):
+            with _eager_engine(engine, kern, ref, on):
+                kernels[name] = _device_kernels(torch, call)
+        for on in (True, False, False, True):
+            with _eager_engine(engine, kern, ref, on):
+                host.append(_host_ms(torch, call))
+        res = {"shape": list(MAIN_SHAPE), "device_kernels_per_call": kernels,
+               "host_ms": {"order": [old, "fused", "fused", old],
+                           "runs": host}}
+        emit({"timing": f"{rule}_aggregate_local", **res})
+        if kernels["fused"]["per_call"] != 1:
+            fail(f"a {rule} aggregate_local issued {kernels['fused']} "
+                 f"device kernels, expected one launch")
+        out[rule] = res
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1131,6 +1358,50 @@ def _time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+# the device kernel each timed row launches, by a part of its name (the
+# parent tree's combine_rows_kernel served both B2 and B3)
+KERNEL_NAMES = {
+    "fused_stats": ("fused_stats_kernel",),
+    "fused_stats[gram]": ("fused_stats_kernel",),
+    "select_mean": ("select_mean_kernel", "combine_rows_kernel"),
+    "masked_mean": ("masked_mean_kernel", "combine_rows_kernel"),
+    "brsgd_stats": ("fused_stats_kernel",),
+    "trimmed_mean": ("trimmed_mean_kernel",),
+    "brsgd_aggregate": ("brsgd_aggregate_kernel", "select_aggregate_kernel"),
+    **{f"select_aggregate[{r}]": ("select_aggregate_kernel",)
+       for r in GRAM_RULES},
+}
+
+
+def _kernel_device_ms(torch, fn, reps: int, names, warmup: int = 3):
+    """Device time of one kernel launch, by torch.profiler: the kernels
+    whose names hold one of ``names`` over reps calls of fn, divided by
+    their count.  Unlike CUDA events around back-to-back launches it
+    leaves out the idle gaps when the host launches slower than the
+    kernel runs (the L2 shape's few-microsecond kernels).  None when the
+    profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(2):      # a trace that lost its kernel records: once more
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and any(k in e.key
+                                                        for k in names):
+                t = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if t is None else t
+                n += e.count
+        if n:
+            return us / 1e3 / n
+    return None
+
+
 def _host_ms(torch, fn, reps: int = None) -> dict:
     """Host-clock milliseconds of fn() ending in a synchronize: median
     and 80th percentile (10 samples beyond it at 50 reps)."""
@@ -1153,12 +1424,14 @@ def _bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(torch, kern, ref, shape, reps, plain_reps):
+def phase_timing(torch, kern, ref, shape, reps, plain_reps, worst):
     import numpy as np
     m, d = shape
     rng = np.random.default_rng(7)
     G = torch.as_tensor(rng.standard_normal((m, d), dtype=np.float32),
                         device="cuda")
+    # the fused select launch against its plain version on the timing input
+    _check_select(torch, kern, ref, G, f"[{m},{d}] timing input", worst)
     st = kern.fused_stats(G, ("scores", "l1"))
     kth, T = ref.brsgd_thresholds(st["scores"], st["l1"], 0.5, 0.0)
     _, w_sel = kern.select_mean(G, st["scores"], st["l1"], kth, T)
@@ -1211,17 +1484,41 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps):
             ops=(m + 1 + 2 * m) * d + sort_ops + 3 * m * d
             + 2 * n_sel * d + d),
     }
+    # the fused select launch of each gram rule: G read once, pass 2's
+    # rows of nonzero weight read again unless G stays resident, out
+    # written; the gram products (m(m+1)/2 pairs, 2 operations a column),
+    # geomedian's median and d² to it, and the combine
+    for rule, args in _select_cases(m):
+        plan = kern.launch_plan(G, rule)
+        r = kern.select_aggregate(G, rule, **args)
+        n_w = int((r.w != 0).sum())
+        ops = m * (m + 1) * d + 2 * n_w * d + d
+        if rule == "geomedian":
+            ops += sort_ops + 3 * m * d
+        rows[f"select_aggregate[{rule}]"] = dict(
+            fn=lambda rule=rule, args=args: kern.select_aggregate(
+                G, rule, **args),
+            plain=lambda rule=rule, args=args: ref.select_aggregate_plain(
+                G, rule, **args),
+            library=None, nbytes=gb + (0 if plan.resident else n_w * d * 4)
+            + d * 4 + (2 * m + m * m) * 4, ops=ops,
+            extra={"grid": plan.grid, "resident": plan.resident,
+                   "smem_bytes": plan.smem, "nonzero_weights": n_w,
+                   "args": args})
     raw = _raw_launchers(torch, G, torch.stack([st["scores"], st["l1"]]),
                          torch.stack([kth, 2.0 * T]).float(), mask, k)
     out = {}
     for name, r in rows.items():
         bound_ms, bound_by = _bound(r["nbytes"], r["ops"])
         res = {"kernel_ms": _time_ms(torch, raw[name], reps),
+               "device_ms": _kernel_device_ms(torch, raw[name], reps,
+                                              KERNEL_NAMES[name]),
                "wrapper_ms": _time_ms(torch, r["fn"], reps),
                "plain_ms": _time_ms(torch, r["plain"], plain_reps, 1),
                "library_ms": (None if r["library"] is None else
                               _time_ms(torch, r["library"], reps)),
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               **r.get("extra", {})}
         out[name] = res
         emit({"timing": name, "shape": [m, d], **res})
     out["brsgd_aggregate"].update(_fused_turns(torch, kern, ref, G, reps,
@@ -1386,17 +1683,31 @@ def _raw_launchers(torch, G, sl, pr, w, k):
     k_idx, q_idx = ref.brsgd_rank_indices(m, 0.5)
     small = torch.empty(3 * m + 2 + m, **f32)
 
+    def select_at(rule):
+        plan = kern.launch_plan(G, rule)
+        args = dict(_select_cases(m))[rule]
+        if rule == "geomedian":
+            ia, ib, fa = args["iters"] - 1, 0, args["eps"]
+        else:
+            ia, ib, fa = args["n_close"], args.get("k", 0), 0.0
+        parts = torch.empty(kern.partials_floats(m, rule, plan.grid), **f32)
+        sm = torch.empty(2 * m + m * m + m, **f32)
+        return lambda: check(lib.brsgd_select_aggregate(
+            P(G), m, d, kern.RULE_IDS[rule], ia, ib, fa, int(plan.resident),
+            P(parts), P(sm), P(out), plan.grid, stream))
+
     def fused_at(grid, resident):
         smem = kern.aggregate_smem(m, d, grid, resident)
         n = ctypes.c_int(0)
-        check(lib.brsgd_aggregate_coresident(m, smem, ctypes.byref(n)))
+        check(lib.brsgd_select_aggregate_coresident(
+            m, kern.RULE_IDS["brsgd"], smem, ctypes.byref(n)))
         if (grid > n.value or smem > kern.SMEM_BLOCK_LIMIT
                 - kern.AGG_STATIC_SMEM or grid > -(-d // kern.THREADS)):
             return None
-        parts = torch.empty(2 * m * (grid + 1), **f32)
-        return lambda: check(lib.brsgd_aggregate(
-            P(G), m, d, k_idx, q_idx, 0.0, int(resident), P(parts),
-            P(small), P(out), grid, stream))
+        parts = torch.empty(kern.partials_floats(m, "brsgd", grid), **f32)
+        return lambda: check(lib.brsgd_select_aggregate(
+            P(G), m, d, kern.RULE_IDS["brsgd"], k_idx, q_idx, 0.0,
+            int(resident), P(parts), P(small), P(out), grid, stream))
 
     return {
         "fused_stats": lambda: check(lib.brsgd_fused_stats(
@@ -1406,13 +1717,15 @@ def _raw_launchers(torch, G, sl, pr, w, k):
         "select_mean": lambda: check(lib.brsgd_select_mean(
             P(G), m, d, P(sl), P(pr), P(out), P(w_out), nb, stream)),
         "masked_mean": lambda: check(lib.brsgd_masked_mean(
-            P(G), m, d, P(w), P(out), nb, stream)),
+            P(G), m, d, P(w), P(out), None, nb, stream)),
         "brsgd_stats": lambda: check(lib.brsgd_column_stats(
             P(G), m, d, P(med), P(mean), P(sc), P(l1), nb, stream)),
         "trimmed_mean": lambda: check(lib.brsgd_trimmed_mean(
             P(G), m, d, k, P(out), nb, stream)),
         "brsgd_aggregate": fused_at(plan.grid, plan.resident),
         "brsgd_aggregate@": fused_at,
+        **{f"select_aggregate[{rule}]": select_at(rule)
+           for rule in GRAM_RULES},
     }
 
 
@@ -1424,9 +1737,54 @@ def ops_select_plain(ref, G, st, kth, T):
 
 # ---------------------------------------------------------------------------
 
+def kernel_times(torch, src: Path) -> int:
+    """``--kernel-times SRC``: the kernels of the repro_torch package under
+    SRC (this tree's src, or another tree's, such as a parent commit's
+    unpacked beside it) timed through their wrappers at MAIN_SHAPE and
+    HBM_SHAPE: device ms by torch.profiler and CUDA-event ms over the
+    same calls.  One JSON line per kernel and shape.  Run it for two
+    trees in turns (parent, change, change, parent) to compare kernels
+    on one card; it checks nothing and prints no kernels line."""
+    import numpy as np
+    sys.path.insert(0, str(src))
+    from repro_torch import resolve_device
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import brsgd_stats as kern
+    from repro_torch.kernels import ref
+    resolve_device("cuda")
+    _build.build_all()
+    for (m, d), reps in ((MAIN_SHAPE, 200), (HBM_SHAPE, 20)):
+        G = torch.as_tensor(np.random.default_rng(7).standard_normal(
+            (m, d), dtype=np.float32), device="cuda")
+        ones = torch.ones(m, device="cuda")
+        sc, l1 = kern.brsgd_partials(G)
+        kth, T = ref.brsgd_thresholds(sc, l1, 0.5, 0.0)
+        fns = {"fused_stats[gram]": lambda: kern.fused_stats(G, ("gram",)),
+               "masked_mean": lambda: kern.masked_mean(G, ones),
+               "select_mean": lambda: kern.select_mean(G, sc, l1, kth, T),
+               "trimmed_mean": lambda: kern.trimmed_mean(G, 0.1),
+               "brsgd_aggregate": lambda: kern.brsgd_aggregate(G, 0.5, 0.0)}
+        if hasattr(kern, "select_aggregate"):
+            for rule, args in _select_cases(m):
+                fns[f"select_aggregate[{rule}]"] = (
+                    lambda rule=rule, args=args: kern.select_aggregate(
+                        G, rule, **args))
+        for name, fn in fns.items():
+            emit({"kernel_times": name, "src": str(src), "shape": [m, d],
+                  "device_ms": _kernel_device_ms(torch, fn, reps,
+                                                 KERNEL_NAMES[name]),
+                  "events_ms": _time_ms(torch, fn, reps)})
+        del G
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     import torch
     smi_line = phase_device(torch)
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernel-times":
+        print(smi_line, flush=True)
+        return kernel_times(torch, Path(sys.argv[2]).resolve())
     sys.path.insert(0, str(SRC))
     from repro_torch import resolve_device
     from repro_torch.kernels import brsgd_stats as kern
@@ -1441,22 +1799,28 @@ def main() -> int:
     elastic_launches = phase_elastic(torch, kern)
     serve_res, serve_launches, per_prefill = phase_serve(torch)
     main_t = phase_timing(torch, kern, ref, MAIN_SHAPE, reps=200,
-                          plain_reps=20)
-    hbm_t = phase_timing(torch, kern, ref, HBM_SHAPE, reps=20, plain_reps=3)
+                          plain_reps=20, worst=worst)
+    hbm_t = phase_timing(torch, kern, ref, HBM_SHAPE, reps=20, plain_reps=3,
+                         worst=worst)
     seq_t = phase_seq_timing(torch, ref)
     kernels = []
     for name in REPLACES:
-        t, h = main_t[name], hbm_t[name]
+        # the fused select launch's headline numbers are krum's; every
+        # rule's stand under "rules"
+        key = "select_aggregate[krum]" if name == "select_aggregate" else name
+        t, h = main_t[key], hbm_t[key]
         row = {"name": name, "route": "cuda", "source": SOURCE,
                "replaces": REPLACES[name], "launches": launches[name],
                "elastic_launches": elastic_launches[name],
                "max_abs_err": worst[name], "ms": t["kernel_ms"],
+               "device_ms": t["device_ms"],
                "wrapper_ms": t["wrapper_ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                "library_call": LIBRARY_CALLS[name],
                "shape": list(MAIN_SHAPE), "hbm_shape": list(HBM_SHAPE),
-               "hbm_ms": h["kernel_ms"], "hbm_wrapper_ms": h["wrapper_ms"],
+               "hbm_ms": h["kernel_ms"], "hbm_device_ms": h["device_ms"],
+               "hbm_wrapper_ms": h["wrapper_ms"],
                "hbm_bound_ms": h["bound_ms"], "hbm_plain_ms": h["plain_ms"],
                "hbm_library_ms": h["library_ms"]}
         if name == "brsgd_aggregate":
@@ -1469,10 +1833,38 @@ def main() -> int:
                        hbm_two_pass_kernels_ms=h["two_pass_kernels_ms"],
                        device_kernels_per_aggregate_local={
                            k: v["per_call"] for k, v in
-                           agg_t["device_kernels_per_call"].items()})
+                           agg_t["brsgd"]["device_kernels_per_call"].items()})
+        if name == "select_aggregate":
+            row.update(also_replaces=ALSO_REPLACES[name], ms_rule="krum",
+                       rules={rule: {
+                           "ms": main_t[f"select_aggregate[{rule}]"]
+                           ["kernel_ms"],
+                           "device_ms": main_t[f"select_aggregate[{rule}]"]
+                           ["device_ms"],
+                           "hbm_device_ms": hbm_t[f"select_aggregate[{rule}]"]
+                           ["device_ms"],
+                           "plain_ms": main_t[f"select_aggregate[{rule}]"]
+                           ["plain_ms"],
+                           "bound_ms": main_t[f"select_aggregate[{rule}]"]
+                           ["bound_ms"],
+                           "hbm_ms": hbm_t[f"select_aggregate[{rule}]"]
+                           ["kernel_ms"],
+                           "hbm_bound_ms": hbm_t[f"select_aggregate[{rule}]"]
+                           ["bound_ms"],
+                           "hbm_plain_ms": hbm_t[f"select_aggregate[{rule}]"]
+                           ["plain_ms"],
+                           "device_kernels_per_aggregate_local": {
+                               k: v["per_call"] for k, v in agg_t[rule]
+                               ["device_kernels_per_call"].items()}}
+                           for rule in GRAM_RULES})
+        if name == "masked_mean":
+            row.update(device_kernels_per_mean_aggregate_local={
+                k: v["per_call"] for k, v in
+                agg_t["mean"]["device_kernels_per_call"].items()})
         if name == "fused_stats":
             g, hg = main_t["fused_stats[gram]"], hbm_t["fused_stats[gram]"]
-            row.update(gram_ms=g["kernel_ms"],
+            row.update(gram_ms=g["kernel_ms"], gram_device_ms=g["device_ms"],
+                       hbm_gram_device_ms=hg["device_ms"],
                        gram_library_ms=g["library_ms"],
                        gram_bound_ms=g["bound_ms"],
                        hbm_gram_ms=hg["kernel_ms"],

@@ -303,17 +303,24 @@ def _krum_f_dyn(cfg, na):
                        min=1)
 
 
+def _krum_n_close(cfg, m: int) -> int:
+    return max(1, m - _krum_f(cfg, m) - 2)
+
+
+def _multi_krum_k(cfg, m: int, n_select: int = 0) -> int:
+    return min(m, n_select or max(1, m - _krum_f(cfg, m)))
+
+
 def _krum_scores(gram, cfg, m: int, valid=None):
     """Krum score_i = Σ of the n-f-2 smallest d²_ij, from the Gram
     matrix (d²_ij = S_ii + S_jj − 2 S_ij, self-distance +inf).  n = m,
     or the active count in an elastic round, where dropped workers' rows
     and columns are +inf: they neither score nor sit in a window."""
+    if valid is None:
+        return ref.krum_scores(gram, _krum_n_close(cfg, m))
     diag = torch.diagonal(gram)
     d2 = diag[:, None] + diag[None, :] - 2.0 * gram
     d2 = d2 + torch.diag(torch.full((m,), float("inf"), device=gram.device))
-    if valid is None:
-        n_close = max(1, m - _krum_f(cfg, m) - 2)
-        return torch.sort(d2, dim=1).values[:, :n_close].sum(dim=1)
     v = valid > 0
     na = v.sum()
     n_close = torch.clamp(na - _krum_f_dyn(cfg, na) - 2, min=1)
@@ -326,8 +333,7 @@ def _krum_scores(gram, cfg, m: int, valid=None):
 
 def _krum_select(stats, cfg, m):
     score = _krum_scores(stats["gram"], cfg, m, stats.get("valid"))
-    w = torch.nn.functional.one_hot(torch.argmin(score), m)
-    return w.to(torch.float32), None
+    return ref.krum_weights(score), None
 
 
 def _multi_krum_select(stats, cfg, m, n_select: int = 0):
@@ -335,12 +341,10 @@ def _multi_krum_select(stats, cfg, m, n_select: int = 0):
     ties broken by worker index (a stable argsort, as jnp.argsort)."""
     valid = stats.get("valid")
     score = _krum_scores(stats["gram"], cfg, m, valid)
-    order = torch.argsort(score, stable=True)       # dropped (inf) last
     if valid is None:
-        k = min(m, n_select or max(1, m - _krum_f(cfg, m)))
-        w = torch.zeros((m,), dtype=torch.float32, device=score.device)
-        w[order[:k]] = 1.0
-        return w, None
+        return ref.multi_krum_weights(score, _multi_krum_k(cfg, m,
+                                                           n_select)), None
+    order = torch.argsort(score, stable=True)       # dropped (inf) last
     v = valid > 0
     na = v.sum()
     k = (torch.full_like(na, n_select) if n_select
@@ -365,19 +369,8 @@ def _geomedian_select(stats, cfg, m, iters: int = GEOMEDIAN_ITERS,
     would otherwise give it the 1/eps ceiling weight."""
     valid = stats.get("valid")
     vf = None if valid is None else (valid > 0).to(torch.float32)
-    S = stats["gram"]
-    diag = torch.diagonal(S)
-    w = 1.0 / torch.clamp(torch.sqrt(stats["d2med"]), min=eps)
-    if vf is not None:
-        w = w * vf
-    for _ in range(max(iters - 1, 0)):
-        W = w.sum()
-        Sw = S @ w
-        d2 = diag - 2.0 * Sw / W + (w @ Sw) / (W * W)
-        w = 1.0 / torch.clamp(torch.sqrt(torch.clamp(d2, min=0.0)), min=eps)
-        if vf is not None:
-            w = w * vf
-    return w, None
+    return ref.geomedian_weights(stats["gram"], stats["d2med"], iters, eps,
+                                 vf), None
 
 
 # ---- per-dimension (column) rules ------------------------------------------
@@ -412,6 +405,23 @@ def spec_with(name: str, **select_kwargs) -> AggregatorSpec:
     return replace(spec, select=partial(spec.select, **select_kwargs))
 
 
+def rule_args(spec: AggregatorSpec, cfg, m: int) -> dict:
+    """The host-side arguments of ``ops.select_aggregate`` for a fixed
+    round of ``spec``: krum's window, multi_krum's count, geomedian's
+    iterations and eps (the keywords :func:`spec_with` bound into
+    ``spec.select``, else the rule's defaults)."""
+    kw = getattr(spec.select, "keywords", {})
+    if spec.name in ("krum", "multi_krum"):
+        args = {"n_close": _krum_n_close(cfg, m)}
+        if spec.name == "multi_krum":
+            args["k"] = _multi_krum_k(cfg, m, kw.get("n_select", 0))
+        return args
+    if spec.name == "geomedian":
+        return {"iters": kw.get("iters", GEOMEDIAN_ITERS),
+                "eps": kw.get("eps", GEOMEDIAN_EPS)}
+    return {}
+
+
 # ---------------------------------------------------------------------------
 # local executor — single-host G [m, d]
 # ---------------------------------------------------------------------------
@@ -425,10 +435,13 @@ def aggregate_local(G, cfg: ByzantineConfig, return_state: bool = False,
                     spec: AggregatorSpec | None = None, valid=None):
     """Run one aggregator on the worker-gradient matrix G [m, d] -> [d].
 
-    brsgd takes the fused path (``ops.brsgd_aggregate``): pass 1 emits
-    only the [m] partials (scores, l1), the thresholds are resolved, and
-    pass 2 fuses selection with the masked mean — on the card all in one
-    launch, with no [d]-sized intermediate written.
+    A fixed round of a select rule is one launch on the card.  brsgd
+    takes ``ops.brsgd_aggregate``: pass 1 emits only the [m] partials
+    (scores, l1), the thresholds are resolved, and pass 2 fuses selection
+    with the masked mean, with no [d]-sized intermediate written.  krum,
+    multi_krum and geomedian take ``ops.select_aggregate``: B1's gram
+    pass, the rule on the card and B3's combine; the mean is B3 with unit
+    weights.  Every state field is a view of what that launch wrote.
 
     ``valid`` ([m] 0/1) runs the elastic masked variant: statistics,
     quantiles and the combine cover the active rows only, and dropped
@@ -463,8 +476,6 @@ def aggregate_local(G, cfg: ByzantineConfig, return_state: bool = False,
             return r.agg
         return r.agg, BrSGDState(r.selected, r.c1, r.c2, r.scores, r.l1,
                                  r.threshold)
-
-    stats = leaf_stats(G, spec.stats, m)
-    w, st, _denom = resolve_select(spec, stats, cfg, m, G.device)
-    agg = _combine_rows(G, w)
-    return (agg, st) if return_state else agg
+    r = ops.select_aggregate(G, spec.name, **rule_args(spec, cfg, m))
+    return (r.agg, SelectionState(r.selected, r.w)) if return_state \
+        else r.agg

@@ -48,12 +48,15 @@ SIGNATURES = {
         "brsgd_fused_stats": (_P, _I, _L, _I, _P, _P, _P, _P, _I, _P),
         "brsgd_column_stats": (_P, _I, _L, _P, _P, _P, _P, _I, _P),
         "brsgd_select_mean": (_P, _I, _L, _P, _P, _P, _P, _I, _P),
-        "brsgd_masked_mean": (_P, _I, _L, _P, _P, _I, _P),
+        # G, m, d, w (null: unit weights), out, small_out (nullable),
+        # n_blocks, stream
+        "brsgd_masked_mean": (_P, _I, _L, _P, _P, _P, _I, _P),
         "brsgd_trimmed_mean": (_P, _I, _L, _I, _P, _I, _P),
-        # G, m, d, k_idx, q_idx, threshold, resident, partials, small_out,
-        # out, grid, stream
-        "brsgd_aggregate": (_P, _I, _L, _I, _I, _F, _I, _P, _P, _P, _I, _P),
-        "brsgd_aggregate_coresident": (_I, _L, _P),
+        # G, m, d, rule, ia, ib, fa, resident, partials, small_out, out,
+        # grid, stream (brsgd: ia, ib, fa = k_idx, q_idx, threshold)
+        "brsgd_select_aggregate": (_P, _I, _L, _I, _I, _I, _F, _I, _P, _P,
+                                   _P, _I, _P),
+        "brsgd_select_aggregate_coresident": (_I, _I, _L, _P),
     },
     "flash_attention": {
         # q, k, v, o, dtype, B, H, Hkv, S, T, D, 4 x (b, h, s) strides,

@@ -16,6 +16,10 @@ select_mean         select_mean_pallas (B2)
 brsgd_aggregate     brsgd_partials_pallas -> ref.brsgd_thresholds ->
                     select_mean_pallas (B1's brsgd call + B2) in one
                     cooperative launch
+select_aggregate    fused_stats_pallas (gram[, d2med]) -> the krum,
+                    multi_krum or geomedian rule -> masked_mean_pallas
+                    (B1's gram call + B3) in one cooperative launch; the
+                    mean is B3 alone with unit weights
 masked_mean         masked_mean_pallas (B3)
 brsgd_stats         brsgd_stats_pallas (B4); cwise_median is its median
 trimmed_mean        trimmed_mean_pallas (B5)
@@ -37,15 +41,21 @@ NEED_BITS = {"scores": 1, "l1": 2, "d2med": 4, "gram": 8}
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"fused_stats": 0, "select_mean": 0, "masked_mean": 0,
-            "brsgd_stats": 0, "trimmed_mean": 0, "brsgd_aggregate": 0}
+            "brsgd_stats": 0, "trimmed_mean": 0, "brsgd_aggregate": 0,
+            "select_aggregate": 0}
 
-# the fused kernel's shared-memory budget (csrc: THREADS, SMEM_SORT_M,
-# SMEM_BLOCK_LIMIT, AGG_STATIC_SMEM): the most one block may hold on
-# sm_90 (227 KB), less what its static arrays keep
+# the fused kernels' shared-memory budget (csrc: THREADS, SMEM_SORT_M,
+# SMEM_BLOCK_LIMIT, AGG_STATIC_SMEM, GRAM_RB, GRAM_LD): the most one
+# block may hold on sm_90 (227 KB), less what its static arrays keep
 THREADS = 128
 SMEM_SORT_M = 64
 SMEM_BLOCK_LIMIT = 232448
 AGG_STATIC_SMEM = 4096
+GRAM_RB = 4
+GRAM_LD = THREADS + 4
+# the cooperative kernel's rule instances (csrc RULE_*): krum and
+# multi_krum share one
+RULE_IDS = {"brsgd": 0, "krum": 1, "multi_krum": 1, "geomedian": 2}
 
 
 def reset_launches() -> None:
@@ -87,6 +97,15 @@ def _ptr(t):
 def _n_blocks(lib, d: int) -> int:
     threads = lib.brsgd_threads()
     return max(1, min(-(-d // threads), lib.brsgd_max_blocks()))
+
+
+def _small_buffer(G, n_float: int, n_bytes: int, n_partials: int = 0):
+    """One uint8 buffer for a launch's diagnostics: n_float floats, then
+    n_bytes bytes, then (16-byte aligned) n_partials floats of scratch.
+    Returns (buffer, byte offset of the scratch)."""
+    off = -(-(4 * n_float + n_bytes) // 16) * 16
+    return torch.empty(off + 4 * n_partials, dtype=torch.uint8,
+                       device=G.device), off
 
 
 def _launch(lib, name: str, fn, G, *args):
@@ -133,17 +152,54 @@ class AggregatePlan(NamedTuple):
     smem: int
 
 
-def aggregate_smem(m: int, d: int, grid: int, resident: bool) -> int:
-    """Dynamic shared memory of the fused kernel on ``grid`` blocks (the
-    csrc ``aggregate_smem``): the sort columns from SMEM_SORT_M on, and
-    when resident one [m, THREADS] slot per tile of the fullest block."""
+def _check_rule(rule: str) -> None:
+    if rule not in RULE_IDS:
+        raise ValueError(f"no fused launch for rule {rule!r}; "
+                         f"fused: {sorted(RULE_IDS)}")
+
+
+def gram_pairs(m: int, rule: str) -> int:
+    """The partial sums a fused launch of ``rule`` reduces over its grid
+    (csrc AggLayout::PAIRS): brsgd's 2m (scores, l1); the packed upper
+    triangle of gram, m(m+1)/2, and geomedian's m d2med sums."""
+    _check_rule(rule)
+    if rule == "brsgd":
+        return 2 * m
+    return m * (m + 1) // 2 + (m if rule == "geomedian" else 0)
+
+
+def partials_floats(m: int, rule: str, grid: int) -> int:
+    """Scratch of a fused launch on ``grid`` blocks: the per-block
+    partials and their totals, and for the gram rules Σw after them."""
+    return gram_pairs(m, rule) * (grid + 1) + (rule != "brsgd")
+
+
+def aggregate_smem(m: int, d: int, grid: int, resident: bool,
+                   rule: str = "brsgd") -> int:
+    """Dynamic shared memory of the fused kernel of ``rule`` on ``grid``
+    blocks (the csrc ``aggregate_smem``): the sort columns where the rule
+    takes a median at m >= SMEM_SORT_M; the rule's scratch (krum: two
+    [m, m+1] matrices; geomedian: one and 3m floats, to 16 bytes); then
+    one tile slot per tile of the fullest block when resident, else the
+    gram rules' one staging slot.  A brsgd slot is [m, THREADS]; a gram
+    rule's is [m rounded up to GRAM_RB, GRAM_LD]."""
+    _check_rule(rule)
     n_tiles = -(-d // THREADS)
-    sort = 4 * ref.padded_workers(m) * THREADS if m >= SMEM_SORT_M else 0
-    return sort + (4 * -(-n_tiles // grid) * m * THREADS if resident else 0)
+    gram = rule != "brsgd"
+    median = rule in ("brsgd", "geomedian")
+    sort = ref.padded_workers(m) * THREADS if median and m >= SMEM_SORT_M \
+        else 0
+    scratch = {"brsgd": 0, "krum": 2 * m * (m + 1),
+               "multi_krum": 2 * m * (m + 1),
+               "geomedian": -(-(m * (m + 1) + 3 * m) // 4) * 4}[rule]
+    slot = (-(-m // GRAM_RB) * GRAM_RB * GRAM_LD) if gram else m * THREADS
+    slots = -(-n_tiles // grid) if resident else (1 if gram else 0)
+    return 4 * (sort + scratch + slots * slot)
 
 
-def aggregate_plan(m: int, d: int, coresident) -> AggregatePlan:
-    """Grid and residency of the fused kernel for G [m, d].
+def aggregate_plan(m: int, d: int, coresident,
+                   rule: str = "brsgd") -> AggregatePlan:
+    """Grid and residency of the fused kernel of ``rule`` for G [m, d].
 
     ``coresident(smem)`` is the number of blocks the card holds at once
     when each asks for ``smem`` bytes of dynamic shared memory.  The grid
@@ -152,43 +208,47 @@ def aggregate_plan(m: int, d: int, coresident) -> AggregatePlan:
     implies still co-resident — the fewest tiles per block that does."""
     limit = SMEM_BLOCK_LIMIT - AGG_STATIC_SMEM
     n_tiles = -(-d // THREADS)
-    grid0 = min(n_tiles, coresident(aggregate_smem(m, d, 1, False)))
+    grid0 = min(n_tiles, coresident(aggregate_smem(m, d, 1, False, rule)))
     if grid0 < 1:
-        raise RuntimeError(f"brsgd_aggregate: no block of m={m} fits on "
+        raise RuntimeError(f"{rule} aggregate: no block of m={m} fits on "
                            f"the card")
     per_block = -(-n_tiles // grid0)
     while per_block <= n_tiles:
         grid = -(-n_tiles // per_block)
-        smem = aggregate_smem(m, d, grid, True)
+        smem = aggregate_smem(m, d, grid, True, rule)
         if smem > limit:
             break
         if grid <= coresident(smem):
             return AggregatePlan(grid, True, smem)
         per_block += 1
-    return AggregatePlan(grid0, False, aggregate_smem(m, d, grid0, False))
+    return AggregatePlan(grid0, False,
+                         aggregate_smem(m, d, grid0, False, rule))
 
 
 _plans: dict = {}
 
 
-def launch_plan(G) -> AggregatePlan:
+def launch_plan(G, rule: str = "brsgd") -> AggregatePlan:
     """:func:`aggregate_plan` for G [m, d] on G's card, with the card's
-    own co-resident block counts; computed once per (card, m, d)."""
-    m, d = _check_matrix(G, "brsgd_aggregate")
-    key = (G.device.index, m, d)
+    own co-resident block counts of ``rule``'s instance; computed once
+    per (card, m, d, rule)."""
+    _check_rule(rule)
+    m, d = _check_matrix(G, f"{rule} aggregate")
+    key = (G.device.index, m, d, rule)
     if key not in _plans:
         lib = load()
 
         def coresident(smem):
             n = ctypes.c_int(0)
-            rc = lib.brsgd_aggregate_coresident(m, smem, ctypes.byref(n))
+            rc = lib.brsgd_select_aggregate_coresident(
+                m, RULE_IDS[rule], smem, ctypes.byref(n))
             if rc != 0:
                 raise RuntimeError(
-                    f"brsgd_aggregate: occupancy query failed with CUDA "
+                    f"{rule} aggregate: occupancy query failed with CUDA "
                     f"error {rc} ({lib.brsgd_error_string(rc).decode()})")
             return n.value
         with torch.cuda.device(G.device):
-            _plans[key] = aggregate_plan(m, d, coresident)
+            _plans[key] = aggregate_plan(m, d, coresident, rule)
     return _plans[key]
 
 
@@ -202,19 +262,66 @@ def brsgd_aggregate(G, beta: float, threshold: float) -> ref.BrSGDAggregate:
     k_idx, q_idx = ref.brsgd_rank_indices(m, beta)
     n_float = 3 * m + 2                        # scores, l1, w, kth, 𝔗
     n_small = 4 * n_float + 3 * m              # then sel, c1, c2 as bytes
-    off = -(-n_small // 16) * 16               # then partials and totals
-    buf = torch.empty(off + 4 * 2 * m * (plan.grid + 1), dtype=torch.uint8,
-                      device=G.device)
+    buf, off = _small_buffer(G, n_float, 3 * m,  # then partials, totals
+                             gram_pairs(m, "brsgd") * (plan.grid + 1))
     out = torch.empty((d,), dtype=torch.float32, device=G.device)
-    _launch(lib, "brsgd_aggregate", lib.brsgd_aggregate, G, _ptr(G), m, d,
-            k_idx, -1 if threshold > 0 else q_idx, threshold,
-            int(plan.resident), ctypes.c_void_p(buf.data_ptr() + off),
-            _ptr(buf), _ptr(out), plan.grid)
+    _launch(lib, "brsgd_aggregate", lib.brsgd_select_aggregate, G, _ptr(G),
+            m, d, RULE_IDS["brsgd"], k_idx, -1 if threshold > 0 else q_idx,
+            threshold, int(plan.resident),
+            ctypes.c_void_p(buf.data_ptr() + off), _ptr(buf), _ptr(out),
+            plan.grid)
     f = buf[:4 * n_float].view(torch.float32)
     mk = buf[4 * n_float:n_small].view(torch.bool)
     return ref.BrSGDAggregate(out, f[2 * m:3 * m], mk[:m], mk[m:2 * m],
                               mk[2 * m:], f[:m], f[m:2 * m], f[3 * m],
                               f[3 * m + 1])
+
+
+def select_aggregate(G, rule: str, n_close: int = 1, k: int = 0,
+                     iters: int = 1, eps: float = 1e-6) -> ref.SelectAggregate:
+    """A select rule over all of G [m, d] in one launch: the aggregate and
+    its diagnostics (``ref.SelectAggregate``), every field a view of what
+    the launch wrote.  krum / multi_krum / geomedian: the cooperative
+    kernel (B1's gram pass, the rule on the card, B3's combine); the
+    mean: B3 with unit weights, counted as ``masked_mean``.  Arguments as
+    ``ref.select_aggregate_plain``."""
+    if rule == "mean":
+        m, d = _check_matrix(G, "masked_mean")
+        buf, _ = _small_buffer(G, m, m)              # w, then w > 0
+        out = torch.empty((d,), dtype=torch.float32, device=G.device)
+        lib = load()
+        _launch(lib, "masked_mean", lib.brsgd_masked_mean, G, _ptr(G), m, d,
+                None, _ptr(out), _ptr(buf), _n_blocks(lib, d))
+        return ref.SelectAggregate(out, buf[:4 * m].view(torch.float32),
+                                   buf[4 * m:5 * m].view(torch.bool), None,
+                                   None, None)
+    if rule not in ("krum", "multi_krum", "geomedian"):
+        raise ValueError(f"select_aggregate: unknown rule {rule!r}")
+    plan = launch_plan(G, rule)                # checks G
+    m, d = G.shape
+    if rule == "geomedian":
+        ia, ib, fa = max(int(iters) - 1, 0), 0, float(eps)
+    else:
+        if not 1 <= n_close <= m or (rule == "multi_krum"
+                                     and not 1 <= k <= m):
+            raise ValueError(f"{rule}: n_close={n_close}, k={k} outside "
+                             f"[1, {m}]")
+        ia, ib, fa = int(n_close), int(k) if rule == "multi_krum" else 0, 0.0
+    n_float = 2 * m + m * m                    # w, scores or d2med, gram
+    buf, off = _small_buffer(G, n_float, m,    # then w > 0 as bytes
+                             partials_floats(m, rule, plan.grid))
+    out = torch.empty((d,), dtype=torch.float32, device=G.device)
+    lib = load()
+    _launch(lib, "select_aggregate", lib.brsgd_select_aggregate, G, _ptr(G),
+            m, d, RULE_IDS[rule], ia, ib, fa, int(plan.resident),
+            ctypes.c_void_p(buf.data_ptr() + off), _ptr(buf), _ptr(out),
+            plan.grid)
+    f = buf[:4 * n_float].view(torch.float32)
+    sel = buf[4 * n_float:4 * n_float + m].view(torch.bool)
+    second = f[m:2 * m]
+    return ref.SelectAggregate(
+        out, f[:m], sel, None if rule == "geomedian" else second,
+        f[2 * m:].view(m, m), second if rule == "geomedian" else None)
 
 
 def select_mean(G, scores, l1, kth, T):
@@ -236,15 +343,15 @@ def select_mean(G, scores, l1, kth, T):
 
 
 def masked_mean(G, mask):
-    """Σ w_i g_i / Σ w_i over the rows; mask [m] bool or f32 weights,
-    an empty mask divides by 1."""
+    """Σ w_i g_i / Σ w_i over the rows, Σw in row order; mask [m] bool or
+    f32 weights, an empty mask divides by 1."""
     m, d = _check_matrix(G, "masked_mean")
     w = mask.to(device=G.device, dtype=torch.float32).contiguous()
     _check_vector(w, G, m, "masked_mean mask")
     out = torch.empty((d,), dtype=torch.float32, device=G.device)
     lib = load()
     _launch(lib, "masked_mean", lib.brsgd_masked_mean, G, _ptr(G), m, d,
-            _ptr(w), _ptr(out), _n_blocks(lib, d))
+            _ptr(w), _ptr(out), None, _n_blocks(lib, d))
     return out
 
 

@@ -9,20 +9,23 @@
 //   fused_stats_kernel<M, true>   <- brsgd_stats_pallas (_stats_kernel):
 //                                    the same pass, also writing the
 //                                    coordinate-wise median [d] and mean [d].
-//   combine_rows_kernel<M, true>  <- select_mean_pallas (_select_mean_kernel):
+//   select_mean_kernel<M>         <- select_mean_pallas (_select_mean_kernel):
 //                                    C1∩C2 selection (C2 fallback) fused with
 //                                    the masked row mean.
-//   combine_rows_kernel<M, false> <- masked_mean_pallas (masked_mean_kernel):
-//                                    Σ w_i g_i / Σ w_i, empty mask divides by 1.
+//   masked_mean_kernel<M>         <- masked_mean_pallas (masked_mean_kernel):
+//                                    Σ w_i g_i / Σ w_i, empty mask divides by
+//                                    1; unit weights when none are given.
 //   trimmed_mean_kernel<M>        <- trimmed_mean_pallas (_trimmed_mean_kernel):
 //                                    per column, the mean of the sorted rows
 //                                    k..m-k-1 ([d] out, no partials).
-//   brsgd_aggregate_kernel<M>     <- brsgd_partials_pallas -> ref.brsgd_thresholds
-//                                    -> select_mean_pallas (the JAX engine's
-//                                    brsgd fast path) in ONE cooperative
-//                                    launch: pass 1, the partials summed
-//                                    between two grid barriers, the
-//                                    thresholds resolved in every block, pass 2.
+//   select_aggregate_kernel<M, R> <- the engine's local composition of a
+//                                    select rule in ONE cooperative launch:
+//                                    pass 1 (B1's call), the partials summed
+//                                    between two grid barriers, the rule
+//                                    resolved in every block, pass 2 (B3).
+//                                    R = brsgd (B1's (scores, l1) call and
+//                                    B2 with the thresholds between them),
+//                                    krum / multi_krum, geomedian.
 //
 // What bounds them: bytes.  Each kernel reads G once (m·d·4 bytes) and
 // does O(m log² m) compare-exchanges per column (O(m²) for gram), far
@@ -48,11 +51,12 @@
 //     NaN has a NaN median (as the NaN-propagating sort of ref gives),
 //     and the below-mean side is !(g >= mean), as the plain ~above.
 //   * Column mean: row-order sum, IEEE division by m.  The combine sums
-//     rows in order 0..m-1 with __fmul_rn/__fadd_rn (no FMA contraction)
-//     and skips weight-0 rows, which reproduces ref.masked_mean_det bit
-//     for bit on 0/1 weights.
-//   * gram: the tile is staged in shared memory and each thread owns
-//     fixed (i, j) pairs, accumulating their dot products across tiles.
+//     rows in order 0..m-1 with __fmul_rn/__fadd_rn (no FMA contraction),
+//     skips weight-0 rows and divides by Σw summed in row order, which
+//     reproduces ref.masked_mean_det bit for bit on any weights.
+//   * gram: the tile is staged in shared memory and each thread owns a
+//     4 x 4 block of (i, j) pairs over a slice of its columns, the sums in
+//     registers across tiles (GramAcc below).
 //
 // Plain C interface for ctypes: every entry returns cudaGetLastError()
 // after its launch; nothing here allocates or synchronises.
@@ -191,32 +195,164 @@ __device__ __forceinline__ float column_mean(const float (&g)[M]) {
   return __fdiv_rn(s, static_cast<float>(M));
 }
 
+// ---- the gram pass: B1's gram call and pass 1 of the gram rules below.
+// Each block stages a tile of THREADS columns in shared memory, rows
+// [ROWS][GRAM_LD] (the pad rows M..ROWS-1 stay zero).  Thread items
+// (block pair, column slice): a block pair is a GRAM_RB x GRAM_RB block
+// of rows (bi, bj) with bi <= bj, so the m(m+1)/2 distinct pairs are
+// covered once (diagonal blocks hold both (i, j) and (j, i), with the
+// same bits); a column slice is every CS-th float4 group of the tile.
+// Per group a thread loads 4 + 4 float4 (rows of bi, rows of bj) and
+// does 64 FMAs into 16 accumulators that live in registers across all
+// of the block's tiles, so a column costs 2/GRAM_RB shared loads per
+// product instead of 2.  The CS slices of a block pair are CS adjacent
+// lanes: a fixed shuffle tree sums them once at the end.  No atomics:
+// every run gives the same bits.
+constexpr int GRAM_RB = 4;             // rows per register block
+constexpr int GRAM_LD = THREADS + 4;   // tile row stride: 16-byte rows, 4 banks apart
+
+__host__ __device__ constexpr int gram_slices(int nbp) {
+  int p = 1;
+  while (2 * p <= 32 && 2 * p * nbp <= THREADS) p *= 2;
+  return p;
+}
+
+template <int M>
+struct GramPlan {
+  static constexpr int MB = (M + GRAM_RB - 1) / GRAM_RB;   // row blocks
+  static constexpr int ROWS = MB * GRAM_RB;                  // tile rows
+  static constexpr int NBP = MB * (MB + 1) / 2;              // block pairs
+  static constexpr int CS = gram_slices(NBP);                // slices a pair
+  static constexpr int GROUPS = THREADS / 4 / CS;            // float4 groups a slice
+  static constexpr int ITEMS = (NBP * CS + THREADS - 1) / THREADS;
+  static constexpr int PAIRS = M * (M + 1) / 2;              // distinct (i <= j)
+};
+
+// index of the pair (i, j), i <= j, in the packed upper triangle
+template <int M>
+__host__ __device__ constexpr int gram_pair(int i, int j) {
+  return i * M - i * (i - 1) / 2 + (j - i);
+}
+
+template <int M>
+struct GramAcc {
+  using P = GramPlan<M>;
+  float acc[P::ITEMS][GRAM_RB * GRAM_RB];
+  int bi[P::ITEMS], bj[P::ITEMS], cs[P::ITEMS];
+  bool on[P::ITEMS];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int u = 0; u < P::ITEMS; ++u) {
+      const int it = threadIdx.x + u * THREADS;
+      on[u] = it < P::NBP * P::CS;
+      int r = on[u] ? it / P::CS : 0, a = 0;
+      while (r >= P::MB - a) {
+        r -= P::MB - a;
+        ++a;
+      }
+      bi[u] = a;
+      bj[u] = a + r;
+      cs[u] = it % P::CS;
+#pragma unroll
+      for (int e = 0; e < GRAM_RB * GRAM_RB; ++e) acc[u][e] = 0.f;
+    }
+  }
+
+  // adds the products of one staged tile [ROWS][GRAM_LD]
+  __device__ __forceinline__ void add_tile(const float* __restrict__ tile) {
+#pragma unroll
+    for (int u = 0; u < P::ITEMS; ++u) {
+      if (!on[u]) continue;
+      const float* A = tile + bi[u] * GRAM_RB * GRAM_LD;
+      const float* B = tile + bj[u] * GRAM_RB * GRAM_LD;
+#pragma unroll 2
+      for (int q = 0; q < P::GROUPS; ++q) {
+        const int c = 4 * (q * P::CS + cs[u]);
+        float4 a[GRAM_RB], b[GRAM_RB];
+#pragma unroll
+        for (int r = 0; r < GRAM_RB; ++r) {
+          a[r] = *reinterpret_cast<const float4*>(A + r * GRAM_LD + c);
+          b[r] = *reinterpret_cast<const float4*>(B + r * GRAM_LD + c);
+        }
+#pragma unroll
+        for (int r = 0; r < GRAM_RB; ++r) {
+#pragma unroll
+          for (int s = 0; s < GRAM_RB; ++s) {
+            float& x = acc[u][r * GRAM_RB + s];
+            x = fmaf(a[r].x, b[s].x, x);
+            x = fmaf(a[r].y, b[s].y, x);
+            x = fmaf(a[r].z, b[s].z, x);
+            x = fmaf(a[r].w, b[s].w, x);
+          }
+        }
+      }
+    }
+  }
+
+  // The block's sums: each pair (i <= j < M) goes to store(i, j, v) once.
+  // Every lane of the block must call this.
+  template <typename Store>
+  __device__ __forceinline__ void finish(Store store) {
+#pragma unroll
+    for (int u = 0; u < P::ITEMS; ++u) {
+#pragma unroll
+      for (int e = 0; e < GRAM_RB * GRAM_RB; ++e) {
+        float v = acc[u][e];
+#pragma unroll
+        for (int o = P::CS / 2; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o, P::CS);
+        acc[u][e] = v;
+      }
+      if (on[u] && cs[u] == 0) {
+#pragma unroll
+        for (int r = 0; r < GRAM_RB; ++r) {
+#pragma unroll
+          for (int s = 0; s < GRAM_RB; ++s) {
+            const int i = bi[u] * GRAM_RB + r, j = bj[u] * GRAM_RB + s;
+            if (i <= j && j < M) store(i, j, acc[u][r * GRAM_RB + s]);
+          }
+        }
+      }
+    }
+  }
+};
+
+// zeroes the pad rows M..ROWS-1 of n_slots staged tiles of `slot` floats
+template <int M>
+__device__ __forceinline__ void zero_pad_rows(float* tiles, int n_slots, int slot) {
+  constexpr int PAD = (GramPlan<M>::ROWS - M) * GRAM_LD;
+  if constexpr (PAD > 0) {
+    for (int s = 0; s < n_slots; ++s)
+      for (int p = threadIdx.x; p < PAD; p += THREADS) tiles[s * slot + M * GRAM_LD + p] = 0.f;
+  }
+}
+
 // One pass over G.  Partials: scores/l1/d2med [gridDim.x, M], gram
 // [gridDim.x, M, M]; a null pointer's statistic is not requested.
-// COLUMN_OUT additionally writes median [d] and mean [d].
+// COLUMN_OUT additionally writes median [d] and mean [d] (it never asks
+// for gram, and its instance has no gram code).
 template <int M, bool COLUMN_OUT>
 __global__ void __launch_bounds__(THREADS)
 fused_stats_kernel(const float* __restrict__ G, long long d, int needs,
                    float* __restrict__ scores_p, float* __restrict__ l1_p,
                    float* __restrict__ d2_p, float* __restrict__ gram_p,
                    float* __restrict__ med_out, float* __restrict__ mean_out) {
-  constexpr int TS = THREADS + 1;                      // padded tile stride
   __shared__ float acc[3][WARPS][M];
-  // Dynamic shared memory.  With gram: the tile [M][TS], then the pair
-  // sums gsum [M*M] (thread tid owns pairs tid, tid + THREADS, ...; in
-  // shared memory because registers spill at M = 64).  Then, for
-  // M >= SMEM_SORT_M, the sort columns [pow2_at_least(M)][THREADS].
-  extern __shared__ float tile[];
-  float* gsum = tile + M * TS;
-  float* sort_scratch = (needs & NEED_GRAM) ? gsum + M * M : tile;
-
+  // Dynamic shared memory.  With gram: the staged tile [ROWS][GRAM_LD].
+  // Then, for M >= SMEM_SORT_M, the sort columns [pow2_at_least(M)][THREADS].
+  extern __shared__ __align__(16) float tile[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool want_gram = needs & NEED_GRAM;
+  const bool want_gram = !COLUMN_OUT && (needs & NEED_GRAM);
+  float* sort_scratch = want_gram ? tile + GramPlan<M>::ROWS * GRAM_LD : tile;
   const bool want_med = COLUMN_OUT || (needs & (NEED_L1 | NEED_D2MED));
   const bool want_mean = COLUMN_OUT || (needs & NEED_SCORES);
   for (int i = tid; i < 3 * WARPS * M; i += THREADS) (&acc[0][0][0])[i] = 0.f;
-  if (want_gram) {
-    for (int p = tid; p < M * M; p += THREADS) gsum[p] = 0.f;
+  GramAcc<M> gram;
+  if constexpr (!COLUMN_OUT) {
+    if (want_gram) {
+      gram.init();
+      zero_pad_rows<M>(tile, 1, 0);
+    }
   }
   __syncthreads();
 
@@ -230,7 +366,7 @@ fused_stats_kernel(const float* __restrict__ G, long long d, int needs,
 
     if (want_gram) {
 #pragma unroll
-      for (int i = 0; i < M; ++i) tile[i * TS + tid] = g[i];
+      for (int i = 0; i < M; ++i) tile[i * GRAM_LD + tid] = g[i];
     }
     const float mean = want_mean ? column_mean<M>(g) : 0.f;
     if (needs & NEED_SCORES) {
@@ -268,16 +404,12 @@ fused_stats_kernel(const float* __restrict__ G, long long d, int needs,
         }
       }
     }
-    if (want_gram) {
-      __syncthreads();
-      for (int p = tid; p < M * M; p += THREADS) {
-        const float* a = tile + (p / M) * TS;
-        const float* b = tile + (p % M) * TS;
-        float s = 0.f;
-        for (int c = 0; c < THREADS; ++c) s = fmaf(a[c], b[c], s);
-        gsum[p] += s;
+    if constexpr (!COLUMN_OUT) {
+      if (want_gram) {
+        __syncthreads();
+        gram.add_tile(tile);
+        __syncthreads();
       }
-      __syncthreads();
     }
   }
 
@@ -293,48 +425,90 @@ fused_stats_kernel(const float* __restrict__ G, long long d, int needs,
       outs[s][static_cast<long long>(blockIdx.x) * M + tid] = v;
     }
   }
-  if (want_gram) {
-    for (int p = tid; p < M * M; p += THREADS)
-      gram_p[static_cast<long long>(blockIdx.x) * M * M + p] = gsum[p];
+  if constexpr (!COLUMN_OUT) {
+    if (want_gram) {
+      float* gb = gram_p + static_cast<long long>(blockIdx.x) * M * M;
+      gram.finish([gb](int i, int j, float v) {
+        gb[i * M + j] = v;
+        gb[j * M + i] = v;
+      });
+    }
   }
 }
 
-// Weighted row combine Σ_i w_i g_i / Σ_i w_i over the columns.
-// SELECT: the weights are the C1∩C2 mask recomputed from sl [2, M]
-// (scores; l1) and pr [2] (kth score; 2·𝔗), falling back to C2 when
-// the intersection is empty; block 0 writes them to w_out [M].
-// Otherwise the weights are read from w_in [M].
-template <int M, bool SELECT>
+// B2: the C1∩C2 mask recomputed from sl [2, M] (scores; l1) and pr [2]
+// (kth score; 2·𝔗), falling back to C2 when the intersection is empty;
+// block 0 writes it to w_out [M]; then Σ_i w_i g_i / Σ_i w_i over the
+// columns.
+template <int M>
 __global__ void __launch_bounds__(THREADS)
-combine_rows_kernel(const float* __restrict__ G, long long d,
-                    const float* __restrict__ w_in, const float* __restrict__ pr,
-                    float* __restrict__ out, float* __restrict__ w_out) {
+select_mean_kernel(const float* __restrict__ G, long long d,
+                   const float* __restrict__ sl, const float* __restrict__ pr,
+                   float* __restrict__ out, float* __restrict__ w_out) {
   __shared__ float w[M];
   __shared__ float den;
   const int tid = threadIdx.x;
   if (tid == 0) {
-    if (SELECT) {
-      bool c1[M], c2[M];
-      bool any = false;
+    bool c1[M], c2[M];
+    bool any = false;
 #pragma unroll
-      for (int i = 0; i < M; ++i) {
-        c1[i] = w_in[M + i] <= pr[1];
-        c2[i] = w_in[i] >= pr[0];
-        any = any || (c1[i] && c2[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < M; ++i) w[i] = (any ? (c1[i] && c2[i]) : c2[i]) ? 1.f : 0.f;
-    } else {
-#pragma unroll
-      for (int i = 0; i < M; ++i) w[i] = w_in[i];
+    for (int i = 0; i < M; ++i) {
+      c1[i] = sl[M + i] <= pr[1];
+      c2[i] = sl[i] >= pr[0];
+      any = any || (c1[i] && c2[i]);
     }
+#pragma unroll
+    for (int i = 0; i < M; ++i) w[i] = (any ? (c1[i] && c2[i]) : c2[i]) ? 1.f : 0.f;
     float sw = 0.f;
 #pragma unroll
     for (int i = 0; i < M; ++i) sw = __fadd_rn(sw, w[i]);
     den = sw > 0.f ? sw : 1.f;
   }
   __syncthreads();
-  if (SELECT && blockIdx.x == 0 && tid < M) w_out[tid] = w[tid];
+  if (blockIdx.x == 0 && tid < M) w_out[tid] = w[tid];
+  for (long long col = static_cast<long long>(blockIdx.x) * THREADS + tid; col < d;
+       col += static_cast<long long>(gridDim.x) * THREADS) {
+    float a = 0.f;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      if (w[i] != 0.f) a = __fadd_rn(a, __fmul_rn(w[i], __ldg(G + i * d + col)));
+    }
+    out[col] = __fdiv_rn(a, den);
+  }
+}
+
+// B3: Σ_i w_i g_i / Σ_i w_i with Σw summed in row order and guarded to
+// 1 (an empty mask divides by 1); w_in == nullptr means unit weights
+// (the mean).  With `small`, block 0 writes w [M] floats, then w > 0 as
+// M bytes.  Replaces src/repro/kernels/brsgd_stats.py:masked_mean_kernel
+// (masked_mean_pallas).  Bound: bytes, the rows of nonzero weight read
+// once and out written.  One thread a column, a grid-stride walk; the
+// rows are compile-time indices, so their addresses are strength-reduced
+// and the compiler issues the predicated loads in batches (5-7 at once at
+// M = 20, as many as it has predicate registers).  A row list with every
+// load of a column in flight at once (combine_tiles) measured slower at
+// both of the paper's shapes, so B3 keeps this loop.
+template <int M>
+__global__ void __launch_bounds__(THREADS)
+masked_mean_kernel(const float* __restrict__ G, long long d, const float* __restrict__ w_in,
+                   float* __restrict__ out, float* __restrict__ small) {
+  __shared__ float w[M];
+  __shared__ float den;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    float sw = 0.f;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      w[i] = w_in != nullptr ? w_in[i] : 1.f;
+      sw = __fadd_rn(sw, w[i]);
+    }
+    den = sw > 0.f ? sw : 1.f;
+  }
+  __syncthreads();
+  if (small != nullptr && blockIdx.x == 0 && tid < M) {
+    small[tid] = w[tid];
+    reinterpret_cast<unsigned char*>(small + M)[tid] = w[tid] > 0.f;
+  }
   for (long long col = static_cast<long long>(blockIdx.x) * THREADS + tid; col < d;
        col += static_cast<long long>(gridDim.x) * THREADS) {
     float a = 0.f;
@@ -434,6 +608,15 @@ __device__ __forceinline__ void padfree_stages(At at) {
   }
 }
 
+// g[0..M) (no NaN) ascending into at(0..M) with the pad-free network
+template <int M, typename At>
+__device__ __forceinline__ void sort_real(const float (&g)[M], At at) {
+  constexpr int MP = pow2_at_least(M);
+#pragma unroll
+  for (int i = 0; i < M; ++i) at(i) = g[i];
+  padfree_stages<MP, M, 2, 1, 0>(at);
+}
+
 template <int M>
 __device__ __forceinline__ float padfree_median(const float (&g)[M]) {
   constexpr int MP = pow2_at_least(M);
@@ -450,70 +633,101 @@ __device__ __forceinline__ float padfree_median(const float (&g)[M]) {
   return __fmul_rn(0.5f, __fadd_rn(s[M / 2 - 1], s[M / 2]));
 }
 
-// B1 (its brsgd call) and B2 in one cooperative launch.  Replaces the JAX
-// engine's brsgd fast path (src/repro/core/engine.py:612-620):
-// brsgd_partials_pallas, ref.brsgd_thresholds, select_mean_pallas.
+// The select rules in one cooperative launch each: select_aggregate_kernel
+// <M, RULE>.  Replaces, per rule, the JAX engine's local composition
+// (src/repro/core/engine.py): a fused_stats_pallas call, the [m]-sized
+// rule, then masked_mean_pallas (or, for brsgd, its fast path
+// brsgd_partials_pallas -> ref.brsgd_thresholds -> select_mean_pallas):
+//
+//   RULE_BRSGD      B1's (scores, l1) call, the thresholds of
+//                   ref.brsgd_thresholds, C1∩C2 (C2 fallback), then B2;
+//   RULE_KRUM       B1's gram call; score_i = Σ of the n_close smallest
+//                   d²_ij = (S_ii + S_jj) − 2 S_ij (no FMA, self +inf);
+//                   krum: the argmin (the first NaN if a score is NaN, as
+//                   torch.argmin), one-hot; multi_krum (k > 0): the k best
+//                   by a stable rank, NaN last, ties by worker index;
+//   RULE_GEOMEDIAN  B1's (gram, d2med) call; Weiszfeld in weight space
+//                   from w = 1/max(√d2med, eps), n_updates updates
+//                   (engine._geomedian_select), NaN propagating;
+//
+// then B3's combine with the rule's weights, all in one launch.
 //
 // What bounds it: bytes, G read once (m·d·4) plus out written (d·4); pass
-// 2 reads the selected rows again unless G stayed resident in shared
-// memory.  At the paper's shape [20, 61706] (4.9 MB, in L2) the two
-// kernels, their partial sums and the threshold ops between them were ~40
-// launches of a few microseconds each; here they are one.
+// 2 reads the rows of nonzero weight again unless G stayed resident in
+// shared memory.  At the paper's shape [20, 61706] (4.9 MB, in L2) the
+// eager compositions were 18-200 launches of a few microseconds each;
+// here they are one.
 //
 // Design:
 //   * A cooperative persistent grid, every block co-resident (the wrapper
 //     sizes it with the occupancy calculator); block b walks the tiles b,
 //     b + grid, ... of THREADS columns, one thread a column.
-//   * Pass 1 is fused_stats_kernel's (scores, l1) call with fewer
-//     instructions and registers per column: the pad-free median network
-//     above, score counts by warp ballot into a counter that lane i keeps
-//     for row i, and l1 sums in registers across all the thread's tiles,
-//     reduced once per block at the end (at M = 64 the sort runs in shared
-//     memory and the per-tile warp sums of fused_stats_kernel stay).  With
-//     `resident` each block also leaves its tiles in dynamic shared
-//     memory, slot j holding its j-th tile.
-//   * Partials [2][M][grid] (scores, then l1, block index fastest), a grid
-//     barrier, block p < 2M sums pair p over the blocks in a fixed order
-//     (lane l adds blocks l, l + 32, ... in turn, then the fixed shuffle
-//     tree) into totals [2M], a second grid barrier.  Every block reads
-//     the same totals; no float atomics, so l1 (which decides C1) is the
-//     same on every run.  (Each block summing all partials itself, with
-//     one barrier, read 2M x grid floats per block and was slower.)
-//   * Every block resolves the thresholds of ref.brsgd_thresholds itself:
-//     kth = rank_select(scores, k_idx); 𝔗 = threshold when q_idx < 0,
-//     else rank_select(l1, q_idx); both indices come from the host.
-//     rank_select's counting rule: x_i hits iff #{x_j < x_i} <= k <
-//     #{x_j <= x_i}, the result is the max over the hits, -inf without one
-//     (a NaN never hits).  C1 = l1 <= 2𝔗, C2 = score >= kth, sel = C1∩C2,
-//     or C2 when that is empty.
-//   * Pass 2 is combine_rows_kernel<M, true>'s sum over the selected rows
-//     in ascending order with __fmul_rn/__fadd_rn, then __fdiv_rn by Σw
-//     (guarded to 1), so the aggregate is bit-equal to
+//   * Pass 1.  brsgd: scores and l1 with the pad-free median network,
+//     score counts by warp ballot into a counter that lane i keeps for row
+//     i, and l1 sums in registers across all the thread's tiles, reduced
+//     once per block at the end (at M = 64 the sort runs in shared memory
+//     and per-tile warp sums stay).  Gram rules: the tile staged in shared
+//     memory and GramAcc's register-blocked products (the same device code
+//     as B1's gram call); geomedian also d² to the pad-free median, summed
+//     like brsgd's l1.  With `resident` each block leaves its tiles in
+//     dynamic shared memory, slot j holding its j-th tile (the gram rules
+//     stage every tile there; without `resident` they reuse slot 0).
+//   * Partials [PAIRS][grid] (brsgd: scores then l1; gram rules: the
+//     packed upper triangle, then geomedian's d2med), block index fastest;
+//     a grid barrier; global warp p sums pair p over the blocks in a fixed
+//     order (lane l adds blocks l, l + 32, ... in turn, then the fixed
+//     shuffle tree) into totals [PAIRS]; a second grid barrier.  Every
+//     block reads the same totals; no float atomics, so every block, and
+//     every run, resolves the same weights.
+//   * The rule.  brsgd: in every block alike (the same code on the same
+//     2m totals gives the same bits, so no third barrier); kth =
+//     rank_select(scores, k_idx), 𝔗 = threshold when q_idx < 0, else
+//     rank_select(l1, q_idx), C1 = l1 <= 2𝔗, C2 = score >= kth.  Gram
+//     rules: block 0 alone reads the m(m+1)/2 totals, resolves the
+//     weights and publishes them and Σw; a third grid barrier; every block
+//     reads those.  krum: thread i sorts row i of d² with the pad-free
+//     network (a NaN, which torch.sort puts last, as +inf, counted) and
+//     sums its n_close smallest in ascending order, so duplicated workers
+//     tie bit for bit.  geomedian: thread i owns row i of S·w; Σw and wᵀSw
+//     in row order.
+//   * Pass 2: combine_tiles over the rows of nonzero weight in ascending
+//     order with __fmul_rn/__fadd_rn, then __fdiv_rn by Σw (row order,
+//     guarded to 1), so the aggregate is bit-equal to
 //     ref.masked_mean_det(G, w).  It reads the resident tiles, else G, last
 //     tile first (the tiles pass 1 read last are the ones still in L2),
-//     with the loads of four selected rows of four tiles in flight.
-//   * Block 0 writes the diagnostics to `small`: scores [M], l1 [M], w [M],
-//     kth, 𝔗 as floats, then sel [M], c1 [M], c2 [M] as bytes.
+//     with the loads of four rows of four tiles in flight.
+//   * Block 0 writes the diagnostics to `small`.  brsgd: scores [M], l1
+//     [M], w [M], kth, 𝔗 as floats, then sel [M], c1 [M], c2 [M] as
+//     bytes.  Gram rules: w [M], scores [M] (krum) or d2med [M]
+//     (geomedian), gram [M·M], then w > 0 as M bytes.
 constexpr int SMEM_BLOCK_LIMIT = 232448;  // 227 KB: the most one block may hold
 constexpr int AGG_STATIC_SMEM = 4096;     // kept for AggShared<M>
 constexpr int AGG_MAX_DYNAMIC = SMEM_BLOCK_LIMIT - AGG_STATIC_SMEM;
-constexpr int AGG_ROWS = 4;               // pass 2: selected rows loaded at once
+constexpr int AGG_ROWS = 4;               // pass 2: rows loaded at once
 constexpr int AGG_TILES = 4;              // pass 2: tiles of G in flight
+
+constexpr int RULE_BRSGD = 0;
+constexpr int RULE_KRUM = 1;              // krum and multi_krum (k > 0)
+constexpr int RULE_GEOMEDIAN = 2;
 
 template <int M>
 struct AggShared {
-  float red[2][WARPS][M];  // per-warp sums of the scores and l1
-  float sc[M], l1[M];      // the grid-wide statistics
+  float red[2][WARPS][M];  // per-warp sums of the scores and l1 (d2med)
+  float sc[M], l1[M];      // the grid-wide statistics (krum: scores)
   float cand[2][M];        // rank_select: x_i where it hits, else -inf
   float w[M];              // selection weights
-  int rows[M];             // the selected rows, ascending
-  float kth, T;
+  int rows[M];             // the rows of nonzero weight, ascending
+  float kth, T, den;        // den: Σw (gram rules)
 };
 static_assert(sizeof(AggShared<64>) <= AGG_STATIC_SMEM, "static shared memory");
 
-// Pass 2 over NT tiles from slot s0 down: Σ over the n selected rows in
-// ascending order, AGG_ROWS rows of every tile loaded before they are
-// added.  load(slot, row, col) reads one element of G.
+// The weighted row combine over NT tiles of a block, from slot s0 down
+// (slot s is the block's tile b + s·grid): Σ over the n selected rows
+// (sh.rows[0..n), ascending, the rows of nonzero weight) of w_i g_i, in
+// row order with __fmul_rn/__fadd_rn, then __fdiv_rn by den — bit-equal
+// to ref.masked_mean_det on the same weights.  AGG_ROWS rows of every
+// tile are loaded before they are added.  load(slot, row, col) reads one
+// element of G.
 template <int M, int NT, typename Load>
 __device__ __forceinline__ void combine_tiles(const AggShared<M>& sh, int n_sel, float den,
                                               long long d, long long b, long long grid,
@@ -547,8 +761,7 @@ __device__ __forceinline__ void combine_tiles(const AggShared<M>& sh, int n_sel,
   for (; q < n_sel; ++q) {
 #pragma unroll
     for (int u = 0; u < NT; ++u) {
-      if (on[u])
-        a[u] = __fadd_rn(a[u], __fmul_rn(sh.w[sh.rows[q]], load(s0 - u, sh.rows[q], col[u])));
+      if (on[u]) a[u] = __fadd_rn(a[u], __fmul_rn(sh.w[sh.rows[q]], load(s0 - u, sh.rows[q], col[u])));
     }
   }
 #pragma unroll
@@ -557,99 +770,357 @@ __device__ __forceinline__ void combine_tiles(const AggShared<M>& sh, int n_sel,
   }
 }
 
-template <int M>
+// Shared-memory layout of select_aggregate_kernel<M, RULE>, in floats:
+// the sort columns (a median at M >= SMEM_SORT_M), the rule's scratch,
+// then the tile slots.
+template <int M, int RULE>
+struct AggLayout {
+  static constexpr bool GRAM = RULE != RULE_BRSGD;
+  static constexpr bool MEDIAN = RULE != RULE_KRUM;
+  static constexpr int SORT = (MEDIAN && M >= SMEM_SORT_M) ? pow2_at_least(M) * THREADS : 0;
+  // krum: S and d², each [M][M+1]; geomedian: S, two weight buffers and
+  // S·w (to 16 bytes)
+  static constexpr int SCRATCH = RULE == RULE_KRUM        ? 2 * M * (M + 1)
+                                 : RULE == RULE_GEOMEDIAN ? (M * (M + 1) + 3 * M + 3) / 4 * 4
+                                                          : 0;
+  static constexpr int LD = GRAM ? GRAM_LD : THREADS;
+  static constexpr int SLOT = (GRAM ? GramPlan<M>::ROWS : M) * LD;
+  static constexpr int STAGE = GRAM ? 1 : 0;  // slots without `resident`
+  static constexpr int PAIRS = GRAM ? GramPlan<M>::PAIRS + (RULE == RULE_GEOMEDIAN ? M : 0)
+                                    : 2 * M;
+};
+
+// y sorts before x: ascending, NaN last (torch.sort's order)
+__device__ __forceinline__ bool sorts_before(float y, float x) {
+  return isnan(x) ? !isnan(y) : y < x;
+}
+
+// rank of x[j] in the stable ascending sort of x[0..N) with NaN last
+template <int N>
+__device__ __forceinline__ int stable_rank(const float* x, int j) {
+  const float xj = x[j];
+  int r = 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float y = x[k];
+    r += sorts_before(y, xj) || (k < j && !sorts_before(xj, y));
+  }
+  return r;
+}
+
+// max(x, lo) that keeps NaN, as torch.clamp and jnp.maximum
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+
+// The weights of a gram rule from the grid-wide totals (the packed gram,
+// then geomedian's d2med), by one block: krum / multi_krum (ia = n_close,
+// ib = k, 0 for krum) or geomedian (ia = n_updates, fa = eps).  Writes w,
+// the scores or d2med, gram and w > 0 to `small`, and Σw (row order,
+// guarded to 1) to *den_out.
+template <int M, int RULE>
+__device__ __forceinline__ void gram_rule_weights(const float* totals, float* scratch,
+                                                  float* __restrict__ small,
+                                                  float* __restrict__ den_out,
+                                                  AggShared<M>& sh, int ia, int ib, float fa) {
+  const int tid = threadIdx.x;
+  constexpr int SL = M + 1;  // row stride of the [M][M+1] scratch
+  float* S = scratch;
+  float* gram_out = small + 2 * M;
+#pragma unroll
+  for (int q = 0; q < (M * M + THREADS - 1) / THREADS; ++q) {
+    const int e = tid + q * THREADS, i = e / M, j = e % M;
+    if (e < M * M) {
+      const float v = __ldcg(totals + gram_pair<M>(i < j ? i : j, i < j ? j : i));
+      S[i * SL + j] = v;
+      gram_out[e] = v;
+    }
+  }
+  if constexpr (RULE == RULE_KRUM) {
+    const int n_close = ia, k = ib;  // k == 0: krum, else multi_krum
+    float* D2 = S + M * SL;
+    __syncthreads();
+    for (int e = tid; e < M * M; e += THREADS) {
+      const int i = e / M, j = e % M;
+      const float v = __fsub_rn(__fadd_rn(S[i * SL + i], S[j * SL + j]),
+                                __fmul_rn(2.f, S[i * SL + j]));
+      D2[i * SL + j] = __fadd_rn(v, i == j ? INFINITY : 0.f);
+    }
+    __syncthreads();
+    // thread i sorts row i ascending and sums its n_close smallest in that
+    // order.  A NaN sorts last (torch.sort): it becomes +inf for the
+    // network, and a score that would reach one of the q NaNs is NaN.
+    if (tid < M) {
+      float* row = D2 + tid * SL;
+      int q = 0;
+      float s;
+      if constexpr (M < SMEM_SORT_M) {
+        float g[M], v[pow2_at_least(M)];
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          q += isnan(row[j]);
+          g[j] = isnan(row[j]) ? INFINITY : row[j];
+        }
+        sort_real<M>(g, [&v](int k) -> float& { return v[k]; });
+        s = v[0];
+#pragma unroll
+        for (int r = 1; r < M; ++r)
+          if (r < n_close) s = __fadd_rn(s, v[r]);
+      } else {  // M = 64 = a power of two: the row sorts in place
+        for (int j = 0; j < M; ++j) {
+          q += isnan(row[j]);
+          if (isnan(row[j])) row[j] = INFINITY;
+        }
+        bitonic_sort<M>([row](int k) -> float& { return row[k]; });
+        s = row[0];
+        for (int r = 1; r < n_close; ++r) s = __fadd_rn(s, row[r]);
+      }
+      sh.sc[tid] = n_close > M - q ? NAN : s;
+    }
+    __syncthreads();
+    // multi_krum: rank < k.  krum: torch.argmin, the first NaN if a score
+    // is NaN, else the first minimum (stable rank 0)
+    const bool nan_i = tid < M && isnan(sh.sc[tid]);
+    const bool any_nan = __syncthreads_or(nan_i);
+    if (tid < M) {
+      bool on;
+      if (k > 0) {
+        on = stable_rank<M>(sh.sc, tid) < k;
+      } else if (any_nan) {
+        on = nan_i;
+#pragma unroll
+        for (int j = 0; j < M; ++j) on = on && !(j < tid && isnan(sh.sc[j]));
+      } else {
+        on = stable_rank<M>(sh.sc, tid) == 0;
+      }
+      sh.w[tid] = on ? 1.f : 0.f;
+      small[M + tid] = sh.sc[tid];
+    }
+  } else {
+    const int n_updates = ia;
+    const float eps = fa;
+    float* wa = S + M * SL;
+    float* wb = wa + M;
+    float* Sw = wb + M;
+    if (tid < M) {
+      const float dm = __ldcg(totals + GramPlan<M>::PAIRS + tid);
+      wa[tid] = __fdiv_rn(1.f, clamp_min(sqrtf(dm), eps));
+      small[M + tid] = dm;
+    }
+    __syncthreads();
+    for (int it = 0; it < n_updates; ++it) {
+      if (tid < M) {
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < M; ++j) s = fmaf(S[tid * SL + j], wa[j], s);
+        Sw[tid] = s;
+      }
+      __syncthreads();
+      if (tid < M) {
+        float W = 0.f, wSw = 0.f;
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          W = __fadd_rn(W, wa[j]);
+          wSw = fmaf(wa[j], Sw[j], wSw);
+        }
+        // diag - 2·Sw/W + wᵀSw/W², in the plain version's order
+        const float d2 = __fadd_rn(
+            __fsub_rn(S[tid * SL + tid], __fdiv_rn(__fmul_rn(2.f, Sw[tid]), W)),
+            __fdiv_rn(wSw, __fmul_rn(W, W)));
+        wb[tid] = __fdiv_rn(1.f, clamp_min(sqrtf(clamp_min(d2, 0.f)), eps));
+      }
+      __syncthreads();
+      float* t = wa;
+      wa = wb;
+      wb = t;
+    }
+    if (tid < M) sh.w[tid] = wa[tid];
+  }
+  __syncthreads();
+  if (tid < M) {
+    small[tid] = sh.w[tid];
+    reinterpret_cast<unsigned char*>(small + 2 * M + M * M)[tid] = sh.w[tid] > 0.f;
+  }
+  if (tid == 0) {  // Σw in row order, guarded to 1
+    float sw = 0.f;
+#pragma unroll
+    for (int i = 0; i < M; ++i) sw = __fadd_rn(sw, sh.w[i]);
+    *den_out = sw > 0.f ? sw : 1.f;
+  }
+}
+
+template <int M, int RULE>
 __global__ void __launch_bounds__(THREADS)
-brsgd_aggregate_kernel(const float* __restrict__ G, long long d, int k_idx, int q_idx,
-                       float threshold, int resident, float* partials,
-                       float* __restrict__ small, float* __restrict__ out) {
-  constexpr bool REG_ACC = M < SMEM_SORT_M;  // M <= 32: lane i counts row i
-  constexpr int PAIRS = 2 * M;               // (statistic, row)
+select_aggregate_kernel(const float* __restrict__ G, long long d, int ia, int ib, float fa,
+                        int resident, float* partials, float* __restrict__ small,
+                        float* __restrict__ out) {
+  using L = AggLayout<M, RULE>;
+  constexpr bool REG_ACC = M < SMEM_SORT_M;  // M <= 32: per-row sums in registers
+  constexpr int PAIRS = L::PAIRS;
   __shared__ AggShared<M> sh;
-  extern __shared__ float dyn[];
-  // dynamic: the sort columns from SMEM_SORT_M on, then the resident tiles
+  extern __shared__ __align__(16) float dyn[];
   float* sort_scratch = dyn;
-  float* tiles = dyn + (M >= SMEM_SORT_M ? pow2_at_least(M) * THREADS : 0);
+  float* scratch = dyn + L::SORT;
+  float* tiles = scratch + L::SCRATCH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long grid = gridDim.x, b = blockIdx.x;
   const long long n_tiles = (d + THREADS - 1) / THREADS;
   cg::grid_group all = cg::this_grid();
-
-  // ---- pass 1: scores and l1 of this block's tiles
-  int count = 0;                    // score of row `lane` (REG_ACC)
-  float l1_acc[REG_ACC ? M : 1];
-  if constexpr (REG_ACC) {
-#pragma unroll
-    for (int i = 0; i < M; ++i) l1_acc[i] = 0.f;
-  } else {
-    for (int i = tid; i < 2 * WARPS * M; i += THREADS) (&sh.red[0][0][0])[i] = 0.f;
-    __syncthreads();
-  }
   int n_slots = 0;
-  for (long long t = b; t < n_tiles; t += grid, ++n_slots) {
-    const long long col = t * THREADS + tid;
-    const bool valid = col < d;
-    float g[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) g[i] = valid ? __ldg(G + i * d + col) : 0.f;
-    if (resident) {
-      float* s = tiles + n_slots * (M * THREADS) + tid;
-#pragma unroll
-      for (int i = 0; i < M; ++i) s[i * THREADS] = g[i];
-    }
-    const float mean = column_mean<M>(g);
-    int n_above = 0;
-#pragma unroll
-    for (int i = 0; i < M; ++i) n_above += g[i] >= mean;
-    const bool maj_above = 2 * n_above >= M;
-    float med;
+
+  // ---- pass 1
+  if constexpr (RULE == RULE_BRSGD) {
+    // scores and l1 of this block's tiles
+    int count = 0;                    // score of row `lane` (REG_ACC)
+    float l1_acc[REG_ACC ? M : 1];
     if constexpr (REG_ACC) {
-      med = padfree_median<M>(g);
-    } else {
-      med = column_median<M>(g, sort_scratch);
-    }
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-      // !(g >= mean), not g < mean: a NaN compares false both ways
-      const bool on = valid && (maj_above ? (g[i] >= mean) : !(g[i] >= mean));
-      const float dev = valid ? fabsf(__fsub_rn(g[i], med)) : 0.f;
+      for (int i = 0; i < M; ++i) l1_acc[i] = 0.f;
+    } else {
+      for (int i = tid; i < 2 * WARPS * M; i += THREADS) (&sh.red[0][0][0])[i] = 0.f;
+      __syncthreads();
+    }
+    for (long long t = b; t < n_tiles; t += grid, ++n_slots) {
+      const long long col = t * THREADS + tid;
+      const bool valid = col < d;
+      float g[M];
+#pragma unroll
+      for (int i = 0; i < M; ++i) g[i] = valid ? __ldg(G + i * d + col) : 0.f;
+      if (resident) {
+        float* s = tiles + n_slots * L::SLOT + tid;
+#pragma unroll
+        for (int i = 0; i < M; ++i) s[i * THREADS] = g[i];
+      }
+      const float mean = column_mean<M>(g);
+      int n_above = 0;
+#pragma unroll
+      for (int i = 0; i < M; ++i) n_above += g[i] >= mean;
+      const bool maj_above = 2 * n_above >= M;
+      float med;
       if constexpr (REG_ACC) {
-        const unsigned votes = __ballot_sync(0xffffffffu, on);
-        if (lane == i) count += __popc(votes);
-        l1_acc[i] = __fadd_rn(l1_acc[i], dev);
+        med = padfree_median<M>(g);
       } else {
-        const float vs = warp_sum(on ? 1.f : 0.f);
-        const float vl = warp_sum(dev);
-        if (lane == 0) {
-          sh.red[0][warp][i] += vs;
-          sh.red[1][warp][i] += vl;
+        med = column_median<M>(g, sort_scratch);
+      }
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        // !(g >= mean), not g < mean: a NaN compares false both ways
+        const bool on = valid && (maj_above ? (g[i] >= mean) : !(g[i] >= mean));
+        const float dev = valid ? fabsf(__fsub_rn(g[i], med)) : 0.f;
+        if constexpr (REG_ACC) {
+          const unsigned votes = __ballot_sync(0xffffffffu, on);
+          if (lane == i) count += __popc(votes);
+          l1_acc[i] = __fadd_rn(l1_acc[i], dev);
+        } else {
+          const float vs = warp_sum(on ? 1.f : 0.f);
+          const float vl = warp_sum(dev);
+          if (lane == 0) {
+            sh.red[0][warp][i] += vs;
+            sh.red[1][warp][i] += vl;
+          }
         }
       }
     }
-  }
-  if constexpr (REG_ACC) {
-    if (lane < M) sh.red[0][warp][lane] = static_cast<float>(count);
+    if constexpr (REG_ACC) {
+      if (lane < M) sh.red[0][warp][lane] = static_cast<float>(count);
 #pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const float vl = warp_sum(l1_acc[i]);
-      if (lane == 0) sh.red[1][warp][i] = vl;
+      for (int i = 0; i < M; ++i) {
+        const float vl = warp_sum(l1_acc[i]);
+        if (lane == 0) sh.red[1][warp][i] = vl;
+      }
     }
-  }
-  __syncthreads();
-  if (tid < PAIRS) {  // pair tid = (statistic tid / M, row tid % M)
-    float v = 0.f;
+    __syncthreads();
+    if (tid < PAIRS) {  // pair tid = (statistic tid / M, row tid % M)
+      float v = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) v += sh.red[tid / M][w][tid % M];
-    partials[tid * grid + b] = v;
+      for (int w = 0; w < WARPS; ++w) v += sh.red[tid / M][w][tid % M];
+      partials[tid * grid + b] = v;
+    }
+  } else {
+    // gram (and geomedian's d² to the median) of this block's tiles
+    constexpr bool GEO = RULE == RULE_GEOMEDIAN;
+    GramAcc<M> gram;
+    gram.init();
+    float d2_acc[GEO && REG_ACC ? M : 1];
+    if constexpr (GEO && REG_ACC) {
+#pragma unroll
+      for (int i = 0; i < M; ++i) d2_acc[i] = 0.f;
+    }
+    if constexpr (GEO && !REG_ACC) {
+      for (int i = tid; i < WARPS * M; i += THREADS) (&sh.red[0][0][0])[i] = 0.f;
+    }
+    const int my_tiles = b < n_tiles ? static_cast<int>((n_tiles - 1 - b) / grid) + 1 : 0;
+    zero_pad_rows<M>(tiles, resident ? my_tiles : 1, L::SLOT);
+    __syncthreads();
+    for (long long t = b; t < n_tiles; t += grid, ++n_slots) {
+      const long long col = t * THREADS + tid;
+      const bool valid = col < d;
+      float g[M];
+#pragma unroll
+      for (int i = 0; i < M; ++i) g[i] = valid ? __ldg(G + i * d + col) : 0.f;
+      float* slot = tiles + (resident ? n_slots : 0) * L::SLOT;
+#pragma unroll
+      for (int i = 0; i < M; ++i) slot[i * GRAM_LD + tid] = g[i];
+      if constexpr (GEO) {
+        float med;
+        if constexpr (REG_ACC) {
+          med = padfree_median<M>(g);
+        } else {
+          med = column_median<M>(g, sort_scratch);
+        }
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+          const float df = __fsub_rn(g[i], med);
+          const float v = valid ? __fmul_rn(df, df) : 0.f;
+          if constexpr (REG_ACC) {
+            d2_acc[i] = __fadd_rn(d2_acc[i], v);
+          } else {
+            const float vs = warp_sum(v);
+            if (lane == 0) sh.red[0][warp][i] += vs;
+          }
+        }
+      }
+      __syncthreads();
+      gram.add_tile(slot);
+      __syncthreads();
+    }
+    if constexpr (GEO && REG_ACC) {
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        const float v = warp_sum(d2_acc[i]);
+        if (lane == 0) sh.red[0][warp][i] = v;
+      }
+    }
+    gram.finish([&](int i, int j, float v) { partials[gram_pair<M>(i, j) * grid + b] = v; });
+    if constexpr (GEO) {
+      __syncthreads();
+      if (tid < M) {
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) v += sh.red[0][w][tid];
+        partials[(GramPlan<M>::PAIRS + tid) * grid + b] = v;
+      }
+    }
   }
   all.sync();
 
-  // ---- the grid-wide totals: block p sums pair p over the blocks.
+  // ---- the grid-wide totals: global warp p sums pair p over the blocks.
   // __ldcg: other SMs wrote these during this launch (never read them
   // through the read-only path).
   float* totals = partials + PAIRS * grid;
-  if (warp == 0) {
-    for (long long p = b; p < PAIRS; p += grid) {
+  if constexpr (RULE == RULE_BRSGD) {
+    if (warp == 0) {
+      for (long long p = b; p < PAIRS; p += grid) {
+        float v = 0.f;
+        for (long long j = lane; j < grid; j += 32) v += __ldcg(partials + p * grid + j);
+        v = warp_sum(v);
+        if (lane == 0) totals[p] = v;
+      }
+    }
+  } else {  // m(m+1)/2 pairs: every warp of the grid takes some
+    for (long long p = b * WARPS + warp; p < PAIRS; p += grid * WARPS) {
       float v = 0.f;
+#pragma unroll 8  // the loads go out together; the adds keep their order
       for (long long j = lane; j < grid; j += 32) v += __ldcg(partials + p * grid + j);
       v = warp_sum(v);
       if (lane == 0) totals[p] = v;
@@ -657,68 +1128,94 @@ brsgd_aggregate_kernel(const float* __restrict__ G, long long d, int k_idx, int 
   }
   all.sync();
 
-  // ---- the thresholds and the selection, in every block alike
-  if (tid < PAIRS) (tid < M ? sh.sc : sh.l1)[tid % M] = __ldcg(totals + tid);
-  __syncthreads();
-  if (tid < PAIRS) {  // ranks: threads [0, M) the scores, [M, 2M) l1
-    const int s = tid / M, i = tid % M;
-    const float* x = s ? sh.l1 : sh.sc;
-    const int k = s ? q_idx : k_idx;
-    const float xi = x[i];
-    int lt = 0, le = 0;
-    for (int j = 0; j < M; ++j) {
-      lt += x[j] < xi;
-      le += x[j] <= xi;
+  // ---- the rule: the weights sh.w, the rows of nonzero weight sh.rows,
+  // their count and Σw
+  int n_sel;
+  float den;
+  if constexpr (RULE == RULE_BRSGD) {
+    const int k_idx = ia, q_idx = ib;
+    const float threshold = fa;
+    if (tid < PAIRS) (tid < M ? sh.sc : sh.l1)[tid % M] = __ldcg(totals + tid);
+    __syncthreads();
+    if (tid < PAIRS) {  // ranks: threads [0, M) the scores, [M, 2M) l1
+      const int s = tid / M, i = tid % M;
+      const float* x = s ? sh.l1 : sh.sc;
+      const int k = s ? q_idx : k_idx;
+      const float xi = x[i];
+      int lt = 0, le = 0;
+      for (int j = 0; j < M; ++j) {
+        lt += x[j] < xi;
+        le += x[j] <= xi;
+      }
+      sh.cand[s][i] = (lt <= k && k < le) ? xi : -INFINITY;
     }
-    sh.cand[s][i] = (lt <= k && k < le) ? xi : -INFINITY;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float kth = -INFINITY, quart = -INFINITY;
-    for (int i = 0; i < M; ++i) {
-      if (sh.cand[0][i] > kth) kth = sh.cand[0][i];
-      if (sh.cand[1][i] > quart) quart = sh.cand[1][i];
-    }
-    sh.kth = kth;
-    sh.T = q_idx < 0 ? threshold : quart;
-  }
-  __syncthreads();
-  const float kth = sh.kth, T2 = __fmul_rn(2.f, sh.T);
-  const bool c1 = tid < M && sh.l1[tid] <= T2;
-  const bool c2 = tid < M && sh.sc[tid] >= kth;
-  const bool any = __syncthreads_or(c1 && c2);
-  const bool sel = any ? (c1 && c2) : c2;
-  if (tid < M) sh.w[tid] = sel ? 1.f : 0.f;
-  if (b == 0) {
-    if (tid < M) {
-      unsigned char* masks = reinterpret_cast<unsigned char*>(small + 3 * M + 2);
-      small[tid] = sh.sc[tid];
-      small[M + tid] = sh.l1[tid];
-      small[2 * M + tid] = sel ? 1.f : 0.f;
-      masks[tid] = sel;
-      masks[M + tid] = c1;
-      masks[2 * M + tid] = c2;
-    }
+    __syncthreads();
     if (tid == 0) {
-      small[3 * M] = sh.kth;
-      small[3 * M + 1] = sh.T;
+      float kth = -INFINITY, quart = -INFINITY;
+      for (int i = 0; i < M; ++i) {
+        if (sh.cand[0][i] > kth) kth = sh.cand[0][i];
+        if (sh.cand[1][i] > quart) quart = sh.cand[1][i];
+      }
+      sh.kth = kth;
+      sh.T = q_idx < 0 ? threshold : quart;
     }
-  }
-  // Σw of 0/1 weights is the count, exact in float; the barrier also
-  // publishes sh.w
-  const int n_sel = __syncthreads_count(sel);
-  const float den = n_sel > 0 ? static_cast<float>(n_sel) : 1.f;
-  if (sel) {  // this row's place among the selected ones
-    int pos = 0;
-    for (int j = 0; j < tid; ++j) pos += sh.w[j] != 0.f;
-    sh.rows[pos] = tid;
+    __syncthreads();
+    const float kth = sh.kth, T2 = __fmul_rn(2.f, sh.T);
+    const bool c1 = tid < M && sh.l1[tid] <= T2;
+    const bool c2 = tid < M && sh.sc[tid] >= kth;
+    const bool any = __syncthreads_or(c1 && c2);
+    const bool sel = any ? (c1 && c2) : c2;
+    if (tid < M) sh.w[tid] = sel ? 1.f : 0.f;
+    if (b == 0) {
+      if (tid < M) {
+        unsigned char* masks = reinterpret_cast<unsigned char*>(small + 3 * M + 2);
+        small[tid] = sh.sc[tid];
+        small[M + tid] = sh.l1[tid];
+        small[2 * M + tid] = sel ? 1.f : 0.f;
+        masks[tid] = sel;
+        masks[M + tid] = c1;
+        masks[2 * M + tid] = c2;
+      }
+      if (tid == 0) {
+        small[3 * M] = sh.kth;
+        small[3 * M + 1] = sh.T;
+      }
+    }
+    // Σw of 0/1 weights is the count, exact in float; the barrier also
+    // publishes sh.w
+    n_sel = __syncthreads_count(sel);
+    den = n_sel > 0 ? static_cast<float>(n_sel) : 1.f;
+    if (sel) {  // this row's place among the selected ones
+      int pos = 0;
+      for (int j = 0; j < tid; ++j) pos += sh.w[j] != 0.f;
+      sh.rows[pos] = tid;
+    }
+  } else {
+    // block 0 resolves the weights and publishes them (w in `small`, Σw
+    // after the totals); a third barrier; every block reads them (every
+    // block resolving the rule from the m(m+1)/2 totals itself measured
+    // slower)
+    float* den_out = totals + PAIRS;
+    if (b == 0) gram_rule_weights<M, RULE>(totals, scratch, small, den_out, sh, ia, ib, fa);
+    all.sync();
+    if (tid < M) sh.w[tid] = __ldcg(small + tid);
+    if (tid == 0) sh.den = __ldcg(den_out);
+    __syncthreads();
+    const bool nz = tid < M && sh.w[tid] != 0.f;
+    n_sel = __syncthreads_count(nz);
+    den = sh.den;
+    if (nz) {  // this row's place among the rows of nonzero weight
+      int pos = 0;
+      for (int j = 0; j < tid; ++j) pos += sh.w[j] != 0.f;
+      sh.rows[pos] = tid;
+    }
   }
   __syncthreads();
 
   // ---- pass 2: the weighted row combine, last tile first
   if (resident) {
     const auto from_smem = [&](int slot, int i, long long) {
-      return tiles[slot * (M * THREADS) + i * THREADS + tid];
+      return tiles[slot * L::SLOT + i * L::LD + tid];
     };
     for (int s = n_slots - 1; s >= 0; --s)
       combine_tiles<M, 1>(sh, n_sel, den, d, b, grid, s, 1, out, from_smem);
@@ -735,7 +1232,7 @@ int launch_stats(const float* G, long long d, int needs, float* sc, float* l1,
                  float* d2, float* gram, float* med, float* mean, int n_blocks,
                  cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * (((needs & NEED_GRAM) ? M * (THREADS + 1) + M * M : 0) +
+      sizeof(float) * (((needs & NEED_GRAM) ? GramPlan<M>::ROWS * GRAM_LD : 0) +
                        (M >= SMEM_SORT_M ? pow2_at_least(M) * THREADS : 0));
   if (smem > 48 * 1024) {  // above 48 KB only after opting in (M = 64)
     cudaFuncSetAttribute(fused_stats_kernel<M, true>,
@@ -754,13 +1251,16 @@ int launch_stats(const float* G, long long d, int needs, float* sc, float* l1,
 }
 
 template <int M>
-int launch_combine(const float* G, long long d, const float* w_in, const float* pr,
-                   float* out, float* w_out, int n_blocks, cudaStream_t stream) {
-  if (pr != nullptr) {
-    combine_rows_kernel<M, true><<<n_blocks, THREADS, 0, stream>>>(G, d, w_in, pr, out, w_out);
-  } else {
-    combine_rows_kernel<M, false><<<n_blocks, THREADS, 0, stream>>>(G, d, w_in, nullptr, out, nullptr);
-  }
+int launch_select_mean(const float* G, long long d, const float* sl, const float* pr,
+                       float* out, float* w_out, int n_blocks, cudaStream_t stream) {
+  select_mean_kernel<M><<<n_blocks, THREADS, 0, stream>>>(G, d, sl, pr, out, w_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int M>
+int launch_masked_mean(const float* G, long long d, const float* w, float* out, float* small,
+                       int n_blocks, cudaStream_t stream) {
+  masked_mean_kernel<M><<<n_blocks, THREADS, 0, stream>>>(G, d, w, out, small);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -773,41 +1273,41 @@ int launch_trimmed_mean(const float* G, long long d, int k, float* out, int n_bl
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory of brsgd_aggregate_kernel<M> on `grid` blocks: the
-// sort columns from SMEM_SORT_M on, and with `resident` one slot of
-// M x THREADS floats per tile of the block with the most tiles.
-template <int M>
+// Dynamic shared memory of select_aggregate_kernel<M, RULE> on `grid`
+// blocks: the sort columns and the rule's scratch, then one slot per tile
+// of the block with the most tiles when `resident`, else STAGE slots.
+template <int M, int RULE>
 size_t aggregate_smem(long long d, int grid, int resident) {
+  using L = AggLayout<M, RULE>;
   const long long n_tiles = (d + THREADS - 1) / THREADS;
-  const long long per_block = (n_tiles + grid - 1) / grid;
-  return sizeof(float) * ((M >= SMEM_SORT_M ? pow2_at_least(M) * THREADS : 0) +
-                          (resident ? per_block * M * THREADS : 0));
+  const long long slots = resident ? (n_tiles + grid - 1) / grid : L::STAGE;
+  return sizeof(float) * (L::SORT + L::SCRATCH + slots * L::SLOT);
 }
 
 // The opt-in above 48 KB and the largest shared-memory carveout, once per
 // device.
-template <int M>
+template <int M, int RULE>
 cudaError_t aggregate_prepare() {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
-  e = cudaFuncSetAttribute(brsgd_aggregate_kernel<M>,
+  e = cudaFuncSetAttribute(select_aggregate_kernel<M, RULE>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, AGG_MAX_DYNAMIC);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(brsgd_aggregate_kernel<M>,
+    e = cudaFuncSetAttribute(select_aggregate_kernel<M, RULE>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess && dev < 64) done[dev] = true;
   return e;
 }
 
-template <int M>
+template <int M, int RULE>
 int aggregate_coresident(long long smem, int* count) {
   int per_sm = 0, sms = 0, dev = 0;
-  cudaError_t e = aggregate_prepare<M>();
+  cudaError_t e = aggregate_prepare<M, RULE>();
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, brsgd_aggregate_kernel<M>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, select_aggregate_kernel<M, RULE>,
                                                       THREADS, static_cast<size_t>(smem));
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -815,21 +1315,43 @@ int aggregate_coresident(long long smem, int* count) {
   return static_cast<int>(e);
 }
 
-template <int M>
-int launch_aggregate(const float* G, long long d, int k_idx, int q_idx, float threshold,
-                     int resident, float* partials, float* small, float* out, int grid,
+template <int M, int RULE>
+int launch_aggregate(const float* G, long long d, int ia, int ib, float fa, int resident,
+                     float* partials, float* small, float* out, int grid,
                      cudaStream_t stream) {
   if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = aggregate_smem<M>(d, grid, resident);
+  const size_t smem = aggregate_smem<M, RULE>(d, grid, resident);
   if (smem > AGG_MAX_DYNAMIC) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = aggregate_prepare<M>();
+  cudaError_t e = aggregate_prepare<M, RULE>();
   if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {&G, &d, &k_idx, &q_idx, &threshold, &resident, &partials, &small, &out};
+  void* args[] = {&G, &d, &ia, &ib, &fa, &resident, &partials, &small, &out};
   // a grid that is not co-resident is refused (cudaErrorCooperativeLaunchTooLarge)
-  e = cudaLaunchCooperativeKernel(brsgd_aggregate_kernel<M>, dim3(grid), dim3(THREADS),
+  e = cudaLaunchCooperativeKernel(select_aggregate_kernel<M, RULE>, dim3(grid), dim3(THREADS),
                                   args, smem, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the rule a C entry names, to its instance
+#define RULE_DISPATCH(rule, CALL)                                            \
+  switch (rule) {                                                            \
+    case RULE_BRSGD: { constexpr int R = RULE_BRSGD; return CALL; }          \
+    case RULE_KRUM: { constexpr int R = RULE_KRUM; return CALL; }            \
+    case RULE_GEOMEDIAN: { constexpr int R = RULE_GEOMEDIAN; return CALL; }  \
+    default: return static_cast<int>(cudaErrorInvalidValue);                 \
+  }
+
+template <int M>
+int launch_select(int rule, const float* G, long long d, int ia, int ib, float fa,
+                  int resident, float* partials, float* small, float* out, int grid,
+                  cudaStream_t stream) {
+  RULE_DISPATCH(rule, (launch_aggregate<M, R>(G, d, ia, ib, fa, resident, partials, small,
+                                              out, grid, stream)))
+}
+
+template <int M>
+int select_coresident(int rule, long long smem, int* count) {
+  RULE_DISPATCH(rule, (aggregate_coresident<M, R>(smem, count)))
 }
 
 }  // namespace
@@ -883,18 +1405,20 @@ int brsgd_column_stats(const void* G, int m, long long d, void* med, void* mean,
 // B2: selection from sl [2, m] and pr [2], then the masked mean
 int brsgd_select_mean(const void* G, int m, long long d, const void* sl, const void* pr,
                       void* out, void* w_out, int n_blocks, void* stream) {
-  BRSGD_DISPATCH(m, launch_combine<M>(
+  BRSGD_DISPATCH(m, launch_select_mean<M>(
       static_cast<const float*>(G), d, static_cast<const float*>(sl),
       static_cast<const float*>(pr), static_cast<float*>(out),
       static_cast<float*>(w_out), n_blocks, static_cast<cudaStream_t>(stream)))
 }
 
-// B3: masked / weighted mean with weights w [m]
+// B3: weighted mean with weights w [m] (null: unit weights, the mean);
+// small_out (nullable): w [m] floats then w > 0 as m bytes
 int brsgd_masked_mean(const void* G, int m, long long d, const void* w, void* out,
-                      int n_blocks, void* stream) {
-  BRSGD_DISPATCH(m, launch_combine<M>(
-      static_cast<const float*>(G), d, static_cast<const float*>(w), nullptr,
-      static_cast<float*>(out), nullptr, n_blocks, static_cast<cudaStream_t>(stream)))
+                      void* small_out, int n_blocks, void* stream) {
+  BRSGD_DISPATCH(m, launch_masked_mean<M>(
+      static_cast<const float*>(G), d, static_cast<const float*>(w),
+      static_cast<float*>(out), static_cast<float*>(small_out), n_blocks,
+      static_cast<cudaStream_t>(stream)))
 }
 
 // B5: trimmed mean [d], k rows dropped from each side of every column
@@ -905,23 +1429,26 @@ int brsgd_trimmed_mean(const void* G, int m, long long d, int k, void* out,
       static_cast<cudaStream_t>(stream)))
 }
 
-// B1 + B2 fused: brsgd's whole aggregation in one cooperative launch of
-// `grid` blocks.  k_idx, q_idx: the rank_select indices of kth and of the
-// auto 𝔗 (q_idx < 0 takes `threshold`).  partials: scratch of
-// 2m·grid + 2m floats; small_out (3m + 2) floats then 3m bytes; out [d].
-int brsgd_aggregate(const void* G, int m, long long d, int k_idx, int q_idx,
-                    float threshold, int resident, void* partials, void* small_out,
-                    void* out, int grid, void* stream) {
-  BRSGD_DISPATCH(m, launch_aggregate<M>(
-      static_cast<const float*>(G), d, k_idx, q_idx, threshold, resident,
+// A select rule's whole aggregation in one cooperative launch of `grid`
+// blocks (rule: 0 brsgd, 1 krum / multi_krum, 2 geomedian).  (ia, ib,
+// fa): brsgd (k_idx, q_idx, threshold), the rank_select indices of kth
+// and of the auto 𝔗 (q_idx < 0 takes `threshold`); krum (n_close, k: 0
+// for krum, the count for multi_krum); geomedian (n_updates, -, eps).
+// partials: PAIRS·(grid + 1) floats, + 1 for the gram rules, with PAIRS
+// = 2m for brsgd, else m(m+1)/2 (+ m for geomedian); small_out: the
+// rule's diagnostics (brsgd: 3m + 2 floats then 3m bytes); out [d].
+int brsgd_select_aggregate(const void* G, int m, long long d, int rule, int ia, int ib,
+                           float fa, int resident, void* partials, void* small_out,
+                           void* out, int grid, void* stream) {
+  BRSGD_DISPATCH(m, launch_select<M>(
+      rule, static_cast<const float*>(G), d, ia, ib, fa, resident,
       static_cast<float*>(partials), static_cast<float*>(small_out),
       static_cast<float*>(out), grid, static_cast<cudaStream_t>(stream)))
 }
 
-// *count = the blocks of brsgd_aggregate_kernel<m> the current card holds
-// at once with smem bytes of dynamic shared memory each
-int brsgd_aggregate_coresident(int m, long long smem, void* count) {
-  BRSGD_DISPATCH(m, aggregate_coresident<M>(smem, static_cast<int*>(count)))
+// *count = the blocks of the rule's instance the current card holds at once
+int brsgd_select_aggregate_coresident(int m, int rule, long long smem, void* count) {
+  BRSGD_DISPATCH(m, select_coresident<M>(rule, smem, static_cast<int*>(count)))
 }
 
 }  // extern "C"

@@ -89,6 +89,17 @@ def brsgd_aggregate(G, beta: float, threshold: float) -> ref.BrSGDAggregate:
     return ref.brsgd_aggregate_plain(G, beta, threshold)
 
 
+def select_aggregate(G, rule: str, n_close: int = 1, k: int = 0,
+                     iters: int = 1, eps: float = 1e-6) -> ref.SelectAggregate:
+    """A select rule (mean, krum, multi_krum, geomedian) over all of G
+    [m, d] to the aggregate and its diagnostics (``ref.SelectAggregate``):
+    on the card one launch (the cooperative kernel; B3 alone for the
+    mean), on the CPU the plain composition."""
+    if G.is_cuda:
+        return kern.select_aggregate(G, rule, n_close, k, iters, eps)
+    return ref.select_aggregate_plain(G, rule, n_close, k, iters, eps)
+
+
 def masked_mean(G, mask):
     """Masked (bool) or weighted (f32) row mean Σ w_i g_i / Σ w_i in row
     order (``ref.masked_mean_det`` on the CPU)."""

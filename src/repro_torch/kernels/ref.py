@@ -196,13 +196,15 @@ def masked_mean_det(G, mask):
     """Weighted row mean with sequential accumulation in row order: a
     full mask is bit-identical to :func:`column_mean_ref`.  Rows of
     weight 0 are skipped with ``where``, never multiplied by 0, so a
-    non-finite dropped row cannot leak into the result."""
+    non-finite dropped row cannot leak into the result.  Σw is summed in
+    row order too, so float weights give the same bits on every device
+    (the combine kernels sum it in the same order)."""
     Gf = G.to(torch.float32)
     w = mask.to(torch.float32)
     s = torch.zeros_like(Gf[0])
     for i in range(Gf.shape[0]):
         s = torch.where(w[i] != 0, s + w[i] * Gf[i], s)
-    return s / _guarded(w.sum())
+    return s / _guarded(det_sum_rows(w))
 
 
 def rank_select(x, k: int):
@@ -283,6 +285,99 @@ def brsgd_aggregate_plain(G, beta: float, threshold: float) -> BrSGDAggregate:
     w = sel.to(torch.float32)
     return BrSGDAggregate(masked_mean_det(G, w), w, sel, c1, c2, scores, l1,
                           kth, T)
+
+
+# ---------------------------------------------------------------------------
+# the gram rules (krum, multi_krum, geomedian) and the mean, fixed worker set
+# ---------------------------------------------------------------------------
+
+def krum_scores(gram, n_close: int):
+    """Krum score_i = Σ of the n_close smallest d²_ij over j, from the
+    Gram matrix: d²_ij = (S_ii + S_jj) − 2 S_ij, self-distance +inf.
+    torch.sort puts NaN last."""
+    m = gram.shape[0]
+    diag = torch.diagonal(gram)
+    d2 = diag[:, None] + diag[None, :] - 2.0 * gram
+    d2 = d2 + torch.diag(torch.full((m,), math.inf, device=gram.device))
+    return torch.sort(d2, dim=1).values[:, :n_close].sum(dim=1)
+
+
+def krum_weights(score):
+    """One-hot on argmin(score): the first NaN if a score is NaN (as
+    torch.argmin and jnp.argmin), else the first minimum."""
+    w = torch.nn.functional.one_hot(torch.argmin(score), score.shape[0])
+    return w.to(torch.float32)
+
+
+def multi_krum_weights(score, k: int):
+    """1.0 on the k best scores by a stable argsort (NaN last, ties by
+    worker index, as jnp.argsort), 0.0 elsewhere."""
+    order = torch.argsort(score, stable=True)
+    w = torch.zeros(score.shape, dtype=torch.float32, device=score.device)
+    w[order[:k]] = 1.0
+    return w
+
+
+def geomedian_weights(S, d2med, iters: int, eps: float, vf=None):
+    """Weiszfeld in weight space (``engine._geomedian_select``): from
+    w = 1/max(√d2med, eps), iters − 1 updates w_i = 1/max(‖g_i − z‖,
+    eps) with ‖g_i − z‖² = S_ii − 2(Sw)_i/W + wᵀSw/W² from the Gram
+    matrix S.  ``vf`` ([m] 0/1) re-masks the weights on every update
+    (an elastic round).  NaN propagates (torch.clamp keeps it)."""
+    diag = torch.diagonal(S)
+    w = 1.0 / torch.clamp(torch.sqrt(d2med), min=eps)
+    if vf is not None:
+        w = w * vf
+    for _ in range(max(iters - 1, 0)):
+        W = w.sum()
+        Sw = S @ w
+        d2 = diag - 2.0 * Sw / W + (w @ Sw) / (W * W)
+        w = 1.0 / torch.clamp(torch.sqrt(torch.clamp(d2, min=0.0)), min=eps)
+        if vf is not None:
+            w = w * vf
+    return w
+
+
+SELECT_RULES = ("mean", "krum", "multi_krum", "geomedian")
+
+
+class SelectAggregate(NamedTuple):
+    """One local aggregation of a select rule: the aggregate and its
+    diagnostics (None where the rule has no such statistic)."""
+    agg: torch.Tensor          # [d] Σ w_i g_i / Σ w_i
+    w: torch.Tensor            # [m] f32 combine weights
+    selected: torch.Tensor     # [m] bool, w > 0
+    scores: torch.Tensor | None   # [m] krum scores (krum, multi_krum)
+    gram: torch.Tensor | None     # [m, m] (krum, multi_krum, geomedian)
+    d2med: torch.Tensor | None    # [m] (geomedian)
+
+
+def select_aggregate_plain(G, rule: str, n_close: int = 1, k: int = 0,
+                           iters: int = 1, eps: float = 1e-6) -> SelectAggregate:
+    """A select rule over a fixed worker set, from G [m, d] to the
+    aggregate: the rule's statistics (one shared pass), its weights and
+    the row-order weighted mean — the function the fused kernel computes
+    in one launch (B3 alone for the mean).  ``n_close``: krum's window;
+    ``k``: multi_krum's count; ``iters``, ``eps``: geomedian's."""
+    if rule not in SELECT_RULES:
+        raise ValueError(f"unknown select rule {rule!r}; "
+                         f"expected one of {SELECT_RULES}")
+    m = G.shape[0]
+    if rule == "mean":
+        w = torch.ones((m,), dtype=torch.float32, device=G.device)
+        return SelectAggregate(masked_mean_det(G, w), w, w > 0, None, None,
+                               None)
+    needs = ("d2med", "gram") if rule == "geomedian" else ("gram",)
+    st = fused_stats_ref(G, needs)
+    scores = None
+    if rule == "geomedian":
+        w = geomedian_weights(st["gram"], st["d2med"], iters, eps)
+    else:
+        scores = krum_scores(st["gram"], n_close)
+        w = (krum_weights(scores) if rule == "krum"
+             else multi_krum_weights(scores, k))
+    return SelectAggregate(masked_mean_det(G, w), w, w > 0, scores,
+                           st["gram"], st.get("d2med"))
 
 
 def trim_k(trim_frac: float, m: int) -> int:

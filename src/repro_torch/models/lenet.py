@@ -5,6 +5,13 @@ avgpool -> fc120 -> fc84 -> fc10 on 28x28 single-channel images.
 Parameters keep the JAX layouts (HWIO convolutions, [in, out] dense)
 and images arrive NHWC; the forward permutes to PyTorch's NCHW/OIHW
 for ``F.conv2d`` and flattens in NHWC order, as the JAX model does.
+
+On the CPU both convolutions accumulate in float64 and round once to
+float32 (:func:`_conv`), so oneDNN's float32 convolution is off the
+path: in some processes it was seen to drift the float32 result (and
+the per-worker gradients) ~50x further from float64 than in the rest,
+from the second convolution on, for a reason not pinned down.  On the
+card the convolutions stay float32 (cuDNN, TF32 off).
 """
 from __future__ import annotations
 
@@ -38,12 +45,24 @@ def _hwio_to_oihw(w):
     return w.permute(3, 2, 0, 1)
 
 
+def _conv(x, w_hwio, b, padding=0):
+    """F.conv2d with the HWIO weight; on the CPU in float64, rounded once
+    to x's dtype, so its float32 result (and its gradients') is the
+    float64 one rounded, whatever float32 kernel the CPU would pick."""
+    w = _hwio_to_oihw(w_hwio)
+    if x.is_cuda:
+        return F.conv2d(x, w, b, padding=padding)
+    wide = torch.float64
+    return F.conv2d(x.to(wide), w.to(wide), b.to(wide),
+                    padding=padding).to(x.dtype)
+
+
 def lenet_forward(p, images):
     """images [B,28,28,1] (NHWC) -> logits [B,10]."""
     x = images.permute(0, 3, 1, 2)
-    x = F.conv2d(x, _hwio_to_oihw(p["conv1_w"]), p["conv1_b"], padding=2)
+    x = _conv(x, p["conv1_w"], p["conv1_b"], padding=2)
     x = F.avg_pool2d(torch.tanh(x), 2)
-    x = F.conv2d(x, _hwio_to_oihw(p["conv2_w"]), p["conv2_b"])
+    x = _conv(x, p["conv2_w"], p["conv2_b"])
     x = F.avg_pool2d(torch.tanh(x), 2)
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)      # NHWC flatten
     x = torch.tanh(x @ p["fc1_w"] + p["fc1_b"])

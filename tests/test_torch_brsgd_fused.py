@@ -231,8 +231,9 @@ def test_plan_constants_match_the_cuda_source():
         assert found and int(found.group(1)) == getattr(kern, name), name
     assert "cudaLaunchCooperativeKernel" in src
     sig = _build.SIGNATURES["brsgd_stats"]
-    assert len(sig["brsgd_aggregate"]) == 12
-    assert sig["brsgd_aggregate"][5] is _build.ctypes.c_float
+    assert len(sig["brsgd_select_aggregate"]) == 13
+    assert sig["brsgd_select_aggregate"][6] is _build.ctypes.c_float
+    assert "brsgd_aggregate" not in sig
 
 
 def test_fused_wrapper_refuses_cpu_tensors_and_counts_nothing():

@@ -7,8 +7,12 @@ port's dependencies:
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances: scores, weights, medians, trimmed means and the row-order
-combines exact; l1/d2med/gram within 1e-5 of the largest finite
-reference magnitude.  NaN must sit where the plain version has it.
+combines exact (B3 with 0/1 and float weights); l1/d2med/gram within
+1e-5 of the largest finite reference magnitude; the fused select
+launch: krum / multi_krum weights exact and scores within 1e-5,
+geomedian's weights within 1e-5 (where Weiszfeld's iterate sits on a
+worker: that worker, its weight within 1%), every aggregate bit-equal to
+masked_mean_det of the launch's own weights.  NaN must sit where the plain version has it.
 Flash attention (B6) rtol 2e-4 / atol 2e-5 in float32 and 1e-2 in
 bfloat16 (one bf16 rounding of the output); the WKV6 scan and its
 one-chunk call (B7) within 2e-5 of max|y| and 1e-5 of max|S| (sums in
@@ -142,7 +146,8 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_input():
     ops.masked_mean(G, torch.ones(20, device="cuda"))
     assert kern.LAUNCHES == {"fused_stats": 1, "select_mean": 0,
                              "masked_mean": 1, "brsgd_stats": 0,
-                             "trimmed_mean": 0, "brsgd_aggregate": 0}
+                             "trimmed_mean": 0, "brsgd_aggregate": 0,
+                             "select_aggregate": 0}
     with pytest.raises(ValueError, match="no kernel instance"):
         kern.fused_stats(torch.zeros(6, 10, device="cuda"), ("l1",))
     with pytest.raises(TypeError):
@@ -183,7 +188,10 @@ def check_fused(G, beta, threshold):
         exact(got, w)
     exact(r.agg, ref.masked_mean_det(G, r.w))
     for a, b in zip(again, r):
-        exact(a, b)
+        if b is None:
+            assert a is None
+        else:
+            exact(a, b)
     return r
 
 
@@ -286,6 +294,202 @@ def test_card_step_matches_cpu_step(agg):
     exact(m_gpu["selected"], m_cpu["selected"])
     for k in new_cpu:
         close(new_gpu[k], new_cpu[k])
+
+
+# ---------------------------------------------------------------------------
+# the fused select launch (krum, multi_krum, geomedian) and the rebuilt B3
+# ---------------------------------------------------------------------------
+
+SELECT_RULES = ["krum", "multi_krum", "geomedian"]
+
+
+def select_args(rule, m):
+    f = max(1, int(0.25 * m))
+    if rule == "geomedian":
+        return {"iters": 16, "eps": 1e-6}
+    args = {"n_close": max(1, m - f - 2)}
+    if rule == "multi_krum":
+        args["k"] = max(1, m - f)
+    return args
+
+
+ON_WORKER = 1e-2   # Weiszfeld's iterate within 1% of max‖g_i‖ of a worker
+ON_WORKER_W = 1e-2  # the weight there: within 1% of the plain version's
+
+
+def check_geomedian(G, w, want_w, S, agg=None, want_agg=None):
+    """geomedian's weights (and aggregate) against the plain version.
+    w_i = 1/‖g_i − z‖ with ‖g_i − z‖² = S_ii − 2(Sw)_i/W + wᵀSw/W², a
+    difference of gram terms up to max S_ii: where the iterate z sits on
+    worker i, w_i is set by rounding (a duplicate that holds half the
+    rows, as at m = 4, is the geometric median itself).  So: rows the
+    plain iterate stays ON_WORKER · √max S_ii or farther from hold w
+    within RTOL of the largest such weight; rows nearer must be copies
+    of one worker, the card's argmax, with w within ON_WORKER_W of the
+    plain's; the aggregate within RTOL of the plain one, plus, where the
+    iterate sits on worker i, ON_WORKER_W of max|g_i − agg| (the first-
+    order effect of that weight)."""
+    if bool(want_w.isnan().any()):
+        close(w, want_w)
+        if agg is not None:
+            close(agg, want_agg)
+        return
+    root = float(S.diagonal().max()) ** 0.5
+    on = want_w * root * ON_WORKER > 1.0
+    close(w[~on], want_w[~on])
+    atol = 0.0
+    if bool(on.any()):
+        i = int(torch.argmax(w))
+        rows = G[on]
+        assert bool((rows == G[i]).all()), "the iterate sits on two workers"
+        ratio = (w[on] / want_w[on]).double().cpu()
+        assert float((ratio - 1.0).abs().max()) <= ON_WORKER_W, ratio
+        if agg is not None:
+            atol = ON_WORKER_W * float((G[i] - want_agg).abs().max())
+    if agg is not None:
+        got, ref_agg = agg.double().cpu(), want_agg.double().cpu()
+        scale = float(ref_agg[ref_agg.isfinite()].abs().max())
+        np.testing.assert_allclose(got.numpy(), ref_agg.numpy(), rtol=0,
+                                   atol=RTOL * scale + atol)
+
+
+def check_select(G, rule, args):
+    """The fused launch against its plain version on G: gram (and
+    d2med) within RTOL; krum / multi_krum scores within RTOL, weights
+    exact against the plain rule on the launch's own scores and against
+    the plain composition; geomedian's weights within RTOL of both; the
+    aggregate bit-equal to masked_mean_det(G, w); a second launch the
+    same bits; one launch each.  (geomedian where the iterate sits on a
+    worker: see check_geomedian.)"""
+    kern.reset_launches()
+    r = kern.select_aggregate(G, rule, **args)
+    again = kern.select_aggregate(G, rule, **args)
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES["select_aggregate"] == 2
+    assert sum(kern.LAUNCHES.values()) == 2
+    want = ref.select_aggregate_plain(G, rule, **args)
+    close(r.gram, want.gram)
+    if rule == "geomedian":
+        close(r.d2med, want.d2med)
+        check_geomedian(G, r.w, want.w, want.gram, r.agg, want.agg)
+        check_geomedian(G, r.w, ref.geomedian_weights(
+            r.gram, r.d2med, args["iters"], args["eps"]), r.gram)
+    else:
+        close(r.scores, want.scores)
+        own = (ref.krum_weights(r.scores) if rule == "krum"
+               else ref.multi_krum_weights(r.scores, args["k"]))
+        exact(r.w, own)
+        exact(r.w, want.w)
+    exact(r.selected, r.w > 0)
+    exact(r.agg, ref.masked_mean_det(G, r.w))
+    for a, b in zip(again, r):
+        if b is None:
+            assert a is None
+        else:
+            exact(a, b)
+    return r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", kern.SUPPORTED_M)
+@pytest.mark.parametrize("rule", SELECT_RULES)
+def test_fused_select_kernel_matches_plain_version(m, rule):
+    """Every m, resident in shared memory ([m, 5003]), a NaN worker and
+    duplicate rows."""
+    need_card()
+    G = mat(m, 5003, seed=m + 60)
+    G[: max(1, m // 4)] *= -4.0                       # outlying workers
+    assert kern.launch_plan(G, rule).resident
+    check_select(G, rule, select_args(rule, m))
+    G[m - 1] = G[m // 2]                              # a duplicate: ties
+    r = check_select(G, rule, select_args(rule, m))
+    if rule != "geomedian":
+        assert float(r.scores[m - 1]) == float(r.scores[m // 2])
+    G[m // 2, ::7] = float("nan")
+    check_select(G, rule, select_args(rule, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", SELECT_RULES)
+@pytest.mark.parametrize("m,d", [(20, 2_000_003), (64, 300_001), (7, 1_000_003)])
+def test_fused_select_kernel_not_resident(rule, m, d):
+    need_card()
+    G = mat(m, d, seed=d % 97)
+    G[:3] *= -4.0
+    assert not kern.launch_plan(G, rule).resident
+    check_select(G, rule, select_args(rule, m))
+    G[1, ::11] = float("nan")
+    check_select(G, rule, select_args(rule, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agg", ["mean", "krum", "multi_krum", "geomedian",
+                                 "brsgd"])
+def test_aggregate_local_is_one_device_kernel(agg):
+    """A fixed round's engine.aggregate_local(return_state=True) is one
+    device kernel (torch.profiler; a host-to-device copy would count
+    too): the fused launch, or B3 alone for the mean, and nothing else of
+    the port; the state is views of what it wrote."""
+    need_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import engine
+    G = mat(20, 61706, seed=13)
+    G[:5] *= 1e10
+    cfg = ByzantineConfig(aggregator=agg, alpha=0.25)
+    engine.aggregate_local(G, cfg, return_state=True)
+    torch.cuda.synchronize()
+    for _ in range(5):      # a trace that lost its records: once more
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            agg_out, st = engine.aggregate_local(G, cfg, return_state=True)
+            torch.cuda.synchronize()
+        device = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA}
+        if device:
+            break
+    assert sum(device.values()) == 1, device
+    name = {"mean": "masked_mean", "brsgd": "brsgd_aggregate"}.get(
+        agg, "select_aggregate")
+    assert {k: n for k, n in ops.launches().items() if n} == {name: 1}
+    exact(agg_out, ref.masked_mean_det(G, st.weights if agg != "brsgd"
+                                       else st.selected.float()))
+    if agg in ("krum", "multi_krum"):
+        assert not st.selected[:5].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", SHAPES + [(20, 8_388_608)])
+def test_rebuilt_masked_mean_is_bit_equal_with_any_weights(m, d):
+    """B3 sums the rows of nonzero weight and Σw in row order, so it
+    equals masked_mean_det bit for bit with 0/1 masks, float weights,
+    unit weights (the mean, which also writes w and w > 0) and an empty
+    mask."""
+    need_card()
+    G = mat(m, d, seed=m + d % 89)
+    rng = np.random.default_rng(m)
+    for w in (torch.as_tensor(rng.random(m) < 0.6, device="cuda"),
+              torch.as_tensor(rng.random(m).astype(np.float32), device="cuda"),
+              torch.zeros(m, dtype=torch.bool, device="cuda")):
+        exact(kern.masked_mean(G, w), ref.masked_mean_det(G, w))
+    r = kern.select_aggregate(G, "mean")
+    exact(r.agg, ref.masked_mean_det(G, torch.ones(m, device="cuda")))
+    exact(r.w, torch.ones(m))
+    assert bool(r.selected.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(20, 8_388_608), (64, 100_003), (5, 1003)])
+def test_standalone_gram_pass_within_its_gate(m, d):
+    need_card()
+    G = mat(m, d, seed=m + 7)
+    got = kern.fused_stats(G, ("gram", "d2med"))
+    want = ref.fused_stats_ref(G, ("gram", "d2med"))
+    close(got["gram"], want["gram"])
+    close(got["d2med"], want["d2med"])
+    exact(got["gram"], got["gram"].T)                  # one bit pattern
 
 
 # ---------------------------------------------------------------------------

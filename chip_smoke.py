@@ -15,13 +15,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: name, count, versions, nvidia-smi name and power limit;
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc
      per source, all started together) and print the -Xptxas -v
-     register / shared-memory / spill summary; from the SASS, the HMMA
-     count of B6 and B7 and B3's load batching at m = 20;
-  3. every kernel (B1-B5) against its plain PyTorch version on the card,
-     at the LeNet main-path shape [20, 61706], a ragged [7, 1003],
-     [64, 4096], the robustness twin's [20, 20] and the rate twin's
-     [10, 20], and at [20, 61706] with one worker's row NaN (whole, or
-     every 5th column); B5 at trim fractions 0.1, 0.25, 0.49 and 0.5;
+     register / shared-memory / spill summary (the column pass's
+     instances at m = 20 on a line of their own); from the SASS, the
+     HMMA count of B6 and B7 and B3's load batching at m = 20;
+  3. every kernel (B1-B5, and the median alone) against its plain
+     PyTorch version on the card, at the LeNet main-path shape [20,
+     61706], a ragged [7, 1003], [64, 4096], the robustness twin's
+     [20, 20] and the rate twin's [10, 20], and at [20, 61706] with one
+     worker's row NaN (whole, or every 5th column); the column pass (B1
+     at every needs subset, B4, the median alone) at every instance m
+     at d = 1003 and d = 61 with a NaN worker row and with NaN columns;
+     B5 at trim fractions 0.1, 0.25, 0.49 and 0.5;
      the fused brsgd launch (B1's brsgd call + B2, one cooperative
      kernel) at the same inputs with G resident in shared memory, and at
      [20, 2000003], where it is not, with and without a NaN worker:
@@ -51,8 +55,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      launches and nothing else); the step timed with the fused launch
      and with the two-pass composition it replaced, in turns; one
      aggregate_local of every select rule (brsgd, mean, krum, multi_krum,
-     geomedian): device kernels per call (torch.profiler, must be 1) and
-     host ms, the eager composition and the one launch in turns; the
+     geomedian) and of the median: device kernels per call
+     (torch.profiler, must be 1) and host ms, the eager composition (the
+     median's: B4 and its two sums) and the one launch in turns; the
      paper step of each select rule, both ways in turns;
   5. the main path: paper.train_lenet at LeNet width, m = 20, 60 steps
      (brsgd under scale and gaussian, the mean baseline, median, krum,
@@ -75,7 +80,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   8. timing with CUDA events (bare kernel launch, wrapper call, plain
      version, one library call) and each bare kernel's device time
      (torch.profiler) at [20, 61706] and [20, 8388608] (the fused select
-     launch first held against its plain version on those inputs), the
+     launch, and at [20, 8388608] the column pass, first held against
+     their plain versions on those inputs), the
      fused brsgd launch against the two-pass composition in turns (it
      must not be slower) and on a sweep of grids; the fused select launch
      of each gram rule; B6 at
@@ -116,6 +122,8 @@ REPLACES = {
     "select_mean": "src/repro/kernels/brsgd_stats.py:258",
     "masked_mean": "src/repro/kernels/brsgd_stats.py:289",
     "brsgd_stats": "src/repro/kernels/brsgd_stats.py:150",
+    # cwise_median_pallas, which keeps the median of B4's pallas_call
+    "cwise_median": "src/repro/kernels/brsgd_stats.py:302",
     "trimmed_mean": "src/repro/kernels/brsgd_stats.py:327",
     # B1's brsgd call (brsgd_partials_pallas, pallas_call at :199) and B2
     "brsgd_aggregate": "src/repro/kernels/brsgd_stats.py:258",
@@ -126,6 +134,11 @@ ALSO_REPLACES = {"brsgd_aggregate": ["src/repro/kernels/brsgd_stats.py:199"],
                  "select_aggregate": ["src/repro/kernels/brsgd_stats.py:289"]}
 # the gram rules of the fused select launch
 GRAM_RULES = ("krum", "multi_krum", "geomedian")
+# B1's needs that take the column pass (every subset without gram), and
+# gram + d2med (geomedian's call), which takes the gram kernel
+COLUMN_SUBSETS = (("scores",), ("l1",), ("d2med",), ("scores", "l1"),
+                  ("scores", "d2med"), ("l1", "d2med"),
+                  ("scores", "l1", "d2med"), ("d2med", "gram"))
 # the fused brsgd launch: a shape whose G does not stay in shared memory
 NONRESIDENT_SHAPE = (20, 2_000_003)
 # (beta, threshold / d): the paper's auto rule at two betas, C1 emptied
@@ -134,7 +147,7 @@ NONRESIDENT_SHAPE = (20, 2_000_003)
 FUSED_CASES = ((0.5, 0.0), (0.25, 0.0), (0.5, 1e-9), (0.5, 0.4))
 # the kernels each main-path run launches, once a step
 MAIN_PATH_KERNELS = {"mean": {"masked_mean"}, "brsgd": {"brsgd_aggregate"},
-                     "median": {"brsgd_stats"},
+                     "median": {"cwise_median"},
                      "krum": {"select_aggregate"},
                      "trimmed_mean": {"trimmed_mean"},
                      "multi_krum": {"select_aggregate"},
@@ -179,6 +192,7 @@ LIBRARY_CALLS = {
     "select_mean": "w @ G / w.sum()",
     "masked_mean": "w @ G / w.sum()",
     "brsgd_stats": "torch.quantile(G, 0.5, dim=0)",
+    "cwise_median": "torch.quantile(G, 0.5, dim=0)",
     "trimmed_mean": "sort + mean, 2 calls",
 }
 
@@ -235,8 +249,9 @@ def phase_build():
               "earlier build)", flush=True)
         return
     spills = 0
+    column = {}
     for lib, log in _build.BUILD_LOGS.items():
-        fn, stack_line = None, ""
+        fn, stack_line, spill = None, "", 0
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
@@ -244,14 +259,23 @@ def phase_build():
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
             if m:
-                spills += int(m.group(1)) + int(m.group(2))
+                spill = int(m.group(1)) + int(m.group(2))
+                spills += spill
                 stack_line = line.strip()
             m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
                           line)
             if m and fn:
                 print(f"  ptxas {lib} {fn}: {m.group(1)} registers, "
                       f"{m.group(2) or 0} B smem, {stack_line}", flush=True)
+                v = re.search(r"column_stats_kernelILi20ELi(\d+)E", fn)
+                if v:
+                    column[int(v.group(1))] = {
+                        "registers": int(m.group(1)), "spill_bytes": spill}
     print(f"build: spill bytes over all kernels = {spills}", flush=True)
+    # the column pass's instances at m = 20 by variant (B1's needs bits;
+    # 19 = B4; 16 = the median alone): registers and spill bytes
+    emit({"check": "column_pass_ptxas", "m": 20, "instances": column,
+          "spill_bytes": sum(c["spill_bytes"] for c in column.values())})
 
 
 def phase_sass(paths):
@@ -326,11 +350,10 @@ def _exact(a, b):
     return _same_nan(a, b) and bool(a[keep].equal(b[keep]))
 
 
-def _check_kernels(torch, kern, ref, G, label, rng, subsets, worst):
-    """B1 (every needs subset), B2, B3 and B4 on G against their plain
-    versions; emits one JSON line per kernel."""
-    m, d = G.shape
-    # B1: all 15 needs subsets
+def _check_column_pass(torch, kern, ref, G, label, subsets, worst):
+    """B1 at each needs subset, B4 and the median alone on G against
+    their plain versions: scores, medians and B4's mean exact, l1, d2med
+    and gram within REL_TOL; one JSON line each."""
     for needs in subsets:
         got = kern.fused_stats(G, needs)
         want = ref.fused_stats_ref(G, needs)
@@ -345,6 +368,32 @@ def _check_kernels(torch, kern, ref, G, label, rng, subsets, worst):
                      f"(max abs err {_err(got[n], want[n])})")
     emit({"check": "fused_stats", "input": label, "subsets": len(subsets),
           "scores": "exact", "l1_d2med_gram_rel_tol": REL_TOL})
+    got = kern.brsgd_stats(G)
+    want = ref.brsgd_stats_ref(G)
+    torch.cuda.synchronize()
+    names = ("median", "mean", "scores", "l1")
+    for n, a, b in zip(names, got, want):
+        ok = _rel_ok(a, b) if n == "l1" else _exact(a, b)
+        worst["brsgd_stats"] = max(worst["brsgd_stats"], _err(a, b))
+        if not ok:
+            fail(f"brsgd_stats {label}: {n} err {_err(a, b)}")
+    med = kern.cwise_median(G)
+    want_med = ref.cwise_median_ref(G)
+    torch.cuda.synchronize()
+    worst["cwise_median"] = max(worst["cwise_median"], _err(med, want_med))
+    if not _exact(med, want_med):
+        fail(f"cwise_median {label}: err {_err(med, want_med)}, NaN equal "
+             f"{_same_nan(med, want_med)}")
+    emit({"check": "brsgd_stats", "input": label,
+          "median_mean_scores": "exact", "l1_rel_tol": REL_TOL,
+          "cwise_median": "exact", "nan_columns": int(want_med.isnan().sum())})
+
+
+def _check_kernels(torch, kern, ref, G, label, rng, subsets, worst):
+    """B1 (every needs subset), B2, B3, B4, the median alone and B5 on G
+    against their plain versions; emits one JSON line per kernel."""
+    m, d = G.shape
+    _check_column_pass(torch, kern, ref, G, label, subsets, worst)
     # B2: selection + masked mean, from the plain pass-1 statistics
     st = ref.fused_stats_ref(G, ("scores", "l1"))
     kth, T = ref.brsgd_thresholds(st["scores"], st["l1"], 0.5, 0.0)
@@ -384,19 +433,6 @@ def _check_kernels(torch, kern, ref, G, label, rng, subsets, worst):
     emit({"check": "masked_mean", "input": label,
           "weights": list(weights) + ["unit"],
           "bit_equal_to_masked_mean_det": True})
-    # B4: median, mean, scores, l1
-    got = kern.brsgd_stats(G)
-    want = ref.brsgd_stats_ref(G)
-    torch.cuda.synchronize()
-    names = ("median", "mean", "scores", "l1")
-    for n, a, b in zip(names, got, want):
-        ok = _exact(a, b) if n in ("median", "scores") else _rel_ok(a, b)
-        worst["brsgd_stats"] = max(worst["brsgd_stats"], _err(a, b))
-        if not ok:
-            fail(f"brsgd_stats {label}: {n} err {_err(a, b)}")
-    emit({"check": "brsgd_stats", "input": label,
-          "median_scores": "exact", "mean_bit_exact": _exact(got[1], want[1]),
-          "mean_l1_rel_tol": REL_TOL})
     # B5: trimmed mean, exact (NaN where the plain version has NaN)
     for tf in TRIM_FRACS:
         got = kern.trimmed_mean(G, tf)
@@ -603,6 +639,22 @@ def phase_kernels(torch, kern, ref):
         _check_kernels(torch, kern, ref, G, label, rng, subsets, worst)
         _check_fused(torch, kern, ref, G, label, worst)
         _check_select(torch, kern, ref, G, label, worst)
+    # the column pass at every instance, at d % 4 != 0 (rows off 16 bytes)
+    # and d < 128 (one ragged tile), with a NaN worker row, then with NaN
+    # entries scattered over the columns and one column all NaN
+    for m in kern.SUPPORTED_M:
+        for d in (1003, 61):
+            g = np.random.default_rng(m * d).normal(size=(m, d)).astype(
+                np.float32)
+            g[m // 3] = np.nan
+            _check_column_pass(torch, kern, ref, torch.as_tensor(
+                g, device="cuda"), f"[{m},{d}] worker {m // 3} NaN", subsets,
+                worst)
+            g[m // 3] = 1.0
+            g[np.arange(0, d, 7) % m, np.arange(0, d, 7)] = np.nan
+            g[:, 3] = np.nan
+            _check_column_pass(torch, kern, ref, torch.as_tensor(
+                g, device="cuda"), f"[{m},{d}] NaN columns", subsets, worst)
     # the fused launch where G does not fit in shared memory: pass 2
     # reads it again
     m, d = NONRESIDENT_SHAPE
@@ -891,13 +943,18 @@ def _eager_select(engine, G, cfg, return_state):
 @contextlib.contextmanager
 def _eager_engine(engine, kern, ref, on: bool):
     """While ``on``, engine.aggregate_local takes, for a fixed round of a
-    select rule, the composition it ran before that round became one
-    launch: brsgd's two-pass composition (_two_pass_brsgd), the other
-    rules' eager path (_eager_select).  Every other call is unchanged.
-    The yardstick the one launch is timed against in the same call."""
+    select rule or the median, the composition it ran before that round
+    became one launch: brsgd's two-pass composition (_two_pass_brsgd), the
+    other select rules' eager path (_eager_select), the median's B4 launch
+    and its two partial sums (the median output kept).  Every other call
+    is unchanged.  The yardstick the one launch is timed against in the
+    same call."""
     fused = engine.aggregate_local
 
     def aggregate_local(G, cfg, return_state=False, spec=None, valid=None):
+        if cfg.aggregator == "median" and spec is None and valid is None:
+            out = kern.brsgd_stats(G)[0]
+            return (out, None) if return_state else out
         if (spec is not None or valid is not None
                 or engine.get_spec(cfg.aggregator).column is not None):
             return fused(G, cfg, return_state, spec, valid)
@@ -940,11 +997,12 @@ def _device_kernels(torch, fn, reps: int = 10, tries: int = 5) -> dict:
 
 def phase_aggregation(torch, kern, ref):
     """One engine.aggregate_local(return_state=True) of each select rule
-    at the paper's shape, five scaled workers: device kernels per call
-    (torch.profiler; a host-to-device copy counts too) and host ms ending
-    in a synchronize (median, p80 of HOST_REPS), the eager composition
-    (brsgd: the two-pass one) and the one launch in turns.  The one
-    launch must be one device kernel."""
+    and of the median at the paper's shape, five scaled workers: device
+    kernels per call (torch.profiler; a host-to-device copy counts too)
+    and host ms ending in a synchronize (median, p80 of HOST_REPS), the
+    eager composition (brsgd: the two-pass one; the median: B4 and its
+    two sums) and the one launch in turns.  The one launch must be one
+    device kernel."""
     import numpy as np
     from repro_torch.configs.base import ByzantineConfig
     from repro_torch.core import engine
@@ -953,7 +1011,7 @@ def phase_aggregation(torch, kern, ref):
                         device="cuda")
     G[:5] *= 1e10
     out = {}
-    for rule in ("brsgd", "mean") + GRAM_RULES:
+    for rule in ("brsgd", "mean") + GRAM_RULES + ("median",):
         cfg = ByzantineConfig(aggregator=rule, alpha=0.25)
         call = lambda: engine.aggregate_local(  # noqa: E731
             G, cfg, return_state=True)
@@ -1359,13 +1417,15 @@ def _time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
 
 
 # the device kernel each timed row launches, by a part of its name (the
-# parent tree's combine_rows_kernel served both B2 and B3)
+# parent tree's combine_rows_kernel served both B2 and B3, and its
+# fused_stats_kernel B1's every call and B4, the median included)
 KERNEL_NAMES = {
-    "fused_stats": ("fused_stats_kernel",),
+    "fused_stats": ("column_stats_kernel", "fused_stats_kernel"),
     "fused_stats[gram]": ("fused_stats_kernel",),
     "select_mean": ("select_mean_kernel", "combine_rows_kernel"),
     "masked_mean": ("masked_mean_kernel", "combine_rows_kernel"),
-    "brsgd_stats": ("fused_stats_kernel",),
+    "brsgd_stats": ("column_stats_kernel", "fused_stats_kernel"),
+    "cwise_median": ("column_stats_kernel", "fused_stats_kernel"),
     "trimmed_mean": ("trimmed_mean_kernel",),
     "brsgd_aggregate": ("brsgd_aggregate_kernel", "select_aggregate_kernel"),
     **{f"select_aggregate[{r}]": ("select_aggregate_kernel",)
@@ -1430,8 +1490,13 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps, worst):
     rng = np.random.default_rng(7)
     G = torch.as_tensor(rng.standard_normal((m, d), dtype=np.float32),
                         device="cuda")
-    # the fused select launch against its plain version on the timing input
+    # the fused select launch and the column pass against their plain
+    # versions on the timing input (B1's non-gram subsets and gram +
+    # d2med, B4, the median alone)
     _check_select(torch, kern, ref, G, f"[{m},{d}] timing input", worst)
+    if shape == HBM_SHAPE:
+        _check_column_pass(torch, kern, ref, G, f"[{m},{d}] timing input",
+                           COLUMN_SUBSETS, worst)
     st = kern.fused_stats(G, ("scores", "l1"))
     kth, T = ref.brsgd_thresholds(st["scores"], st["l1"], 0.5, 0.0)
     _, w_sel = kern.select_mean(G, st["scores"], st["l1"], kth, T)
@@ -1470,6 +1535,12 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps, worst):
             library=lambda: torch.quantile(G, 0.5, dim=0),
             nbytes=gb + 2 * d * 4 + 2 * m * 4,
             ops=(m + 1 + 2 * m) * d + sort_ops + 3 * m * d),
+        # G read once, the median written
+        "cwise_median": dict(
+            fn=lambda: kern.cwise_median(G),
+            plain=lambda: ref.cwise_median_ref(G),
+            library=lambda: torch.quantile(G, 0.5, dim=0),
+            nbytes=gb + d * 4, ops=sort_ops),
         "trimmed_mean": dict(
             fn=lambda: kern.trimmed_mean(G, TRIM_FRACS[0]),
             plain=lambda: ref.trimmed_mean_ref(G, TRIM_FRACS[0]),
@@ -1505,6 +1576,11 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps, worst):
             extra={"grid": plan.grid, "resident": plan.resident,
                    "smem_bytes": plan.smem, "nonzero_weights": n_w,
                    "args": args})
+    for name, variant in (("fused_stats", 3), ("brsgd_stats", kern.B4_VARIANT),
+                          ("cwise_median", kern.COLUMN_OUT)):
+        plan = kern.column_launch_plan(G, variant)
+        rows[name]["extra"] = {"grid": plan.grid, "stages": plan.stages,
+                               "smem_bytes": plan.smem}
     raw = _raw_launchers(torch, G, torch.stack([st["scores"], st["l1"]]),
                          torch.stack([kth, 2.0 * T]).float(), mask, k)
     out = {}
@@ -1663,8 +1739,13 @@ def _raw_launchers(torch, G, sl, pr, w, k):
     lib = _build.load()
     m, d = G.shape
     nb = max(1, min(-(-d // lib.brsgd_threads()), lib.brsgd_max_blocks()))
+    col = {"fused_stats": kern.column_launch_plan(G, 3),
+           "brsgd_stats": kern.column_launch_plan(G, kern.B4_VARIANT),
+           "cwise_median": kern.column_launch_plan(G, kern.COLUMN_OUT)}
     f32 = {"dtype": torch.float32, "device": G.device}
-    sc, l1 = torch.empty((nb, m), **f32), torch.empty((nb, m), **f32)
+    sc, l1 = (torch.empty((max(nb, col["fused_stats"].grid,
+                                col["brsgd_stats"].grid), m), **f32)
+              for _ in range(2))
     gram = torch.empty((nb, m, m), **f32)
     med, mean, out = (torch.empty(d, **f32) for _ in range(3))
     w_out = torch.empty(m, **f32)
@@ -1711,15 +1792,20 @@ def _raw_launchers(torch, G, sl, pr, w, k):
 
     return {
         "fused_stats": lambda: check(lib.brsgd_fused_stats(
-            P(G), m, d, 3, P(sc), P(l1), None, None, nb, stream)),
+            P(G), m, d, 3, P(sc), P(l1), None, None, col["fused_stats"].grid,
+            col["fused_stats"].stages, stream)),
         "fused_stats[gram]": lambda: check(lib.brsgd_fused_stats(
-            P(G), m, d, 8, None, None, None, P(gram), nb, stream)),
+            P(G), m, d, 8, None, None, None, P(gram), nb, 0, stream)),
         "select_mean": lambda: check(lib.brsgd_select_mean(
             P(G), m, d, P(sl), P(pr), P(out), P(w_out), nb, stream)),
         "masked_mean": lambda: check(lib.brsgd_masked_mean(
             P(G), m, d, P(w), P(out), None, nb, stream)),
         "brsgd_stats": lambda: check(lib.brsgd_column_stats(
-            P(G), m, d, P(med), P(mean), P(sc), P(l1), nb, stream)),
+            P(G), m, d, P(med), P(mean), P(sc), P(l1),
+            col["brsgd_stats"].grid, col["brsgd_stats"].stages, stream)),
+        "cwise_median": lambda: check(lib.brsgd_cwise_median(
+            P(G), m, d, P(med), col["cwise_median"].grid,
+            col["cwise_median"].stages, stream)),
         "trimmed_mean": lambda: check(lib.brsgd_trimmed_mean(
             P(G), m, d, k, P(out), nb, stream)),
         "brsgd_aggregate": fused_at(plan.grid, plan.resident),
@@ -1737,14 +1823,15 @@ def ops_select_plain(ref, G, st, kth, T):
 
 # ---------------------------------------------------------------------------
 
-def kernel_times(torch, src: Path) -> int:
-    """``--kernel-times SRC``: the kernels of the repro_torch package under
-    SRC (this tree's src, or another tree's, such as a parent commit's
-    unpacked beside it) timed through their wrappers at MAIN_SHAPE and
-    HBM_SHAPE: device ms by torch.profiler and CUDA-event ms over the
-    same calls.  One JSON line per kernel and shape.  Run it for two
-    trees in turns (parent, change, change, parent) to compare kernels
-    on one card; it checks nothing and prints no kernels line."""
+def kernel_times(torch, src: Path, shapes=()) -> int:
+    """``--kernel-times SRC [M,D ...]``: the kernels of the repro_torch
+    package under SRC (this tree's src, or another tree's, such as a
+    parent commit's unpacked beside it) timed through their wrappers at
+    MAIN_SHAPE and HBM_SHAPE, or at the shapes given: device ms by
+    torch.profiler and CUDA-event ms over the same calls.  One JSON line
+    per kernel and shape.  Run it for two trees in turns (parent, change,
+    change, parent) to compare kernels on one card; it checks nothing and
+    prints no kernels line."""
     import numpy as np
     sys.path.insert(0, str(src))
     from repro_torch import resolve_device
@@ -1753,13 +1840,18 @@ def kernel_times(torch, src: Path) -> int:
     from repro_torch.kernels import ref
     resolve_device("cuda")
     _build.build_all()
-    for (m, d), reps in ((MAIN_SHAPE, 200), (HBM_SHAPE, 20)):
+    shapes = shapes or (MAIN_SHAPE, HBM_SHAPE)
+    for m, d in shapes:
+        reps = 200 if m * d <= MAIN_SHAPE[0] * MAIN_SHAPE[1] else 20
         G = torch.as_tensor(np.random.default_rng(7).standard_normal(
             (m, d), dtype=np.float32), device="cuda")
         ones = torch.ones(m, device="cuda")
         sc, l1 = kern.brsgd_partials(G)
         kth, T = ref.brsgd_thresholds(sc, l1, 0.5, 0.0)
-        fns = {"fused_stats[gram]": lambda: kern.fused_stats(G, ("gram",)),
+        fns = {"fused_stats": lambda: kern.fused_stats(G, ("scores", "l1")),
+               "brsgd_stats": lambda: kern.brsgd_stats(G),
+               "cwise_median": lambda: kern.cwise_median(G),
+               "fused_stats[gram]": lambda: kern.fused_stats(G, ("gram",)),
                "masked_mean": lambda: kern.masked_mean(G, ones),
                "select_mean": lambda: kern.select_mean(G, sc, l1, kth, T),
                "trimmed_mean": lambda: kern.trimmed_mean(G, 0.1),
@@ -1782,9 +1874,10 @@ def kernel_times(torch, src: Path) -> int:
 def main() -> int:
     import torch
     smi_line = phase_device(torch)
-    if len(sys.argv) == 3 and sys.argv[1] == "--kernel-times":
+    if len(sys.argv) >= 3 and sys.argv[1] == "--kernel-times":
         print(smi_line, flush=True)
-        return kernel_times(torch, Path(sys.argv[2]).resolve())
+        shapes = [tuple(int(x) for x in a.split(",")) for a in sys.argv[3:]]
+        return kernel_times(torch, Path(sys.argv[2]).resolve(), shapes)
     sys.path.insert(0, str(SRC))
     from repro_torch import resolve_device
     from repro_torch.kernels import brsgd_stats as kern
@@ -1857,6 +1950,12 @@ def main() -> int:
                                k: v["per_call"] for k, v in agg_t[rule]
                                ["device_kernels_per_call"].items()}}
                            for rule in GRAM_RULES})
+        if name == "cwise_median":
+            row.update(grid=t["grid"], stages=t["stages"],
+                       hbm_grid=h["grid"], hbm_stages=h["stages"],
+                       device_kernels_per_median_aggregate_local={
+                           k: v["per_call"] for k, v in
+                           agg_t["median"]["device_kernels_per_call"].items()})
         if name == "masked_mean":
             row.update(device_kernels_per_mean_aggregate_local={
                 k: v["per_call"] for k, v in

@@ -45,8 +45,15 @@ SIGNATURES = {
     "brsgd_stats": {
         "brsgd_threads": (),
         "brsgd_max_blocks": (),
-        "brsgd_fused_stats": (_P, _I, _L, _I, _P, _P, _P, _P, _I, _P),
-        "brsgd_column_stats": (_P, _I, _L, _P, _P, _P, _P, _I, _P),
+        # G, m, d, needs, scores/l1/d2med/gram partials (nullable), grid,
+        # ring stages (unused with gram), stream
+        "brsgd_fused_stats": (_P, _I, _L, _I, _P, _P, _P, _P, _I, _I, _P),
+        # G, m, d, median, mean, scores/l1 partials, grid, stages, stream
+        "brsgd_column_stats": (_P, _I, _L, _P, _P, _P, _P, _I, _I, _P),
+        # G, m, d, median, grid, stages, stream
+        "brsgd_cwise_median": (_P, _I, _L, _P, _I, _I, _P),
+        # m, variant, dynamic shared memory, int* count
+        "brsgd_column_coresident": (_I, _I, _L, _P),
         "brsgd_select_mean": (_P, _I, _L, _P, _P, _P, _P, _I, _P),
         # G, m, d, w (null: unit weights), out, small_out (nullable),
         # n_blocks, stream

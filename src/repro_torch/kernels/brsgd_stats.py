@@ -10,8 +10,11 @@ by the tensor's device.
 ==================  ====================================================
 wrapper             replaces (src/repro/kernels/brsgd_stats.py)
 ==================  ====================================================
-fused_stats         fused_stats_pallas (B1); brsgd_partials is its
-                    (scores, l1) call
+fused_stats         fused_stats_pallas (B1): without gram the column
+                    pass (``column_stats_kernel``: a cp.async ring of
+                    tiles, bit-sliced score counts, l1 / d2med sums in
+                    registers, partials per block); with gram the gram
+                    kernel; brsgd_partials is its (scores, l1) call
 select_mean         select_mean_pallas (B2)
 brsgd_aggregate     brsgd_partials_pallas -> ref.brsgd_thresholds ->
                     select_mean_pallas (B1's brsgd call + B2) in one
@@ -21,7 +24,10 @@ select_aggregate    fused_stats_pallas (gram[, d2med]) -> the krum,
                     (B1's gram call + B3) in one cooperative launch; the
                     mean is B3 alone with unit weights
 masked_mean         masked_mean_pallas (B3)
-brsgd_stats         brsgd_stats_pallas (B4); cwise_median is its median
+brsgd_stats         brsgd_stats_pallas (B4): the column pass writing
+                    median and mean [d], scores and l1 partials
+cwise_median        cwise_median_pallas: the column pass writing the
+                    median [d] alone (one launch, nothing to sum)
 trimmed_mean        trimmed_mean_pallas (B5)
 ==================  ====================================================
 """
@@ -41,8 +47,8 @@ NEED_BITS = {"scores": 1, "l1": 2, "d2med": 4, "gram": 8}
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"fused_stats": 0, "select_mean": 0, "masked_mean": 0,
-            "brsgd_stats": 0, "trimmed_mean": 0, "brsgd_aggregate": 0,
-            "select_aggregate": 0}
+            "brsgd_stats": 0, "cwise_median": 0, "trimmed_mean": 0,
+            "brsgd_aggregate": 0, "select_aggregate": 0}
 
 # the fused kernels' shared-memory budget (csrc: THREADS, SMEM_SORT_M,
 # SMEM_BLOCK_LIMIT, AGG_STATIC_SMEM, GRAM_RB, GRAM_LD): the most one
@@ -56,6 +62,15 @@ GRAM_LD = THREADS + 4
 # the cooperative kernel's rule instances (csrc RULE_*): krum and
 # multi_krum share one
 RULE_IDS = {"brsgd": 0, "krum": 1, "multi_krum": 1, "geomedian": 2}
+# the column pass (csrc COLUMN_OUT, RING_LD, MAX_STAGES, COUNT_PLANES): an
+# instance is B1's needs bits without gram, B4 (COLUMN_OUT | scores | l1)
+# or the median alone (COLUMN_OUT); a ring stage holds [m, RING_LD] floats
+COLUMN_OUT = 16
+B4_VARIANT = COLUMN_OUT | NEED_BITS["scores"] | NEED_BITS["l1"]
+RING_LD = THREADS + 4
+MAX_STAGES = 4
+COUNT_PLANES = 16           # a block's tiles stay below 2^COUNT_PLANES
+IN_FLIGHT_BYTES = 32768     # ring bytes a block keeps in flight, at least
 
 
 def reset_launches() -> None:
@@ -118,6 +133,75 @@ def _launch(lib, name: str, fn, G, *args):
     LAUNCHES[name] += 1
 
 
+class ColumnPlan(NamedTuple):
+    """The column pass's launch: ``grid`` blocks, each with a ring of
+    ``stages`` tiles in ``smem`` bytes of dynamic shared memory."""
+    grid: int
+    stages: int
+    smem: int
+
+
+def column_stages(m: int) -> int:
+    """Ring stages of the column pass at m workers: enough that the
+    stages in flight while one is read hold IN_FLIGHT_BYTES, within 2 ..
+    MAX_STAGES (a stage is [m, RING_LD] floats: 10.6 KB at m = 20)."""
+    stage = 4 * m * RING_LD
+    return min(MAX_STAGES, max(2, 1 + -(-IN_FLIGHT_BYTES // stage)))
+
+
+def column_smem(m: int, variant: int, stages: int) -> int:
+    """Dynamic shared memory of a column-pass instance (csrc
+    ``column_smem``): the sort columns where it takes a median at m >=
+    SMEM_SORT_M, then the ring."""
+    median = variant & (COLUMN_OUT | NEED_BITS["l1"] | NEED_BITS["d2med"])
+    sort = ref.padded_workers(m) * THREADS if median and m >= SMEM_SORT_M \
+        else 0
+    return 4 * (sort + stages * m * RING_LD)
+
+
+def column_plan(m: int, d: int, variant: int, coresident) -> ColumnPlan:
+    """Grid and ring of the column pass for G [m, d]: ``column_stages``
+    stages and a persistent grid, the blocks the card holds at once
+    (``coresident(smem)``), at most one a tile, and enough that no block
+    takes 2^COUNT_PLANES tiles (its score counts' bits)."""
+    stages = column_stages(m)
+    smem = column_smem(m, variant, stages)
+    n = coresident(smem)
+    if n < 1:
+        raise RuntimeError(f"column pass: no block of m={m} fits on the "
+                           f"card ({smem} bytes of shared memory)")
+    n_tiles = -(-d // THREADS)
+    least = -(-n_tiles // (2 ** COUNT_PLANES - 1))
+    return ColumnPlan(min(n_tiles, max(n, least)), stages, smem)
+
+
+# launch plans by (card, m, d, kind)
+_plans: dict = {}
+
+
+def column_launch_plan(G, variant: int) -> ColumnPlan:
+    """:func:`column_plan` for G [m, d] on G's card, with the card's own
+    co-resident block count of the instance; computed once per (card, m,
+    d, variant)."""
+    m, d = _check_matrix(G, "column pass")
+    key = (G.device.index, m, d, "column", variant)
+    if key not in _plans:
+        lib = load()
+
+        def coresident(smem):
+            n = ctypes.c_int(0)
+            rc = lib.brsgd_column_coresident(m, variant, smem,
+                                             ctypes.byref(n))
+            if rc != 0:
+                raise RuntimeError(
+                    f"column pass: occupancy query failed with CUDA error "
+                    f"{rc} ({lib.brsgd_error_string(rc).decode()})")
+            return n.value
+        with torch.cuda.device(G.device):
+            _plans[key] = column_plan(m, d, variant, coresident)
+    return _plans[key]
+
+
 def fused_stats(G, needs) -> dict:
     """G [m, d] -> {stat: tensor} for any subset of ``ref.STAT_NAMES``
     in one read of G: scores/l1/d2med [m], gram [m, m]."""
@@ -126,14 +210,18 @@ def fused_stats(G, needs) -> dict:
     if not needs:
         return {}
     lib = load()
-    nb = _n_blocks(lib, d)
+    bits = sum(NEED_BITS[n] for n in needs)
+    if "gram" in needs:
+        nb, stages = _n_blocks(lib, d), 0
+    else:
+        plan = column_launch_plan(G, bits)
+        nb, stages = plan.grid, plan.stages
     parts = {n: torch.empty((nb, m, m) if n == "gram" else (nb, m),
                             dtype=torch.float32, device=G.device)
              for n in needs}
-    bits = sum(NEED_BITS[n] for n in needs)
     _launch(lib, "fused_stats", lib.brsgd_fused_stats, G, _ptr(G), m, d,
             bits, _ptr(parts.get("scores")), _ptr(parts.get("l1")),
-            _ptr(parts.get("d2med")), _ptr(parts.get("gram")), nb)
+            _ptr(parts.get("d2med")), _ptr(parts.get("gram")), nb, stages)
     return {n: p.sum(dim=0) for n, p in parts.items()}
 
 
@@ -223,9 +311,6 @@ def aggregate_plan(m: int, d: int, coresident,
         per_block += 1
     return AggregatePlan(grid0, False,
                          aggregate_smem(m, d, grid0, False, rule))
-
-
-_plans: dict = {}
 
 
 def launch_plan(G, rule: str = "brsgd") -> AggregatePlan:
@@ -357,21 +442,29 @@ def masked_mean(G, mask):
 
 def brsgd_stats(G):
     """G [m, d] -> (median [d], mean [d], scores [m], l1 [m])."""
-    m, d = _check_matrix(G, "brsgd_stats")
+    plan = column_launch_plan(G, B4_VARIANT)       # checks G
+    m, d = G.shape
     lib = load()
-    nb = _n_blocks(lib, d)
     med = torch.empty((d,), dtype=torch.float32, device=G.device)
     mean = torch.empty((d,), dtype=torch.float32, device=G.device)
-    sc = torch.empty((nb, m), dtype=torch.float32, device=G.device)
-    l1 = torch.empty((nb, m), dtype=torch.float32, device=G.device)
+    sc = torch.empty((plan.grid, m), dtype=torch.float32, device=G.device)
+    l1 = torch.empty((plan.grid, m), dtype=torch.float32, device=G.device)
     _launch(lib, "brsgd_stats", lib.brsgd_column_stats, G, _ptr(G), m, d,
-            _ptr(med), _ptr(mean), _ptr(sc), _ptr(l1), nb)
+            _ptr(med), _ptr(mean), _ptr(sc), _ptr(l1), plan.grid,
+            plan.stages)
     return med, mean, sc.sum(dim=0), l1.sum(dim=0)
 
 
 def cwise_median(G):
-    """Coordinate-wise median [d] (the median output of brsgd_stats)."""
-    return brsgd_stats(G)[0]
+    """Coordinate-wise median [d] (the median output of brsgd_stats) in
+    one launch that writes nothing else."""
+    plan = column_launch_plan(G, COLUMN_OUT)       # checks G
+    m, d = G.shape
+    lib = load()
+    med = torch.empty((d,), dtype=torch.float32, device=G.device)
+    _launch(lib, "cwise_median", lib.brsgd_cwise_median, G, _ptr(G), m, d,
+            _ptr(med), plan.grid, plan.stages)
+    return med
 
 
 def trimmed_mean(G, trim_frac: float):

@@ -3,12 +3,16 @@
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/brsgd_stats.py:
 //
-//   fused_stats_kernel<M, false>  <- fused_stats_pallas (_fused_stats_kernel):
-//                                    any subset of scores [m], l1 [m],
-//                                    d2med [m], gram [m, m] in one read of G.
-//   fused_stats_kernel<M, true>   <- brsgd_stats_pallas (_stats_kernel):
-//                                    the same pass, also writing the
-//                                    coordinate-wise median [d] and mean [d].
+//   column_stats_kernel<M, V>     <- fused_stats_pallas (_fused_stats_kernel)
+//                                    without gram: any subset of scores,
+//                                    l1, d2med [m] in one read of G
+//                                    (V = the NEED_* bits); brsgd_stats_pallas
+//                                    (_stats_kernel, V = COLUMN_OUT | scores
+//                                    | l1): also median [d] and mean [d];
+//                                    cwise_median_pallas (V = COLUMN_OUT):
+//                                    median [d] and nothing else.
+//   fused_stats_kernel<M>         <- fused_stats_pallas with gram [m, m]
+//                                    (and any other statistic beside it).
 //   select_mean_kernel<M>         <- select_mean_pallas (_select_mean_kernel):
 //                                    C1∩C2 selection (C2 fallback) fused with
 //                                    the masked row mean.
@@ -28,25 +32,35 @@
 //                                    krum / multi_krum, geomedian.
 //
 // What bounds them: bytes.  Each kernel reads G once (m·d·4 bytes) and
-// does O(m log² m) compare-exchanges per column (O(m²) for gram), far
-// below the card's FP32 rate per byte; at the LeNet shape [20, 61706] G
-// is 4.9 MB and sits in the 50 MB L2, so launch latency dominates.
+// does O(m log² m) compare-exchanges per column (O(m²) for gram), below
+// the card's FP32 rate per byte but not far below it, so a column's
+// sort has to run while the next columns' loads are in flight; at the
+// LeNet shape [20, 61706] G is 4.9 MB and sits in the 50 MB L2, so
+// launch latency dominates.
 //
-// Design (right and simple first):
+// Design:
 //   * One thread owns one column; a block covers THREADS consecutive
 //     columns (coalesced row loads) and walks tiles with a grid stride.
-//     The TPU grid's sequential carry becomes per-block partials
-//     [n_blocks, m] ([n_blocks, m, m] for gram) that the wrapper sums.
-//     No float atomics: the partial order is fixed, so l1 — which
-//     decides C1 — is the same on every run.
+//     The TPU grid's sequential carry becomes per-block partials [grid,
+//     m] ([grid, m, m] for gram) that the wrapper sums, or that the
+//     cooperative launches sum between grid barriers.  No float atomics:
+//     the partial order is fixed, so l1 — which decides C1 — is the same
+//     on every run.
+//   * The column pass (column_stats_kernel) keeps loads in flight through
+//     a cp.async ring of tiles in shared memory, counts scores by warp
+//     ballot and sums l1 / d2med in registers across all of a thread's
+//     tiles, reduced once per block (see its own note).
 //   * The ragged last tile is masked (invalid columns contribute exact
 //     zeros), so no zero-pad columns and no "+1 score per pad column"
 //     correction exist here.
 //   * m is a template constant: the column lives in registers and the
-//     bitonic network (padded with +inf to a power of two, the network
-//     of ref.bitonic_stages) fully unrolls; the median is rows[m/2] or
-//     the exact two-middle average, bit-equal to the plain version.  At
-//     m = 64 the sorted copy goes to shared memory (registers spilled).
+//     sorting network (ref.bitonic_stages, padded with +inf to a power of
+//     two) fully unrolls; the median is rows[m/2] or the exact two-middle
+//     average, bit-equal to the plain version.  The column pass and the
+//     cooperative launches track the +inf pad slots at compile time
+//     (padfree_stages: 134 of 240 compare-exchanges at m = 20), the
+//     column pass also drops those the middle slots do not need.  At m =
+//     64 the sorted copy goes to shared memory (registers spilled).
 //   * NaN in G propagates as in the plain versions: a column holding a
 //     NaN has a NaN median (as the NaN-propagating sort of ref gives),
 //     and the below-mean side is !(g >= mean), as the plain ~above.
@@ -64,6 +78,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -327,33 +343,27 @@ __device__ __forceinline__ void zero_pad_rows(float* tiles, int n_slots, int slo
   }
 }
 
-// One pass over G.  Partials: scores/l1/d2med [gridDim.x, M], gram
-// [gridDim.x, M, M]; a null pointer's statistic is not requested.
-// COLUMN_OUT additionally writes median [d] and mean [d] (it never asks
-// for gram, and its instance has no gram code).
-template <int M, bool COLUMN_OUT>
+// B1's gram call: one pass over G.  Partials: gram [gridDim.x, M, M]
+// and, where requested (a non-null pointer), scores / l1 / d2med
+// [gridDim.x, M], the latter summed per tile by warp shuffles.  A call
+// without gram takes the column pass below (column_stats_kernel).
+template <int M>
 __global__ void __launch_bounds__(THREADS)
 fused_stats_kernel(const float* __restrict__ G, long long d, int needs,
                    float* __restrict__ scores_p, float* __restrict__ l1_p,
-                   float* __restrict__ d2_p, float* __restrict__ gram_p,
-                   float* __restrict__ med_out, float* __restrict__ mean_out) {
+                   float* __restrict__ d2_p, float* __restrict__ gram_p) {
   __shared__ float acc[3][WARPS][M];
-  // Dynamic shared memory.  With gram: the staged tile [ROWS][GRAM_LD].
-  // Then, for M >= SMEM_SORT_M, the sort columns [pow2_at_least(M)][THREADS].
+  // Dynamic shared memory: the staged tile [ROWS][GRAM_LD], then, for
+  // M >= SMEM_SORT_M, the sort columns [pow2_at_least(M)][THREADS].
   extern __shared__ __align__(16) float tile[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool want_gram = !COLUMN_OUT && (needs & NEED_GRAM);
-  float* sort_scratch = want_gram ? tile + GramPlan<M>::ROWS * GRAM_LD : tile;
-  const bool want_med = COLUMN_OUT || (needs & (NEED_L1 | NEED_D2MED));
-  const bool want_mean = COLUMN_OUT || (needs & NEED_SCORES);
+  float* sort_scratch = tile + GramPlan<M>::ROWS * GRAM_LD;
+  const bool want_med = needs & (NEED_L1 | NEED_D2MED);
+  const bool want_mean = needs & NEED_SCORES;
   for (int i = tid; i < 3 * WARPS * M; i += THREADS) (&acc[0][0][0])[i] = 0.f;
   GramAcc<M> gram;
-  if constexpr (!COLUMN_OUT) {
-    if (want_gram) {
-      gram.init();
-      zero_pad_rows<M>(tile, 1, 0);
-    }
-  }
+  gram.init();
+  zero_pad_rows<M>(tile, 1, 0);
   __syncthreads();
 
   const long long n_tiles = (d + THREADS - 1) / THREADS;
@@ -364,10 +374,8 @@ fused_stats_kernel(const float* __restrict__ G, long long d, int needs,
 #pragma unroll
     for (int i = 0; i < M; ++i) g[i] = valid ? __ldg(G + i * d + col) : 0.f;
 
-    if (want_gram) {
 #pragma unroll
-      for (int i = 0; i < M; ++i) tile[i * GRAM_LD + tid] = g[i];
-    }
+    for (int i = 0; i < M; ++i) tile[i * GRAM_LD + tid] = g[i];
     const float mean = want_mean ? column_mean<M>(g) : 0.f;
     if (needs & NEED_SCORES) {
       int n_above = 0;
@@ -384,10 +392,6 @@ fused_stats_kernel(const float* __restrict__ G, long long d, int needs,
     }
     if (want_med) {
       const float med = column_median<M>(g, sort_scratch);
-      if (COLUMN_OUT && valid) {
-        med_out[col] = med;
-        mean_out[col] = mean;
-      }
       if (needs & NEED_L1) {
 #pragma unroll
         for (int i = 0; i < M; ++i) {
@@ -404,13 +408,9 @@ fused_stats_kernel(const float* __restrict__ G, long long d, int needs,
         }
       }
     }
-    if constexpr (!COLUMN_OUT) {
-      if (want_gram) {
-        __syncthreads();
-        gram.add_tile(tile);
-        __syncthreads();
-      }
-    }
+    __syncthreads();
+    gram.add_tile(tile);
+    __syncthreads();
   }
 
   __syncthreads();
@@ -425,15 +425,11 @@ fused_stats_kernel(const float* __restrict__ G, long long d, int needs,
       outs[s][static_cast<long long>(blockIdx.x) * M + tid] = v;
     }
   }
-  if constexpr (!COLUMN_OUT) {
-    if (want_gram) {
-      float* gb = gram_p + static_cast<long long>(blockIdx.x) * M * M;
-      gram.finish([gb](int i, int j, float v) {
-        gb[i * M + j] = v;
-        gb[j * M + i] = v;
-      });
-    }
-  }
+  float* gb = gram_p + static_cast<long long>(blockIdx.x) * M * M;
+  gram.finish([gb](int i, int j, float v) {
+    gb[i * M + j] = v;
+    gb[j * M + i] = v;
+  });
 }
 
 // B2: the C1∩C2 mask recomputed from sl [2, M] (scores; l1) and pr [2]
@@ -578,33 +574,102 @@ __host__ __device__ constexpr PadSlots pad_slots() {
   return t;
 }
 
+// The slots whose values are read after each stage when only the slots
+// of KEEP are read at the end: a compare-exchange with a live output
+// needs both inputs.  A stage's pruned network drops the
+// compare-exchanges with no live output and computes only the live side
+// of the others, so the slots of KEEP end with the bits the whole network
+// gives them.  KEEP = every slot keeps the whole network.
+struct LiveSlots {
+  unsigned long long after[32];  // live-slot mask after each stage
+};
+
+template <int MP, unsigned long long KEEP>
+__host__ __device__ constexpr LiveSlots live_slots() {
+  LiveSlots t{};
+  int dist[32] = {};
+  int n = 0;
+  for (int k = 2; k <= MP; k *= 2)
+    for (int j = k / 2; j >= 1; j /= 2) dist[n++] = j;
+  unsigned long long live = KEEP;
+  for (int s = n - 1; s >= 0; --s) {
+    t.after[s] = live;
+    unsigned long long before = live;
+    for (int i = 0; i < MP; ++i) {
+      const int l = i ^ dist[s];
+      if (l > i && (((live >> i) | (live >> l)) & 1)) before |= (1ull << i) | (1ull << l);
+    }
+    live = before;
+  }
+  return t;
+}
+
+// min / max of the network: fminf / fmaxf (a NaN drops out: the callers
+// test the column for NaN), or with NAN_OUT min.NaN / max.NaN, which
+// return NaN when either input is NaN.  Every output slot of a sorting
+// network depends on every input, so with NAN_OUT a NaN anywhere in the
+// column reaches every slot the network computes: the median is NaN
+// without a test, as the plain version's NaN-propagating network gives.
+template <bool NAN_OUT>
+__device__ __forceinline__ float net_min(float a, float b) {
+  if constexpr (NAN_OUT) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+  } else {
+    return fminf(a, b);
+  }
+}
+
+template <bool NAN_OUT>
+__device__ __forceinline__ float net_max(float a, float b) {
+  if constexpr (NAN_OUT) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+  } else {
+    return fmaxf(a, b);
+  }
+}
+
 // Stage S (block size K, distance J) of the pad-tracked network, then the
-// rest; template recursion keeps every pad test a compile-time constant.
-template <int MP, int M, int K, int J, int S, typename At>
+// rest; template recursion keeps every pad and liveness test a
+// compile-time constant.  KEEP: the slots the caller reads (live_slots);
+// NAN_OUT: net_min / net_max.
+template <int MP, int M, int K, int J, int S, unsigned long long KEEP = ~0ull,
+          bool NAN_OUT = false, typename At>
 __device__ __forceinline__ void padfree_stages(At at) {
   constexpr unsigned long long pad = pad_slots<MP, M>().before[S];
+  constexpr unsigned long long live = live_slots<MP, KEEP>().after[S];
 #pragma unroll
   for (int i = 0; i < MP; ++i) {
     const int l = i ^ J;
     if (l > i) {
       const bool pi = (pad >> i) & 1, pl = (pad >> l) & 1;
+      const bool li = (live >> i) & 1, ll = (live >> l) & 1;
       const bool asc = (i & K) == 0;
       if (!pi && !pl) {
-        const float lo = fminf(at(i), at(l));
-        const float hi = fmaxf(at(i), at(l));
-        at(i) = asc ? lo : hi;
-        at(l) = asc ? hi : lo;
+        if (li && ll) {
+          const float lo = net_min<NAN_OUT>(at(i), at(l));
+          const float hi = net_max<NAN_OUT>(at(i), at(l));
+          at(i) = asc ? lo : hi;
+          at(l) = asc ? hi : lo;
+        } else if (li) {
+          at(i) = asc ? net_min<NAN_OUT>(at(i), at(l)) : net_max<NAN_OUT>(at(i), at(l));
+        } else if (ll) {
+          at(l) = asc ? net_max<NAN_OUT>(at(i), at(l)) : net_min<NAN_OUT>(at(i), at(l));
+        }
       } else if (pl && !pi && !asc) {
-        at(l) = at(i);
+        if (ll) at(l) = at(i);
       } else if (pi && !pl && asc) {
-        at(i) = at(l);
+        if (li) at(i) = at(l);
       }
     }
   }
   if constexpr (J > 1) {
-    padfree_stages<MP, M, K, J / 2, S + 1>(at);
+    padfree_stages<MP, M, K, J / 2, S + 1, KEEP, NAN_OUT>(at);
   } else if constexpr (K < MP) {
-    padfree_stages<MP, M, 2 * K, K, S + 1>(at);
+    padfree_stages<MP, M, 2 * K, K, S + 1, KEEP, NAN_OUT>(at);
   }
 }
 
@@ -631,6 +696,334 @@ __device__ __forceinline__ float padfree_median(const float (&g)[M]) {
   if (any_nan) return NAN;
   if (M % 2) return s[M / 2];
   return __fmul_rn(0.5f, __fadd_rn(s[M / 2 - 1], s[M / 2]));
+}
+
+// ---- the column pass: column_stats_kernel<M, VARIANT>, B1's scores /
+// l1 / d2med calls (VARIANT = the NEED_* bits), B4 (COLUMN_OUT | scores
+// | l1: median and mean [d], scores and l1 partials) and the median alone
+// (COLUMN_OUT: median [d], nothing else).  Replaces
+// src/repro/kernels/brsgd_stats.py: fused_stats_pallas without gram,
+// brsgd_stats_pallas and cwise_median_pallas.
+//
+// What bounds it: bytes, G read once (m·d·4) and the [d] outputs written.
+// At m = 20 a column's work (the median network's min / max on the
+// half-rate ALU pipe, the mean, the score counts, the l1 sums) takes about
+// as long as its bytes, so the sort has to run while the next tiles'
+// loads are in flight, or the card waits on one and then the other.
+//
+// Design:
+//   * A persistent grid (the occupancy calculator's count, at most one
+//     block a tile, and enough blocks that none takes 2^COUNT_PLANES
+//     tiles); block b walks the tiles b, b + grid, ... of THREADS
+//     columns, one thread a column.
+//   * Tiles arrive through a ring of `stages` shared-memory stages [M]
+//     [RING_LD], filled by cp.async 16-byte copies that stay in flight
+//     while the thread sorts: tile j + stages - 1 is issued before tile j
+//     is read.  A row that does not start on 16 bytes (d % 4 != 0, or a
+//     view of G) is copied from the 16-byte boundary before its first
+//     column, one chunk more: its column c0 + j lands at [i][s_i + j].
+//     Chunks past the end of G are zero-filled.  Only the last tile is
+//     ragged: its columns past d are masked (exact zeros in every sum, no
+//     median written); every other tile runs without a mask.
+//   * The median: the pad-free network pruned to the two middle slots
+//     (one for odd M), registers below SMEM_SORT_M, else the thread's
+//     column of shared memory, with NaN-propagating min / max: a NaN
+//     anywhere in a column gives NaN without a test.
+//   * Scores: a bit per row at or above the mean, its popcount for the
+//     majority side, and the majority rows' bits added to bit-sliced
+//     counters (COUNT_PLANES words, bit i of word k = bit k of row i's
+//     count: ~2 logic operations a plane for every row at once, the carry
+//     stopping at the count's bit length).  Once per block, __ballot_sync
+//     of each plane's row bits, weighted 2^k, counted by the lane that
+//     keeps row i (lane i % 32 keeps rows i and i + 32 at M = 64).  A
+//     ballot and popcount per row per tile measured 11–15% slower at
+//     [20, 8388608], 4–5% faster at [20, 61706] (PERF.md §6).  l1 and d2med:
+//     summed in registers across the thread's tiles and reduced once per
+//     block by the fixed shuffle tree (at M = 64, per-tile warp sums into
+//     shared memory: a register copy of the column spills there).  Block
+//     partials [grid, M] in a fixed order, no atomics: every run gives the
+//     same bits.
+constexpr int COLUMN_OUT = 16;            // variant bit: write median [d]
+constexpr int RING_LD = THREADS + 4;      // a staged row: 33 chunks of 16 bytes
+constexpr int MAX_STAGES = 4;             // ring stages a launch may ask for
+constexpr int COUNT_PLANES = 16;          // bits of a thread's score counts
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most `pending` (0 .. MAX_STAGES - 2) groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending <= 0) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  } else if (pending == 1) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  }
+}
+
+// Issues the copies of tile t into a ring stage [M][RING_LD].  Ga is G
+// rounded down to 16 bytes and `head` G's offset from it in floats, so
+// element e of G is Ga[head + e]; `total` = head + M·d (the bytes of a
+// chunk past G's end are zero-filled).  Warp w copies rows w, w + WARPS,
+// ...: lane k chunk k, lane 0 also chunk 32 when the row's first column
+// is not on 16 bytes.
+template <int M>
+__device__ __forceinline__ void stage_tile(float* stage, const float* Ga, long long d,
+                                           long long total, int head, long long t) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long c0 = t * THREADS;
+#pragma unroll
+  for (int r = 0; r < (M + WARPS - 1) / WARPS; ++r) {
+    const int i = r * WARPS + warp;
+    if (i < M) {
+      const long long e = head + i * d + c0;
+      const long long e0 = e & ~3ll;
+      float* row = stage + i * RING_LD;
+      const auto copy = [&](int k) {
+        const long long left = total - (e0 + 4 * k);
+        const int bytes = left >= 4 ? 16 : left > 0 ? static_cast<int>(left) * 4 : 0;
+        cp_async16(row + 4 * k, bytes > 0 ? Ga + e0 + 4 * k : Ga, bytes);
+      };
+      copy(lane);
+      if (lane == 0 && e != e0) copy(THREADS / 4);
+    }
+  }
+}
+
+// The median of g[0..M): the pad-free network pruned to the middle
+// slots, with NaN-propagating min / max (a NaN column gives NaN).
+template <int M>
+__device__ __forceinline__ float middle_median(const float (&g)[M], float* scratch) {
+  constexpr int MP = pow2_at_least(M);
+  constexpr unsigned long long KEEP =
+      (1ull << (M / 2)) | (M % 2 ? 0ull : 1ull << (M / 2 - 1));
+  const auto median = [&](auto at) -> float {
+#pragma unroll
+    for (int i = 0; i < M; ++i) at(i) = g[i];
+    padfree_stages<MP, M, 2, 1, 0, KEEP, true>(at);
+    if constexpr (M % 2) return at(M / 2);
+    return __fmul_rn(0.5f, __fadd_rn(at(M / 2 - 1), at(M / 2)));
+  };
+  if constexpr (M >= SMEM_SORT_M) {
+    float* col = scratch + threadIdx.x;
+    return median([col](int i) -> float& { return col[i * THREADS]; });
+  } else {
+    float s[MP];
+    return median([&s](int i) -> float& { return s[i]; });
+  }
+}
+
+// Dynamic shared memory of column_stats_kernel<M, VARIANT> in floats: the
+// sort columns where it takes a median at M >= SMEM_SORT_M, then the ring.
+template <int M, int VARIANT>
+struct ColumnLayout {
+  static constexpr bool MEDIAN = VARIANT & (COLUMN_OUT | NEED_L1 | NEED_D2MED);
+  static constexpr int SORT = (MEDIAN && M >= SMEM_SORT_M) ? pow2_at_least(M) * THREADS : 0;
+  static constexpr int STAGE = M * RING_LD;
+};
+
+// a float of shared memory, read again (not merged with an earlier read)
+__device__ __forceinline__ float lds_again(const float* p) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+}
+
+// a bit per row: 32 or 64 bits
+template <int M>
+using RowBits = typename std::conditional<(M > 32), unsigned long long, unsigned>::type;
+
+__device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
+__device__ __forceinline__ int popc(unsigned long long x) { return __popcll(x); }
+
+template <int M, int VARIANT>
+__global__ void __launch_bounds__(THREADS)
+column_stats_kernel(const float* __restrict__ G, long long d, int stages, int n_planes,
+                    float* __restrict__ scores_p, float* __restrict__ l1_p,
+                    float* __restrict__ d2_p, float* __restrict__ med_out,
+                    float* __restrict__ mean_out) {
+  using L = ColumnLayout<M, VARIANT>;
+  using Bits = RowBits<M>;
+  constexpr bool SCORES = VARIANT & NEED_SCORES;
+  constexpr bool L1 = VARIANT & NEED_L1;
+  constexpr bool D2 = VARIANT & NEED_D2MED;
+  constexpr bool COLS = VARIANT & COLUMN_OUT;
+  constexpr bool REG_ACC = M < SMEM_SORT_M;  // l1 / d2med sums in registers
+  constexpr int CW = (M + 31) / 32;          // score counters a lane keeps
+  __shared__ float red[3][WARPS][M];         // per-warp sums: scores, l1, d2med
+  extern __shared__ __align__(16) float dyn[];
+  float* ring = dyn + L::SORT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long n_tiles = (d + THREADS - 1) / THREADS, grid = gridDim.x;
+  const int head = static_cast<int>((reinterpret_cast<unsigned long long>(G) >> 2) & 3);
+  const float* Ga = G - head;
+  const long long total = head + M * d;
+  // row i's first column sits at [i][sh[i & 3]] of a stage
+  int sh[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) sh[q] = (head + q * static_cast<int>(d & 3)) & 3;
+
+  // Score counts, bit-sliced: bit i of plane[k] is bit k of row i's count
+  // over this thread's columns (a tile adds one bit per row).  A count is
+  // at most a block's tile count, so the n_planes planes of its bit length
+  // hold it (the launch keeps it below 2^COUNT_PLANES).
+  Bits plane[COUNT_PLANES];
+#pragma unroll
+  for (int k = 0; k < COUNT_PLANES; ++k) plane[k] = 0;
+  float l1_acc[REG_ACC && L1 ? M : 1], d2_acc[REG_ACC && D2 ? M : 1];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    if constexpr (REG_ACC && L1) l1_acc[i] = 0.f;
+    if constexpr (REG_ACC && D2) d2_acc[i] = 0.f;
+  }
+  if constexpr (!REG_ACC && (L1 || D2)) {
+    for (int i = tid; i < 3 * WARPS * M; i += THREADS) (&red[0][0][0])[i] = 0.f;
+  }
+
+  // One column of a tile from its stage.  RAGGED: the last tile, whose
+  // columns past d add exact zeros to every sum, neither vote nor write;
+  // every other tile runs without a test.
+  const auto column = [&](auto ragged, const float* st, long long col) {
+    constexpr bool RAGGED = decltype(ragged)::value;
+    const bool valid = !RAGGED || col < d;
+    float g[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) g[i] = st[i * RING_LD + sh[i & 3]];
+    float mean = 0.f;
+    if constexpr (SCORES) {
+      mean = column_mean<M>(g);
+      // the rows at or above the mean (!(g >= mean) below it, not g <
+      // mean: a NaN compares false both ways), then the majority side
+      Bits above = 0;
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+        if (g[i] >= mean) above |= Bits(1) << i;
+      Bits c = !valid ? Bits(0) : 2 * popc(above) >= M ? above : ~above;
+      // add one to the counts of the rows in c
+#pragma unroll
+      for (int k = 0; k < COUNT_PLANES; ++k) {
+        if (k == n_planes) break;
+        const Bits carry = plane[k] & c;
+        plane[k] ^= c;
+        c = carry;
+      }
+    }
+    if constexpr (L::MEDIAN) {
+      const float med = middle_median<M>(g, dyn);
+      if constexpr (COLS) {
+        if (valid) {
+          med_out[col] = med;
+          if constexpr (SCORES) mean_out[col] = mean;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        // below SMEM_SORT_M the column is read again from its stage, so g
+        // need not live through the sort (it spilled there at m = 20)
+        float gi = g[i];
+        if constexpr (REG_ACC) gi = lds_again(st + i * RING_LD + sh[i & 3]);
+        const float df = __fsub_rn(gi, med);
+        if constexpr (L1) {
+          if constexpr (REG_ACC) {
+            l1_acc[i] = __fadd_rn(l1_acc[i], valid ? fabsf(df) : 0.f);
+          } else {
+            const float vs = warp_sum(valid ? fabsf(df) : 0.f);
+            if (lane == 0) red[1][warp][i] += vs;
+          }
+        }
+        if constexpr (D2) {
+          if constexpr (REG_ACC) {
+            d2_acc[i] = __fadd_rn(d2_acc[i], valid ? __fmul_rn(df, df) : 0.f);
+          } else {
+            const float vs = warp_sum(valid ? __fmul_rn(df, df) : 0.f);
+            if (lane == 0) red[2][warp][i] += vs;
+          }
+        }
+      }
+    }
+  };
+
+  // the ring: tiles b, b + grid, ... into stages 0, 1, ..., stages - 1
+  long long t_next = blockIdx.x;
+  for (int s = 0; s < stages - 1; ++s, t_next += grid) {
+    if (t_next < n_tiles) stage_tile<M>(ring + s * L::STAGE, Ga, d, total, head, t_next);
+    cp_async_commit();
+  }
+  int s_read = 0, s_write = stages - 1;
+  for (long long t = blockIdx.x; t < n_tiles; t += grid) {
+    cp_async_wait(stages - 2);  // tile t has landed (this thread's copies)
+    __syncthreads();            // every thread's copies; stage s_write read
+    if (t_next < n_tiles) stage_tile<M>(ring + s_write * L::STAGE, Ga, d, total, head, t_next);
+    cp_async_commit();
+    t_next += grid;
+    s_write = s_write + 1 == stages ? 0 : s_write + 1;
+    const float* st = ring + s_read * L::STAGE + tid;
+    s_read = s_read + 1 == stages ? 0 : s_read + 1;
+    const long long col = t * THREADS + tid;
+    if ((t + 1) * THREADS <= d) {
+      column(std::false_type{}, st, col);
+    } else {
+      column(std::true_type{}, st, col);
+    }
+  }
+
+  if constexpr (SCORES || L1 || D2) {
+    if constexpr (SCORES) {
+      // the warp's count of row c·32 + lane to count[c]: plane k's bits of
+      // row i by ballot, weighted 2^k, the planes shifting down one a round
+      int count[CW];
+#pragma unroll
+      for (int c = 0; c < CW; ++c) count[c] = 0;
+#pragma unroll 1
+      for (int k = 0; k < n_planes; ++k) {
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+          const unsigned votes = __ballot_sync(0xffffffffu, (plane[0] >> i) & 1);
+          if (lane == (i & 31)) count[i >> 5] += __popc(votes) << k;
+        }
+#pragma unroll
+        for (int j = 0; j + 1 < COUNT_PLANES; ++j) plane[j] = plane[j + 1];
+      }
+#pragma unroll
+      for (int c = 0; c < CW; ++c)
+        if (c * 32 + lane < M) red[0][warp][c * 32 + lane] = static_cast<float>(count[c]);
+    }
+    if constexpr (REG_ACC) {
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        if constexpr (L1) {
+          const float v = warp_sum(l1_acc[i]);
+          if (lane == 0) red[1][warp][i] = v;
+        }
+        if constexpr (D2) {
+          const float v = warp_sum(d2_acc[i]);
+          if (lane == 0) red[2][warp][i] = v;
+        }
+      }
+    }
+    __syncthreads();
+    const auto put = [&](int s, float* out) {  // the warps' sums in order
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) v += red[s][w][tid];
+      out[static_cast<long long>(blockIdx.x) * M + tid] = v;
+    };
+    if (tid < M) {
+      if constexpr (SCORES) put(0, scores_p);
+      if constexpr (L1) put(1, l1_p);
+      if constexpr (D2) put(2, d2_p);
+    }
+  }
 }
 
 // The select rules in one cooperative launch each: select_aggregate_kernel
@@ -1228,26 +1621,110 @@ select_aggregate_kernel(const float* __restrict__ G, long long d, int ia, int ib
 }
 
 template <int M>
-int launch_stats(const float* G, long long d, int needs, float* sc, float* l1,
-                 float* d2, float* gram, float* med, float* mean, int n_blocks,
-                 cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (((needs & NEED_GRAM) ? GramPlan<M>::ROWS * GRAM_LD : 0) +
-                       (M >= SMEM_SORT_M ? pow2_at_least(M) * THREADS : 0));
+int launch_gram_stats(const float* G, long long d, int needs, float* sc, float* l1,
+                      float* d2, float* gram, int n_blocks, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (GramPlan<M>::ROWS * GRAM_LD +
+                                       (M >= SMEM_SORT_M ? pow2_at_least(M) * THREADS : 0));
   if (smem > 48 * 1024) {  // above 48 KB only after opting in (M = 64)
-    cudaFuncSetAttribute(fused_stats_kernel<M, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    cudaFuncSetAttribute(fused_stats_kernel<M, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(fused_stats_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
   }
-  if (med != nullptr) {
-    fused_stats_kernel<M, true><<<n_blocks, THREADS, smem, stream>>>(
-        G, d, needs, sc, l1, d2, gram, med, mean);
-  } else {
-    fused_stats_kernel<M, false><<<n_blocks, THREADS, smem, stream>>>(
-        G, d, needs, sc, l1, d2, gram, nullptr, nullptr);
-  }
+  fused_stats_kernel<M><<<n_blocks, THREADS, smem, stream>>>(G, d, needs, sc, l1, d2, gram);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The opt-in to AGG_MAX_DYNAMIC bytes of dynamic shared memory and the
+// largest shared-memory carveout of one kernel, once per device.
+template <typename Kernel>
+cudaError_t prepare_smem(Kernel kernel, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, AGG_MAX_DYNAMIC);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && dev < 64) done[dev] = true;
+  return e;
+}
+
+// *count = the blocks of `kernel` the current card holds at once, each
+// with `smem` bytes of dynamic shared memory (`prepared`: its opt-in)
+template <typename Kernel>
+int coresident_blocks(Kernel kernel, cudaError_t prepared, long long smem, int* count) {
+  int per_sm = 0, sms = 0, dev = 0;
+  cudaError_t e = prepared;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                      static_cast<size_t>(smem));
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *count = e == cudaSuccess ? per_sm * sms : 0;
+  return static_cast<int>(e);
+}
+
+template <int M, int VARIANT>
+cudaError_t column_prepare() {
+  static bool done[64] = {};
+  return prepare_smem(column_stats_kernel<M, VARIANT>, done);
+}
+
+// dynamic shared memory of column_stats_kernel<M, VARIANT> with `stages`
+template <int M, int VARIANT>
+size_t column_smem(int stages) {
+  using L = ColumnLayout<M, VARIANT>;
+  return sizeof(float) * (L::SORT + static_cast<size_t>(stages) * L::STAGE);
+}
+
+template <int M, int VARIANT>
+int launch_column(const float* G, long long d, int stages, float* sc, float* l1, float* d2,
+                  float* med, float* mean, int grid, cudaStream_t stream) {
+  const long long n_tiles = (d + THREADS - 1) / THREADS;
+  const long long per_block = (n_tiles + grid - 1) / grid;  // a block's score counts
+  if (grid < 1 || stages < 2 || stages > MAX_STAGES || per_block >= (1ll << COUNT_PLANES))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int n_planes = 0;
+  while ((1ll << n_planes) <= per_block) ++n_planes;
+  const size_t smem = column_smem<M, VARIANT>(stages);
+  if (smem > AGG_MAX_DYNAMIC) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = column_prepare<M, VARIANT>();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  column_stats_kernel<M, VARIANT><<<grid, THREADS, smem, stream>>>(G, d, stages, n_planes, sc,
+                                                                    l1, d2, med, mean);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the column-pass variant a C entry names, to its instance: B1's seven
+// non-gram needs, B4, the median alone
+#define COLUMN_DISPATCH(variant, CALL)                                          \
+  switch (variant) {                                                            \
+    case 1: { constexpr int V = 1; return CALL; }                               \
+    case 2: { constexpr int V = 2; return CALL; }                               \
+    case 3: { constexpr int V = 3; return CALL; }                               \
+    case 4: { constexpr int V = 4; return CALL; }                               \
+    case 5: { constexpr int V = 5; return CALL; }                               \
+    case 6: { constexpr int V = 6; return CALL; }                               \
+    case 7: { constexpr int V = 7; return CALL; }                               \
+    case COLUMN_OUT | NEED_SCORES | NEED_L1: {                                  \
+      constexpr int V = COLUMN_OUT | NEED_SCORES | NEED_L1; return CALL; }      \
+    case COLUMN_OUT: { constexpr int V = COLUMN_OUT; return CALL; }             \
+    default: return static_cast<int>(cudaErrorInvalidValue);                    \
+  }
+
+template <int M>
+int launch_stats(const float* G, long long d, int needs, float* sc, float* l1, float* d2,
+                 float* gram, int grid, int stages, cudaStream_t stream) {
+  if (needs & NEED_GRAM) return launch_gram_stats<M>(G, d, needs, sc, l1, d2, gram, grid, stream);
+  if (needs < 1 || needs > (NEED_SCORES | NEED_L1 | NEED_D2MED))
+    return static_cast<int>(cudaErrorInvalidValue);
+  COLUMN_DISPATCH(needs, (launch_column<M, V>(G, d, stages, sc, l1, d2, nullptr, nullptr, grid,
+                                              stream)))
+}
+
+template <int M>
+int column_coresident(int variant, long long smem, int* count) {
+  COLUMN_DISPATCH(variant, (coresident_blocks(column_stats_kernel<M, V>, column_prepare<M, V>(),
+                                              smem, count)))
 }
 
 template <int M>
@@ -1289,30 +1766,13 @@ size_t aggregate_smem(long long d, int grid, int resident) {
 template <int M, int RULE>
 cudaError_t aggregate_prepare() {
   static bool done[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || (dev < 64 && done[dev])) return e;
-  e = cudaFuncSetAttribute(select_aggregate_kernel<M, RULE>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, AGG_MAX_DYNAMIC);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(select_aggregate_kernel<M, RULE>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess && dev < 64) done[dev] = true;
-  return e;
+  return prepare_smem(select_aggregate_kernel<M, RULE>, done);
 }
 
 template <int M, int RULE>
 int aggregate_coresident(long long smem, int* count) {
-  int per_sm = 0, sms = 0, dev = 0;
-  cudaError_t e = aggregate_prepare<M, RULE>();
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, select_aggregate_kernel<M, RULE>,
-                                                      THREADS, static_cast<size_t>(smem));
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  *count = e == cudaSuccess ? per_sm * sms : 0;
-  return static_cast<int>(e);
+  return coresident_blocks(select_aggregate_kernel<M, RULE>, aggregate_prepare<M, RULE>(), smem,
+                           count);
 }
 
 template <int M, int RULE>
@@ -1381,25 +1841,40 @@ const char* brsgd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// B1: partials of the requested statistics (null pointer = not requested)
+// B1: partials [grid, m] (gram [grid, m, m]) of the requested statistics
+// (null pointer = not requested): with gram the gram kernel, else the
+// column pass with `stages` ring stages (stages unused with gram)
 int brsgd_fused_stats(const void* G, int m, long long d, int needs, void* scores_p,
-                      void* l1_p, void* d2_p, void* gram_p, int n_blocks,
+                      void* l1_p, void* d2_p, void* gram_p, int grid, int stages,
                       void* stream) {
   BRSGD_DISPATCH(m, launch_stats<M>(
       static_cast<const float*>(G), d, needs, static_cast<float*>(scores_p),
-      static_cast<float*>(l1_p), static_cast<float*>(d2_p),
-      static_cast<float*>(gram_p), nullptr, nullptr, n_blocks,
-      static_cast<cudaStream_t>(stream)))
+      static_cast<float*>(l1_p), static_cast<float*>(d2_p), static_cast<float*>(gram_p),
+      grid, stages, static_cast<cudaStream_t>(stream)))
 }
 
-// B4: median [d], mean [d], scores and l1 partials
+// B4: median [d], mean [d], scores and l1 partials [grid, m]
 int brsgd_column_stats(const void* G, int m, long long d, void* med, void* mean,
-                       void* scores_p, void* l1_p, int n_blocks, void* stream) {
-  BRSGD_DISPATCH(m, launch_stats<M>(
-      static_cast<const float*>(G), d, NEED_SCORES | NEED_L1,
-      static_cast<float*>(scores_p), static_cast<float*>(l1_p), nullptr, nullptr,
-      static_cast<float*>(med), static_cast<float*>(mean), n_blocks,
-      static_cast<cudaStream_t>(stream)))
+                       void* scores_p, void* l1_p, int grid, int stages, void* stream) {
+  BRSGD_DISPATCH(m, (launch_column<M, COLUMN_OUT | NEED_SCORES | NEED_L1>(
+      static_cast<const float*>(G), d, stages, static_cast<float*>(scores_p),
+      static_cast<float*>(l1_p), nullptr, static_cast<float*>(med),
+      static_cast<float*>(mean), grid, static_cast<cudaStream_t>(stream))))
+}
+
+// the coordinate-wise median [d] alone
+int brsgd_cwise_median(const void* G, int m, long long d, void* med, int grid, int stages,
+                       void* stream) {
+  BRSGD_DISPATCH(m, (launch_column<M, COLUMN_OUT>(
+      static_cast<const float*>(G), d, stages, nullptr, nullptr, nullptr,
+      static_cast<float*>(med), nullptr, grid, static_cast<cudaStream_t>(stream))))
+}
+
+// *count = the blocks of a column-pass instance (variant: B1's needs
+// without gram, 16 | 3 for B4, 16 for the median) the current card holds
+// at once with `smem` bytes of dynamic shared memory each
+int brsgd_column_coresident(int m, int variant, long long smem, void* count) {
+  BRSGD_DISPATCH(m, column_coresident<M>(variant, smem, static_cast<int*>(count)))
 }
 
 // B2: selection from sl [2, m] and pr [2], then the masked mean

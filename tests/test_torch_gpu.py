@@ -146,18 +146,107 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_input():
     ops.masked_mean(G, torch.ones(20, device="cuda"))
     assert kern.LAUNCHES == {"fused_stats": 1, "select_mean": 0,
                              "masked_mean": 1, "brsgd_stats": 0,
-                             "trimmed_mean": 0, "brsgd_aggregate": 0,
-                             "select_aggregate": 0}
+                             "cwise_median": 0, "trimmed_mean": 0,
+                             "brsgd_aggregate": 0, "select_aggregate": 0}
     with pytest.raises(ValueError, match="no kernel instance"):
         kern.fused_stats(torch.zeros(6, 10, device="cuda"), ("l1",))
     with pytest.raises(TypeError):
         kern.masked_mean(G.double(), torch.ones(20, device="cuda"))
     with pytest.raises(ValueError, match="contiguous"):
         kern.brsgd_stats(G.T.contiguous().T)
+    with pytest.raises(ValueError, match="contiguous"):
+        kern.cwise_median(G.T.contiguous().T)
     with pytest.raises(ValueError, match="thresholds"):
         kern.select_mean(G, torch.zeros(20, device="cuda"),
                          torch.zeros(20, device="cuda"),
                          torch.tensor(0.0), torch.tensor(1.0))
+
+
+# ---------------------------------------------------------------------------
+# the column pass: B1 without gram, B4 and the median alone
+# ---------------------------------------------------------------------------
+
+# B1's needs that take the column pass (every subset without gram), and
+# gram + d2med, which takes the gram kernel
+COLUMN_NEEDS = [("scores",), ("l1",), ("d2med",), ("scores", "l1"),
+                ("scores", "d2med"), ("l1", "d2med"),
+                ("scores", "l1", "d2med"), ("d2med", "gram")]
+
+
+def check_column_pass(G):
+    """B1 at each of COLUMN_NEEDS, B4 and the median alone against their
+    plain versions: scores, medians and B4's mean exact, l1, d2med and
+    gram within RTOL."""
+    for needs in COLUMN_NEEDS:
+        got, want = kern.fused_stats(G, needs), ref.fused_stats_ref(G, needs)
+        assert set(got) == set(needs)
+        for n in needs:
+            (exact if n == "scores" else close)(got[n], want[n])
+    got, want = kern.brsgd_stats(G), ref.brsgd_stats_ref(G)
+    for i, (a, b) in enumerate(zip(got, want)):
+        (close if i == 3 else exact)(a, b)
+    exact(kern.cwise_median(G), ref.cwise_median_ref(G))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", SHAPES + [(20, 8_388_608), (20, 2_000_003)])
+def test_column_pass_matches_plain_versions(m, d):
+    need_card()
+    check_column_pass(mat(m, d, seed=m + d % 97))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", kern.SUPPORTED_M)
+@pytest.mark.parametrize("d", [61, 1003, 4098])
+@pytest.mark.parametrize("where", ["row", "columns"])
+def test_column_pass_every_m_with_nan(m, d, where):
+    """Every instance, at d < 128 (one ragged tile) and d % 4 != 0 (rows
+    that do not start on 16 bytes): a NaN worker row, or NaN entries
+    scattered over the columns and one column all NaN."""
+    need_card()
+    G = mat(m, d, seed=m * d)
+    if where == "row":
+        G[m // 3] = float("nan")
+    else:
+        cols = torch.arange(0, d, 7, device="cuda")
+        G[cols % m, cols] = float("nan")
+        G[:, 3] = float("nan")
+    check_column_pass(G)
+
+
+@pytest.mark.gpu
+def test_column_pass_score_counts_fill_their_planes():
+    """One block over 2^16 - 1 tiles, the most a block may take: its
+    bit-sliced score counters use all 16 planes and stay exact (a ragged
+    last tile too).  One tile more on one block is refused."""
+    need_card()
+    import ctypes
+    from repro_torch.kernels import _build
+    m = 4
+    lib = _build.load()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for n_tiles, rc_want in ((2 ** 16 - 1, 0), (2 ** 16, 1)):
+        d = 128 * (n_tiles - 1) + 5
+        G = mat(m, d, seed=21)
+        sc = torch.empty((1, m), device="cuda")
+        rc = lib.brsgd_fused_stats(
+            ctypes.c_void_p(G.data_ptr()), m, d, kern.NEED_BITS["scores"],
+            ctypes.c_void_p(sc.data_ptr()), None, None, None, 1,
+            kern.column_stages(m), stream)
+        assert rc == rc_want                  # 1: cudaErrorInvalidValue
+        if rc == 0:
+            exact(sc[0], ref.fused_stats_ref(G, ("scores",))["scores"])
+
+
+@pytest.mark.gpu
+def test_column_pass_on_a_view_off_16_bytes():
+    """G a contiguous view whose data starts 4 bytes past 16: every row
+    is copied from the 16-byte boundary before it."""
+    need_card()
+    base = mat(1, 20 * 1003 + 1, seed=9).reshape(-1)
+    G = base[1:].view(20, 1003)
+    assert G.data_ptr() % 16 == 4 and G.is_contiguous()
+    check_column_pass(G)
 
 
 # the fused brsgd launch: chip_smoke's CHECK_SHAPES (resident in shared
@@ -458,6 +547,36 @@ def test_aggregate_local_is_one_device_kernel(agg):
                                        else st.selected.float()))
     if agg in ("krum", "multi_krum"):
         assert not st.selected[:5].any()
+
+
+@pytest.mark.gpu
+def test_median_aggregate_local_is_one_device_kernel():
+    """A median engine.aggregate_local is the median-only launch and no
+    other device kernel (B4 wrote mean and partials it threw away, then
+    summed them: three)."""
+    need_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import engine
+    G = mat(20, 61706, seed=14)
+    cfg = ByzantineConfig(aggregator="median")
+    engine.aggregate_local(G, cfg)
+    torch.cuda.synchronize()
+    for _ in range(5):      # a trace that lost its records: once more
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = engine.aggregate_local(G, cfg)
+            torch.cuda.synchronize()
+        device = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA}
+        if device:
+            break
+    assert sum(device.values()) == 1, device
+    assert {k: n for k, n in ops.launches().items() if n} == \
+        {"cwise_median": 1}
+    exact(out, ref.cwise_median_ref(G))
 
 
 @pytest.mark.gpu

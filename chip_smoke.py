@@ -39,15 +39,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      weights within 1e-5, the aggregate bit-equal to masked_mean_det(G,
      w); B3 bit-equal with 0/1, float and unit weights;
      B6 (flash attention) at the qwen3-0.6b prefill [B=4, H=16, Hkv=8,
-     S=512, D=128], a ragged S = 200, window 64, D = 64 and 80, in
+     S=512, D=128] and the serve loop's batch-1 [1, 16, 8, 512 | 256,
+     128], a ragged S = 200, window 64, D = 64 and 80, in
      bfloat16, S = 5 (below one mma tile), S one past a query and a key
      tile, groups 1, 2 and 8, every D in both types, and the model's
      strided views against contiguous copies; B7's one-chunk call at
      rwkv6-7b's [4, 64, 64, 64] with w in (e^-1, 1) and down to e^-3 (the
      clamps bite), a ragged Q = 40 and K = 32, also against the
      sequential oracle, and B7's layer call (wkv6_seq, one launch) at
-     S in {1, 63, 64, 65, 512}, K in {32, 64}, both decay ranges, from a
-     nonzero state;
+     S in {1, 63, 64, 65, 512}, K in {32, 64}, and at the serve loop's
+     batch 1 with 64 heads, K = 64, S in {300, 512}, both decay ranges,
+     from a nonzero state;
   4. the paper loop: one make_sim_step step on the card and one on the
      CPU from the same params and batch (brsgd under scale at 0.25, and
      trimmed_mean under scale at 0.1, which it trims away), then 5 card
@@ -77,6 +79,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      (prompt 80, a ragged chunk: prefill logits, 8 teacher-forced decode
      steps over a float32 and over the bfloat16 cache, greedy tokens);
      prefill == sequential decode on the card for both reduced configs;
+  7b. the continuous-batching serve loop at full width: (a)
+     serve.main --serve-loop for qwen3-0.6b (16 requests, --max-batch
+     8, prompts 256-512, 32 new tokens) from a port checkpoint in a
+     temporary directory under build/ (removed at the end), and for
+     rwkv6-7b from --seed (8 requests, --max-batch 4, 16 new tokens):
+     every request completes, one decode graph, and B6 / B7 held
+     against their plain versions on the inputs the loop's prefills
+     gave them (the first call at each distinct shape); (b) a swap to negated
+     params published after decode step 4 of a 4-request loop with a
+     float32 cache: swap_count 1, two decode graphs, tokens equal to an
+     eager batch-1 decode that switches params there, not to the
+     never-swapped one; (c) every request of (a) equal to the same loop
+     serving it alone (exact), and against its isolated batch-1
+     serve.generate decode; then the same stream, params and slots
+     through a loop over a float32 cache against serve.generate over
+     one; tokens may differ first only at a near tie of the reference
+     (top-two logits within 1e-4 of max|logit| with the float32 cache,
+     1e-2 with the bfloat16 one), counted and printed;
+     (d) B6 = 28 per qwen3 admission, B7 = 32 per rwkv6 admission, none
+     in the decode step (counted on its eager warm-up); (e) a torn and a
+     corrupt publish under live decode quarantined, the served step
+     kept, a slot stalled for 12 ticks requeued by a 4-tick timeout,
+     every request complete and held to its isolated serve.generate
+     decode (float32 cache, 1e-4); (f) the loop's decode tok/s and its
+     decode step's device time (its graph replayed, by CUDA events and
+     torch.profiler) against its median host-clock step;
   8. timing with CUDA events (bare kernel launch, wrapper call, plain
      version, one library call) and each bare kernel's device time
      (torch.profiler) at [20, 61706] and [20, 8388608] (the fused select
@@ -158,9 +186,12 @@ SEQ_KERNELS = {
     "wkv6_seq": ("src/repro_torch/kernels/csrc/wkv6.cu",
                  "src/repro/kernels/wkv6.py:69"),
 }
-# B6 cases (B, H, Hkv, S, D, window, dtype name): the qwen3-0.6b prefill,
+# B6 cases (B, H, Hkv, S, D, window, dtype name): the qwen3-0.6b prefill
+# (batch 4 single shot; batch 1 at the serve loop's 512 and 256 buckets),
 # a ragged S, a window, D = 64 and 80, bfloat16
 FLASH_CASES = ((4, 16, 8, 512, 128, 0, "float32"),
+               (1, 16, 8, 512, 128, 0, "float32"),
+               (1, 16, 8, 256, 128, 0, "float32"),
                (1, 16, 8, 200, 128, 0, "float32"),
                (1, 16, 8, 512, 128, 64, "float32"),
                (2, 8, 4, 300, 64, 0, "float32"),
@@ -180,11 +211,30 @@ WKV_CASES = ((4, 64, 64, 64, 1.0), (4, 64, 64, 64, 3.0),
 # wkv6_seq (the layer call): prompt lengths, K, log-decay ranges
 WKV_SEQ_S = (1, 63, 64, 65, 512)
 WKV_SEQ_K = (32, 64)
+# (B, H, S, K): the serve loop's rwkv6-7b prefill, batch 1 at all 64
+# heads, a ragged prompt length and a whole number of chunks
+WKV_SEQ_SERVE = ((1, 64, 300, 64), (1, 64, 512, 64))
 WKV_TOL = (2e-5, 1e-5)        # y, S_out: relative to the largest |plain|
 SERVE_ARCHS = ("qwen3-0.6b", "rwkv6-7b")
 SERVE_ARGS = ("--batch", "4", "--prompt-len", "512", "--gen", "16",
               "--repeat", "3")
 SERVE_TOL = 1e-4              # logits, relative to the largest |logit|
+# the serve loop at full width (serve.main --serve-loop): qwen3-0.6b from a
+# port checkpoint, with the hot swap and the faults; rwkv6-7b from --seed
+SERVE_LOOP_ARGS = {
+    "qwen3-0.6b": ("--requests", "16", "--max-batch", "8", "--prompt-len",
+                   "512", "--gen", "32"),
+    "rwkv6-7b": ("--requests", "8", "--max-batch", "4", "--prompt-len",
+                 "512", "--gen", "16"),
+}
+SWAP_ARCH = "qwen3-0.6b"
+SWAP_REQUESTS, SWAP_GEN, SWAP_AT = 4, 12, 4   # negated params after step 4
+# (e): a slot stalled for FAULT_STALL ticks, requeued after FAULT_TIMEOUT
+FAULT_REQUESTS, FAULT_GEN, FAULT_STALL, FAULT_TIMEOUT = 6, 8, 12, 4
+# a greedy token may differ from its reference only where the reference's
+# top-two logits lie within NEAR_TIE of its max|logit| (float32 cache;
+# over the bfloat16 cache the margin is BF16_CACHE_TOL)
+NEAR_TIE = 1e-4
 BF16_CACHE_TOL = 1e-2         # decode logits over a bfloat16 cache, the same
 TRIM_FRACS = (0.1, 0.25, 0.49, 0.5)   # 0.5 takes trim_k's 2k >= m guard
 LIBRARY_CALLS = {
@@ -691,35 +741,59 @@ def _wkv_inputs(torch, B, H, Q, K, decay, seed=0):
     return r, k, v, w, u, S0
 
 
+def _check_flash(torch, ref, q, k, v, win, label, worst, row=None):
+    """B6 on (q, k, v) against its plain version at FLASH_TOL, and on
+    contiguous copies (bit-equal: the model passes strided views)."""
+    from repro_torch.kernels import flash_attention as fa_kern
+    dt = str(q.dtype).replace("torch.", "")
+    got = fa_kern.flash_attention(q, k, v, win)
+    want = ref.flash_attention_ref(q, k, v, win)
+    again = fa_kern.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), win)
+    torch.cuda.synchronize()
+    if not torch.equal(again, got):
+        fail(f"flash_attention {label}: the model's strided views and "
+             f"contiguous copies differ")
+    rtol, atol = FLASH_TOL[dt]
+    a, b = got.double(), want.double()
+    err = float((a - b).abs().max())
+    excess = float(((a - b).abs() - rtol * b.abs()).max())
+    worst["flash_attention"] = max(worst["flash_attention"], err)
+    if not (excess <= atol and bool(got.isfinite().all())):
+        fail(f"flash_attention {label}: max abs err {err} beyond rtol "
+             f"{rtol} / atol {atol}")
+    emit({"check": "flash_attention", "input": label, **(row or {}),
+          "max_abs_err": err, "rtol": rtol, "atol": atol,
+          "strided_equals_contiguous": True})
+
+
+def _check_wkv_seq(torch, ref, ins, chunk, label, worst, row=None):
+    """wkv6_seq (B7's layer call) on ins = (r, k, v, w, u, S0) against
+    its plain version at WKV_TOL."""
+    from repro_torch.kernels import wkv6 as wkv_kern
+    y, S_out = wkv_kern.wkv6_seq(*ins, chunk)
+    yp, Sp = ref.wkv6_seq_plain(*ins, chunk)
+    torch.cuda.synchronize()
+    ey, es = _err(y, yp), _err(S_out, Sp)
+    worst["wkv6_seq"] = max(worst["wkv6_seq"], ey, es)
+    if not (_rel_ok(y, yp, WKV_TOL[0]) and _rel_ok(S_out, Sp, WKV_TOL[1])):
+        fail(f"wkv6_seq {label}: y err {ey}, S err {es} (max|y| "
+             f"{float(yp.abs().max())}, max|S| {float(Sp.abs().max())})")
+    emit({"check": "wkv6_seq", "input": label, **(row or {}),
+          "chunk": chunk, "y_max_abs_err": ey, "S_max_abs_err": es,
+          "y_rel_tol": WKV_TOL[0], "S_rel_tol": WKV_TOL[1]})
+
+
 def phase_seq_kernels(torch, ref):
     """B6 and B7 against their plain versions (and B7 against the
     sequential oracle where the clamps do not bite)."""
-    from repro_torch.kernels import flash_attention as fa_kern
     from repro_torch.kernels import wkv6 as wkv_kern
     worst = {"flash_attention": 0.0, "wkv6_seq": 0.0}
     for B, H, Hkv, S, D, win, dt in FLASH_CASES:
         q, k, v = (_bshd(torch, B, S, h, D, i, dt)
                    for i, h in enumerate((H, Hkv, Hkv)))
-        got = fa_kern.flash_attention(q, k, v, win)
-        want = ref.flash_attention_ref(q, k, v, win)
-        again = fa_kern.flash_attention(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), win)
-        torch.cuda.synchronize()
-        if not torch.equal(again, got):
-            fail(f"flash_attention [{B},{H},{Hkv},{S},{D}] {dt}: the "
-                 f"model's strided views and contiguous copies differ")
-        rtol, atol = FLASH_TOL[dt]
-        a, b = got.double(), want.double()
-        err = float((a - b).abs().max())
-        excess = float(((a - b).abs() - rtol * b.abs()).max())
-        worst["flash_attention"] = max(worst["flash_attention"], err)
-        label = f"[{B},{H},{Hkv},{S},{D}] window={win} {dt}"
-        if not (excess <= atol and bool(got.isfinite().all())):
-            fail(f"flash_attention {label}: max abs err {err} beyond "
-                 f"rtol {rtol} / atol {atol}")
-        emit({"check": "flash_attention", "input": label,
-              "max_abs_err": err, "rtol": rtol, "atol": atol,
-              "strided_equals_contiguous": True})
+        _check_flash(torch, ref, q, k, v, win,
+                     f"[{B},{H},{Hkv},{S},{D}] window={win} {dt}", worst)
     for B, H, Q, K, decay in WKV_CASES:
         ins = _wkv_inputs(torch, B, H, Q, K, decay)
         y, S_out = wkv_kern.wkv6_chunk(*ins)
@@ -744,28 +818,17 @@ def phase_seq_kernels(torch, ref):
                      f"{row['oracle_S_err']})")
         emit(row)
     # the layer call: one launch over every chunk, from a nonzero state
-    for S in WKV_SEQ_S:
-        for K in WKV_SEQ_K:
-            for decay in (1.0, 3.0):
-                B, H = (4, 64) if (S, K) == (512, 64) else (2, 8)
-                r, k, v, w, u, S0 = _wkv_inputs(torch, B, H, S, K, decay,
-                                                seed=S + K)
-                r, k, v, w = (x.transpose(1, 2).contiguous()
-                              for x in (r, k, v, w))
-                y, S_out = wkv_kern.wkv6_seq(r, k, v, w, u, S0, 64)
-                yp, Sp = ref.wkv6_seq_plain(r, k, v, w, u, S0, 64)
-                torch.cuda.synchronize()
-                label = f"[{B},{S},{H},{K}] w in (e^-{decay:g}, 1)"
-                ey, es = _err(y, yp), _err(S_out, Sp)
-                worst["wkv6_seq"] = max(worst["wkv6_seq"], ey, es)
-                if not (_rel_ok(y, yp, WKV_TOL[0])
-                        and _rel_ok(S_out, Sp, WKV_TOL[1])):
-                    fail(f"wkv6_seq {label}: y err {ey}, S err {es} "
-                         f"(max|y| {float(yp.abs().max())}, max|S| "
-                         f"{float(Sp.abs().max())})")
-                emit({"check": "wkv6_seq", "input": label, "chunk": 64,
-                      "y_max_abs_err": ey, "S_max_abs_err": es,
-                      "y_rel_tol": WKV_TOL[0], "S_rel_tol": WKV_TOL[1]})
+    cases = [((4, 64) if (S, K) == (512, 64) else (2, 8)) + (S, K)
+             for S in WKV_SEQ_S for K in WKV_SEQ_K] + list(WKV_SEQ_SERVE)
+    for B, H, S, K in cases:
+        for decay in (1.0, 3.0):
+            r, k, v, w, u, S0 = _wkv_inputs(torch, B, H, S, K, decay,
+                                            seed=S + K)
+            r, k, v, w = (x.transpose(1, 2).contiguous()
+                          for x in (r, k, v, w))
+            _check_wkv_seq(torch, ref, (r, k, v, w, u, S0), 64,
+                           f"[{B},{S},{H},{K}] w in (e^-{decay:g}, 1)",
+                           worst)
     return worst
 
 
@@ -1399,6 +1462,482 @@ def phase_serve(torch):
 
 
 # ---------------------------------------------------------------------------
+# 7b. the continuous-batching serve loop
+# ---------------------------------------------------------------------------
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+@contextlib.contextmanager
+def _first_inputs(torch, ops, names):
+    """While the block runs, each ``ops.<name>`` of ``names`` keeps a
+    clone of the arguments of its first call at every distinct signature
+    (shapes, dtypes and the int arguments): yields {name: {signature:
+    args}}, so a kernel can later be held against its plain version on
+    the inputs a path really gave it."""
+    seen = {n: {} for n in names}
+    orig = {n: getattr(ops, n) for n in names}
+
+    def wrap(n):
+        def call(*args):
+            key = tuple((tuple(a.shape), str(a.dtype))
+                        if torch.is_tensor(a) else a for a in args)
+            if key not in seen[n]:
+                seen[n][key] = tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args)
+            return orig[n](*args)
+        return call
+    for n in names:
+        setattr(ops, n, wrap(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(ops, n, orig[n])
+
+
+def _check_loop_inputs(torch, ref, arch, seen, worst) -> int:
+    """B6 / B7 on the inputs the serve loop's prefills gave them (the
+    first call at each distinct shape) against their plain versions."""
+    n = 0
+    for args in seen["flash_attention"].values():
+        q, k, v, win = args
+        B, H, S, D = q.shape
+        _check_flash(torch, ref, q, k, v, win,
+                     f"[{B},{H},{k.shape[1]},{S},{D}] window={win} "
+                     f"{str(q.dtype).replace('torch.', '')}", worst,
+                     {"from": f"serve loop {arch} prefill"})
+        n += 1
+    for args in seen["wkv6_seq"].values():
+        r = args[0]
+        B, S, H, K = r.shape
+        _check_wkv_seq(torch, ref, args[:6], args[6], f"[{B},{S},{H},{K}]",
+                       worst, {"from": f"serve loop {arch} prefill"})
+        n += 1
+    return n
+
+
+def _margin(torch, logits) -> float:
+    """(top1 - top2) / max|logit| of one row of logits."""
+    top = torch.topk(logits.float().reshape(-1), 2).values
+    return float((top[0] - top[1]) / logits.float().abs().max())
+
+
+def _near_tie_compare(got, want, margin_at, tol=NEAR_TIE) -> dict:
+    """Tokens of one request against its reference: equal, or first
+    different where the reference's top-two logits lie within ``tol`` of
+    its max|logit| (a near tie); anything else fails."""
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        fail(f"serve loop: {got.shape[0]} tokens against {want.shape[0]}")
+    diff = np.flatnonzero(got != want)
+    if not diff.size:
+        return {"equal": True}
+    j = int(diff[0])
+    m = margin_at(j)
+    if m > tol:
+        fail(f"serve loop: token {j} is {got[j]}, the reference's {want[j]}, "
+             f"and the reference's top-two margin {m:.3e} of max|logit| is "
+             f"no near tie (<= {tol})")
+    return {"equal": False, "near_tie_at": j, "margin": m}
+
+
+def _ties(rows) -> dict:
+    """The near-tie count of a list of _near_tie_compare rows."""
+    return {"requests": len(rows),
+            "near_ties": sum(not r["equal"] for r in rows),
+            "near_tie_detail": [r for r in rows if not r["equal"]]}
+
+
+def _against_solo_loop(ServeLoop, cfg, params, stream, done, max_batch,
+                       max_len):
+    """Every request of a loop against the same loop shape serving it
+    alone (one request at a time, slot 0, the other slots dead): the same
+    prefill and the same decode graph shapes on one card, so tokens are
+    exact unless the loop leaks across slots."""
+    import numpy as np
+    solo = ServeLoop(cfg, max_batch, max_len, params=params)
+    for rid, (prompt, _) in enumerate(stream):
+        srid = solo.submit(prompt, len(done[rid]))
+        want = solo.run()[srid]
+        if not np.array_equal(done[rid], want):
+            fail(f"serve loop {cfg.name}: request {rid} emitted "
+                 f"{done[rid].tolist()}, served alone {want.tolist()}")
+    if solo.decode_graphs() != 1:
+        fail(f"serve loop: the solo loop captured {solo.decode_graphs()} "
+             f"graphs")
+    return len(stream)
+
+
+def _generate_margin(torch, serve, cfg, params, prompt, j, max_len):
+    """The margin of the logits that decide token j of serve.generate."""
+    _, lg, *_ = serve.generate(cfg, params, prompt, j, max_len)
+    return _margin(torch, lg[0, -1])
+
+
+def _against_generate(torch, serve, cfg, params, stream, done, max_len,
+                      tol):
+    """Every request's tokens against its isolated batch-1 serve.generate
+    decode on the same params (exact-length prefill), under the near-tie
+    rule at ``tol``."""
+    rows = []
+    for rid, (prompt, _) in enumerate(stream):
+        p = torch.as_tensor(prompt, device="cuda")[None]
+        want, *_ = serve.generate(cfg, params, p, len(done[rid]), max_len)
+        rows.append(_near_tie_compare(
+            done[rid], want[0].cpu().numpy(),
+            lambda j: _generate_margin(torch, serve, cfg, params, p, j,
+                                       max_len), tol))
+    return rows
+
+
+def _switching_reference(torch, TF, cfg, p_old, p_new, prompt, gen,
+                         swap_step, max_len):
+    """Greedy batch-1 eager decode on the card switching params after
+    ``swap_step`` decode steps (None = never), sharing the cache across
+    the switch; returns (tokens, margin of each token's logits)."""
+    dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    cache = TF.init_cache(cfg, 1, max_len, dtype, "cuda")
+    p = torch.as_tensor(prompt, device="cuda")[None]
+    logits, cache = TF.prefill_cache(cfg, p_old, p, cache)
+    lg = logits[0, -1]
+    toks, margins, pos = [], [], p.shape[1]
+    for i in range(gen):
+        tok = torch.argmax(lg)
+        toks.append(int(tok))
+        margins.append(_margin(torch, lg))
+        if i == gen - 1:
+            break
+        params = p_old if swap_step is None or i < swap_step else p_new
+        lg, cache = TF.decode_step(cfg, params, cache, tok.reshape(1, 1),
+                                   pos + i)
+        lg = lg[0, 0]
+    return toks, margins
+
+
+def _loop_decode_device(torch, loop, reps: int = 20) -> dict:
+    """Device time of one decode step of a finished loop: its graph
+    replayed back to back, by CUDA events and by torch.profiler (the
+    kernels of one replay, by group)."""
+    params = loop.params()
+    _, graph, _ = loop._graphs[id(params)]
+    ev_ms = _time_ms(torch, graph.replay, reps)
+    groups = _device_ms(torch, lambda: [graph.replay() for _ in range(5)])
+    busy = sum(groups.values()) / 5
+    return {"event_ms": ev_ms,
+            "profiler_ms": busy if busy else None,
+            "profiler_ms_by_group": {k: v / 5 for k, v in groups.items()}}
+
+
+def _check_loop_launches(arch, cfg, res) -> dict:
+    """The loop ran on the card with a decode graph, its prefills
+    launched B6 / B7 as the table says and its decode steps none;
+    returns the measured launches per admission."""
+    loop = res["loop"]
+    want = {k: n * res["prefills"]
+            for k, n in _expected_prefill(cfg, 0).items()}
+    if loop.device.type != "cuda" or res["decode_graphs"] < 1:
+        fail(f"serve loop {arch}: ran on {loop.device} with "
+             f"{res['decode_graphs']} decode graphs")
+    if loop.prefill_launches != want or res["launches"] != want:
+        fail(f"serve loop {arch}: prefills launched {loop.prefill_launches} "
+             f"(all launches {res['launches']}), expected {want}")
+    if loop.decode_launches:
+        fail(f"serve loop {arch}: the decode step launched "
+             f"{loop.decode_launches} (expected none)")
+    return {k: n // res["prefills"] for k, n in loop.prefill_launches.items()}
+
+
+def phase_serve_loop(torch, ref, worst):
+    """(a) serve.main --serve-loop at full width, qwen3-0.6b from a port
+    checkpoint, rwkv6-7b from --seed, with B6 / B7 held against their
+    plain versions on the inputs its prefills gave them; (b) a hot swap
+    to negated params at decode step SWAP_AT; (c) every request against
+    the loop serving it alone and against its isolated serve.generate
+    decode, over the bfloat16 cache and again over a float32 cache;
+    (d) B6 / B7 launches per admission, none in decode; (e) a torn and a
+    corrupt publish quarantined, a stalled slot requeued; (f) the loop's
+    decode tok/s and its decode step's device time against the host's."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.faults import get_spec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving import HotSwapper, ServeLoop
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="serve_loop_", dir=ROOT / "build"))
+    out, launches, per_admission = {}, {}, {}
+    try:
+        for arch, args in SERVE_LOOP_ARGS.items():
+            cfg = get_config(arch)
+            args = ["--arch", arch, "--serve-loop", *args]
+            d = None
+            if arch == SWAP_ARCH:
+                d = str(tmp / arch)
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                params = PM.init_params(TF.param_defs(cfg), gen,
+                                        device="cuda")
+                t0 = time.perf_counter()
+                ckpt.save(d, params, step=1)
+                save_s = time.perf_counter() - t0
+                del params
+                args += ["--ckpt-dir", d, "--metrics-out",
+                         str(tmp / "metrics.txt")]
+            # (a) + (d)
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            with _first_inputs(torch, ops, ("flash_attention",
+                                            "wkv6_seq")) as seen:
+                t0 = time.perf_counter()
+                res = serve.main(args)
+                secs = time.perf_counter() - t0
+            counts = {k: n for k, n in ops.launches().items() if n}
+            loop = res["loop"]
+            per = _check_loop_launches(arch, cfg, res)
+            if counts != res["launches"]:
+                fail(f"serve loop {arch}: counters read {counts}")
+            if res["decode_graphs"] != 1:
+                fail(f"serve loop {arch}: {res['decode_graphs']} decode "
+                     f"graphs without a swap (expected 1)")
+            stream, done = res["stream"], res["done"]
+            if sorted(done) != list(range(len(stream))) or any(
+                    len(done[r]) != g for r, (_, g) in enumerate(stream)):
+                fail(f"serve loop {arch}: not every request completed")
+            if any(int(t) < 0 or int(t) >= cfg.vocab
+                   for v in done.values() for t in v):
+                fail(f"serve loop {arch}: a token outside the vocabulary")
+            launches.update(counts)
+            per_admission.update(per)
+            lat = loop.metrics.step_lat_s
+            replay = lat[1:]          # the first step is the graph's warm-up
+            row = {"check": "serve_loop", "arch": arch,
+                   "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "requests": res["requests"], "max_batch": res["max_batch"],
+                   "max_len": res["max_len"], "tokens": res["tokens"],
+                   "seconds": secs, "loop_s": res["seconds"],
+                   "tok_s": res["tok_s"], "steps": res["steps"],
+                   "decode_tokens": res["decode_tokens"],
+                   "decode_s": res["decode_s"],
+                   "decode_tok_s": res["decode_tok_s"],
+                   "step_ms_first": lat[0] * 1e3,
+                   "step_ms_median": float(np.median(replay)) * 1e3,
+                   "step_ms_p90": float(np.percentile(replay, 90)) * 1e3,
+                   "decode_graphs": res["decode_graphs"],
+                   "prefill_shapes": res["prefill_shapes"],
+                   "prefills": res["prefills"],
+                   "launches_per_admission": per, "decode_launches": "none",
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            # the prefill kernels on the loop's own inputs
+            row["prefill_inputs_checked"] = _check_loop_inputs(
+                torch, ref, arch, seen, worst)
+            if not row["prefill_inputs_checked"]:
+                fail(f"serve loop {arch}: no prefill kernel input seen")
+            del seen
+            # (c) every request against the same loop serving it alone
+            # (exact), and against its isolated serve.generate decode.
+            # Over the bfloat16 cache at BF16_CACHE_TOL: the batched
+            # graph's GEMMs and the batch-1 eager ones round the last
+            # bits differently, and the bfloat16 cache (qwen3's K/V and
+            # attention weights, with the bucket's pad keys in the
+            # unmasked row max; rwkv6's wkv state, rounded every step)
+            # turns those bits into ~1e-3 of max|logit|.  The same stream
+            # over a float32 cache, where nothing rounds them up, is held
+            # at NEAR_TIE.
+            row["equal_to_solo_loop"] = _against_solo_loop(
+                ServeLoop, cfg, loop.params(), stream, done,
+                res["max_batch"], res["max_len"])
+            row["against_generate"] = {
+                "cache_dtype": cfg.dtype, "near_tie_tol": BF16_CACHE_TOL,
+                **_ties(_against_generate(
+                    torch, serve, cfg, loop.params(), stream, done,
+                    res["max_len"], BF16_CACHE_TOL))}
+            row["float32_cache"] = _float32_cache_loop(
+                torch, serve, ServeLoop, dataclasses.replace(
+                    cfg, dtype="float32"), loop.params(), stream,
+                res["max_batch"], res["max_len"])
+            # (f) the decode step's device time: its graph replayed
+            dev = _loop_decode_device(torch, loop)
+            row["decode_step_device_ms"] = dev
+            row["full_batch_tok_s"] = (res["max_batch"]
+                                       / row["step_ms_median"] * 1e3)
+            # the least time of one step: every parameter and the whole
+            # cache read once; 2 FLOPs a parameter a slot (float32)
+            p_bytes = sum(t.numel() * t.element_size()
+                          for t in _leaves(loop.params()))
+            c_bytes = sum(t.numel() * t.element_size()
+                          for t in _leaves(loop.cache.bufs))
+            bound, by = _bound(p_bytes + c_bytes,
+                               2 * p_bytes / 4 * res["max_batch"])
+            row.update(decode_bound_ms=bound, decode_bound_by=by,
+                       param_bytes=p_bytes, cache_bytes=c_bytes)
+            for k in ("event_ms", "profiler_ms"):
+                row[f"busy_share_{k}"] = (
+                    dev[k] / row["step_ms_median"] if dev[k] else
+                    "not measured (the profiler saw no device time)")
+            if d is not None:
+                row["ckpt_save_s"] = save_s
+                row["initial_restore_s"] = loop.swapper.last_stall_s
+            emit(row)
+            out[arch] = row
+            del res, loop, done
+            if d is not None:
+                out["swap"] = _swap_and_faults(torch, ckpt, get_spec, TF,
+                                               serve, HotSwapper, ServeLoop,
+                                               cfg, d, stream)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, launches, per_admission
+
+
+def _float32_cache_loop(torch, serve, ServeLoop, cfg, params, stream,
+                        max_batch, max_len) -> dict:
+    """The same stream, params and slot count through a loop over a
+    float32 cache (``cfg.dtype`` float32), every request held to its
+    float32-cache serve.generate decode at NEAR_TIE."""
+    loop = ServeLoop(cfg, max_batch, max_len, params=params)
+    for prompt, g in stream:
+        loop.submit(prompt, g)
+    done = loop.run()
+    if loop.decode_graphs() != 1 or loop.decode_launches:
+        fail(f"serve loop {cfg.name} float32 cache: "
+             f"{loop.decode_graphs()} decode graphs, decode launched "
+             f"{loop.decode_launches}")
+    if sorted(done) != list(range(len(stream))) or any(
+            len(done[r]) != g for r, (_, g) in enumerate(stream)):
+        fail(f"serve loop {cfg.name} float32 cache: not every request "
+             f"completed")
+    del loop
+    return {"cache_dtype": "float32", "near_tie_tol": NEAR_TIE,
+            **_ties(_against_generate(torch, serve, cfg, params, stream,
+                                      done, max_len, NEAR_TIE))}
+
+
+def _swap_and_faults(torch, ckpt, get_spec, TF, serve, HotSwapper, ServeLoop,
+                     cfg, d, stream):
+    """(b) a mid-stream swap to negated params, (e) the faults, on the
+    checkpoint directory of (a).  Both loops keep a float32 cache, so
+    their tokens are held to batch-1 eager references under the near-tie
+    rule at NEAR_TIE (the bfloat16 cache's rounding would mask it)."""
+    import dataclasses
+    import numpy as np
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    max_len = max(len(p) for p, _ in stream) + max(SWAP_GEN, FAULT_GEN)
+    # (b): SWAP_REQUESTS requests, all admitted at the first tick, the
+    # negated params published after decode step SWAP_AT
+    swapper = HotSwapper(d, like=serve.meta_params(cfg), device="cuda")
+    loop = ServeLoop(cfg, 8, max_len, swapper=swapper)
+    reqs = [(p, SWAP_GEN) for p, _ in stream[:SWAP_REQUESTS]]
+    rids = [loop.submit(p, g) for p, g in reqs]
+    publish = {}
+
+    def on_step(lp, s):
+        if s == SWAP_AT:
+            neg = _tree_map(lambda t: -(t.cpu()), lp.params())
+            t0 = time.perf_counter()
+            ckpt.save(d, neg, step=2)
+            publish["save_s"] = time.perf_counter() - t0
+
+    done = loop.run(on_step=on_step)
+    p_new = swapper.params()
+    p_old = swapper._slots[1 - swapper._active]
+    if (swapper.swap_count, swapper.loaded_step, loop.decode_graphs()) != (
+            1, 2, 2):
+        fail(f"serve loop swap: swap_count {swapper.swap_count}, step "
+             f"{swapper.loaded_step}, {loop.decode_graphs()} decode graphs "
+             f"(expected 1, 2, 2)")
+    rows, differs = [], 0
+    for rid, (prompt, g) in zip(rids, reqs):
+        want, margins = _switching_reference(torch, TF, cfg, p_old, p_new,
+                                              prompt, g, SWAP_AT, max_len)
+        rows.append(_near_tie_compare(done[rid], want,
+                                      lambda j: margins[j]))
+        never, _ = _switching_reference(torch, TF, cfg, p_old, p_new, prompt,
+                                        g, None, max_len)
+        differs += not np.array_equal(done[rid], never)
+    if not differs:
+        fail("serve loop swap: every stream equals the never-swapped one")
+    swap = {"check": "serve_loop_swap", "arch": cfg.name,
+            "cache_dtype": "float32", "gen": SWAP_GEN, "swap_at": SWAP_AT,
+            "swap_count": swapper.swap_count,
+            "loaded_step": swapper.loaded_step,
+            "decode_graphs": loop.decode_graphs(),
+            "swap_stall_s": swapper.swap_stall_s,
+            "publish_save_s": publish["save_s"],
+            "near_tie_tol": NEAR_TIE, **_ties(rows),
+            "differ_from_never_swapped": differs}
+    emit(swap)
+    del loop, swapper, p_new, p_old
+    torch.cuda.empty_cache()
+
+    # (e): a torn and a corrupt publish under live decode, and a stalled
+    # slot with a request timeout, on a loop serving step 2
+    ckpt.prune(d, 1)
+    swapper = HotSwapper(d, like=serve.meta_params(cfg), device="cuda")
+    loop = ServeLoop(cfg, 4, max_len, swapper=swapper,
+                     request_timeout=FAULT_TIMEOUT)
+    reqs = [(p, FAULT_GEN) for p, _ in stream[:FAULT_REQUESTS]]
+    rids = [loop.submit(p, g) for p, g in reqs]
+    fired = {}
+
+    def on_fault(lp, s):
+        if s in (2, 4):
+            step = 3 if s == 2 else 4
+            fault = "torn_ckpt" if s == 2 else "corrupt_ckpt"
+            ckpt.save(d, _tree_map(lambda t: t.cpu(), lp.params()),
+                      step=step)
+            fired[fault] = get_spec(fault).inject(d, step,
+                                                  np.random.default_rng(s))
+        if s == 3:
+            ctx = type("Ctx", (), {"loop": lp, "stall_ticks": FAULT_STALL})()
+            fired["slot_stall"] = get_spec("slot_stall").inject(
+                ctx, np.random.default_rng(0))
+
+    done = loop.run(on_step=on_fault)
+    if sorted(swapper.quarantined) != [3, 4] or swapper.loaded_step != 2:
+        fail(f"serve loop faults: quarantined {swapper.quarantined}, "
+             f"serving step {swapper.loaded_step} (expected [3, 4], 2)")
+    if loop.metrics.requeues < 1 or sorted(done) != sorted(rids) or any(
+            len(done[r]) != FAULT_GEN for r in rids):
+        fail(f"serve loop faults: {loop.metrics.requeues} requeues, "
+             f"{len(done)} of {len(rids)} requests complete")
+    if loop.decode_graphs() != 1:
+        fail(f"serve loop faults: {loop.decode_graphs()} decode graphs")
+    cmp = _against_generate(torch, serve, cfg, swapper.params(),
+                            reqs, done, max_len, NEAR_TIE)
+    faults = {"check": "serve_loop_faults", "arch": cfg.name,
+              "cache_dtype": "float32", "gen": FAULT_GEN,
+              "stall_ticks": FAULT_STALL, "request_timeout": FAULT_TIMEOUT,
+              "fired": fired,
+              "quarantined": {str(k): v[:120]
+                              for k, v in swapper.quarantined.items()},
+              "requeues": loop.metrics.requeues,
+              "completed": loop.metrics.completed,
+              "decode_graphs": loop.decode_graphs(),
+              "near_tie_tol": NEAR_TIE, **_ties(cmp)}
+    emit(faults)
+    del loop, swapper
+    return {"swap": swap, "faults": faults}
+
+
+# ---------------------------------------------------------------------------
 # 8. timing
 # ---------------------------------------------------------------------------
 
@@ -1891,6 +2430,8 @@ def main() -> int:
     launches = phase_main_path(torch, kern)
     elastic_launches = phase_elastic(torch, kern)
     serve_res, serve_launches, per_prefill = phase_serve(torch)
+    loop_res, loop_launches, per_admission = phase_serve_loop(torch, ref,
+                                                              worst)
     main_t = phase_timing(torch, kern, ref, MAIN_SHAPE, reps=200,
                           plain_reps=20, worst=worst)
     hbm_t = phase_timing(torch, kern, ref, HBM_SHAPE, reps=20, plain_reps=3,
@@ -1974,6 +2515,8 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": serve_launches[name],
                "launches_per_prefill": per_prefill[name],
+               "serve_loop_launches": loop_launches[name],
+               "serve_loop_launches_per_admission": per_admission[name],
                "max_abs_err": worst[name], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1997,7 +2540,15 @@ def main() -> int:
                                           "prefill_s", "decode_s",
                                           "n_layers", "batch", "prompt_len",
                                           "gen", "repeat")}
-                    for a, r in serve_res.items()}})
+                    for a, r in serve_res.items()},
+          "serve_loop": {a: {k: loop_res[a][k] for k in (
+              "decode_tok_s", "full_batch_tok_s", "step_ms_median",
+              "decode_step_device_ms", "decode_bound_ms",
+              "busy_share_event_ms",
+              "busy_share_profiler_ms", "tok_s", "requests", "max_batch",
+              "decode_graphs", "prefill_shapes", "equal_to_solo_loop",
+              "against_generate")}
+              for a in SERVE_LOOP_ARGS}})
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

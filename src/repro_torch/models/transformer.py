@@ -14,9 +14,14 @@ The moe and hybrid (zamba2) segments wait for later slices of the port
 and raise ``NotImplementedError``.
 
 The decode cache is a nested dict of tensors.  ``prefill_cache`` and
-``decode_step`` write it IN PLACE where the JAX package returns new
-buffers (the attention K/V; the recurrent states are replaced, as their
-dtype may change), and return it.
+``decode_step`` write every entry IN PLACE where the JAX package returns
+new buffers, and return the same dict: the buffers never move, so a CUDA
+graph of the decode step (``serving/scheduler.py``) reads and writes
+the same addresses on every replay.  The rwkv token-shift carries
+(``tm_x``, ``cm_x``) are float32 buffers whatever the cache dtype: the
+JAX decode scan returns them in their computed dtype (float32), so they
+can be written in place without a rounding, and the prefill rounds them
+through the cache dtype first, as the JAX prefill stores them.
 """
 from __future__ import annotations
 
@@ -206,24 +211,28 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     return out
 
 
+_CARRIES = ("tm_x", "cm_x")     # rwkv token-shift carries: float32
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device="cpu") -> dict:
-    def zeros(defs):
+    def zeros(defs, name=None):
         if isinstance(defs, dict):
-            return {k: zeros(v) for k, v in defs.items()}
-        return torch.zeros(defs[0], dtype=dtype, device=device)
+            return {k: zeros(v, k) for k, v in defs.items()}
+        dt = torch.float32 if name in _CARRIES else dtype
+        return torch.zeros(defs[0], dtype=dt, device=device)
     return zeros(cache_defs(cfg, batch, seq_len))
 
 
 def decode_step(cfg: ModelConfig, params, cache, token, pos):
     """token [B,1] int64; pos a scalar absolute position or a per-slot
-    ``[B]`` vector (the recurrent family ignores it).  Returns (logits
-    [B,1,V], cache) — the attention K/V written in place; the rwkv
-    entries replaced by new stacks (the state cast to the cache's dtype,
-    the token-shift carries kept in their computed dtype, as the JAX
-    scan returns them)."""
+    ``[B]`` device vector (the recurrent family ignores it; a device
+    vector is used as it is, with no host copy).  Returns (logits
+    [B,1,V], cache) — every entry written in place: the attention K/V,
+    the rwkv state cast to the cache's dtype and the float32 token-shift
+    carries, as the JAX scan returns them."""
     x = embed_inputs(cfg, params, token)
-    pos = L._decode_pos(pos, x.shape[0], x.device)      # one copy per step
+    pos = L._decode_pos(pos, x.shape[0], x.device)
     for i, seg in enumerate(segments(cfg)):
         p_stack, c_stack = params[f"seg_{i}"], cache[f"seg_{i}"]
         if seg.kind == "dense":
@@ -238,7 +247,6 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
                               L.rms_norm(x, p_l["ln2"], cfg.rms_eps),
                               cfg.activation)
         elif seg.kind == "rwkv":
-            ents = []
             for l in range(seg.n):
                 p_l, c_l = _layer(p_stack, l), _layer(c_stack, l)
                 h, (tm_x, wkv) = R6.rwkv6_timemix(
@@ -250,9 +258,9 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
                     p_l["tm"], L.rms_norm(x, p_l["ln2"], cfg.rms_eps),
                     last_x=c_l["cm_x"])
                 x = x + h
-                ents.append({"wkv": wkv.to(c_l["wkv"].dtype), "tm_x": tm_x,
-                             "cm_x": cm_x})
-            cache[f"seg_{i}"] = _stack_entries(ents)
+                c_l["wkv"].copy_(wkv)
+                c_l["tm_x"].copy_(tm_x)
+                c_l["cm_x"].copy_(cm_x)
         else:
             raise ValueError(seg.kind)
     return _head(cfg, params, x), cache
@@ -282,7 +290,10 @@ def _write_entries(cfg, seg: Segment, bufs, ent):
         return {k: _seq_write(bufs[k], ent[k], cfg.attention.window)
                 for k in bufs}
     if seg.kind == "rwkv":
-        return {k: ent[k].to(bufs[k].dtype) for k in bufs}
+        dtype = bufs["wkv"].dtype            # the cache dtype
+        for k in bufs:
+            bufs[k].copy_(ent[k].to(dtype))
+        return bufs
     raise ValueError(seg.kind)
 
 

@@ -615,11 +615,13 @@ def test_standalone_gram_pass_within_its_gate(m, d):
 # B6 and B7 at the shapes of chip_smoke.py's phase 3
 # ---------------------------------------------------------------------------
 
-# (B, H, Hkv, S, D, window, dtype): the qwen3-0.6b prefill, a ragged S, a
-# window, D = 64 and 80, and bfloat16; S = 5 (below one mma tile), S one
+# (B, H, Hkv, S, D, window, dtype): the qwen3-0.6b prefill (batch 4, and
+# batch 1 at the serve loop's 512 and 256 buckets), a ragged S, a window, D = 64 and 80, and bfloat16; S = 5 (below one mma tile), S one
 # past a 128-row query tile and a 64-row key tile, groups 1, 2 and 8, and
 # every D in both types
 FLASH_CASES = [(4, 16, 8, 512, 128, 0, torch.float32),
+               (1, 16, 8, 512, 128, 0, torch.float32),
+               (1, 16, 8, 256, 128, 0, torch.float32),
                (1, 16, 8, 200, 128, 0, torch.float32),
                (1, 16, 8, 512, 128, 64, torch.float32),
                (2, 8, 4, 300, 64, 0, torch.float32),
@@ -731,6 +733,24 @@ def test_wkv6_seq_kernel_matches_plain_version(S, K, decay):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [300, 512])
+@pytest.mark.parametrize("decay", [1.0, 3.0])
+def test_wkv6_seq_kernel_at_the_serve_loop_prefill(S, decay):
+    """The serve loop's rwkv6-7b prefill: batch 1, all 64 heads, K = 64,
+    a ragged prompt length and a whole number of chunks."""
+    need_card()
+    r, k, v, w, u, S0 = _wkv_case(1, 64, S, 64, decay, seed=S + 64)
+    r, k, v, w = (x.transpose(1, 2).contiguous() for x in (r, k, v, w))
+    wkv_kern.reset_launches()
+    y, Sf = wkv_kern.wkv6_seq(r, k, v, w, u, S0, 64)
+    yp, Sp = ref.wkv6_seq_plain(r, k, v, w, u, S0, 64)
+    torch.cuda.synchronize()
+    assert wkv_kern.LAUNCHES["wkv6_seq"] == 1
+    close(y, yp, 2e-5)
+    close(Sf, Sp, 1e-5)
+
+
+@pytest.mark.gpu
 def test_sequence_wrappers_refuse_bad_input():
     need_card()
     q = torch.zeros(1, 2, 8, 48, device="cuda")
@@ -797,3 +817,137 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# the continuous-batching serve loop: one CUDA graph of the decode step
+# ---------------------------------------------------------------------------
+
+LOOP_PROMPTS = (3, 5, 7, 4, 6, 5)
+LOOP_GENS = (6, 4, 8, 3, 5, 7)
+LOOP_MAX_LEN = 24
+
+
+def _loop_run(loop, prompts, gens):
+    rids = [loop.submit(p, g) for p, g in zip(prompts, gens)]
+    done = loop.run()
+    assert set(rids) <= set(done)
+    return [done[r] for r in rids]
+
+
+def _decode_margins(cfg, params, prompt, tokens, max_len):
+    """(top1 - top2) / max|logit| of the logits that decide each token of
+    a batch-1 teacher-forced decode of ``tokens`` (on params' device)."""
+    from repro_torch.models import transformer as TF
+    dev = next(iter(params.values())).device
+    cache = TF.init_cache(cfg, 1, max_len, torch.float32, dev)
+    lg, cache = TF.prefill_cache(cfg, params, torch.as_tensor(
+        prompt, device=dev)[None], cache)
+    lg, out = lg[0, -1], []
+    for i, t in enumerate(tokens):
+        top = torch.topk(lg, 2).values
+        out.append(float((top[0] - top[1]) / lg.abs().max()))
+        lg, cache = TF.decode_step(cfg, params, cache,
+                                   torch.tensor([[int(t)]], device=dev),
+                                   len(prompt) + i)
+        lg = lg[0, 0]
+    return out
+
+
+def _near_tie_equal(got, want, margins, tol=1e-4) -> bool:
+    """Tokens equal, or first different where the reference's top-two
+    logits lie within tol of its max|logit| (then True)."""
+    diff = np.flatnonzero(np.asarray(got) != np.asarray(want))
+    if not diff.size:
+        return False
+    assert margins[diff[0]] <= tol, (diff[0], margins[diff[0]])
+    return True
+
+
+def _loop_setup(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    cfg = get_config(arch).reduced()
+    p_cpu = PM.init_params(TF.param_defs(cfg),
+                           torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=p) for p in LOOP_PROMPTS]
+    return cfg, p_cpu, _to(p_cpu, "cuda"), prompts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b"])
+def test_serve_loop_on_the_card_matches_the_cpu(arch):
+    """The loop on the card (one decode graph) against the loop on the
+    CPU, reduced config: tokens under the near-tie rule; B6 / B7 once a
+    layer per admission, nothing in the decode step; one graph across a
+    second wave of requests; the prefill shapes of the policy."""
+    need_card()
+    from repro_torch.serving import ServeLoop
+    cfg, p_cpu, p_gpu, prompts = _loop_setup(arch)
+    want = _loop_run(ServeLoop(cfg, 4, LOOP_MAX_LEN, params=p_cpu), prompts,
+                     LOOP_GENS)
+    loop = ServeLoop(cfg, 4, LOOP_MAX_LEN, params=p_gpu)
+    ops.reset_launches()
+    got = _loop_run(loop, prompts, LOOP_GENS)
+    for p, g, w in zip(prompts, got, want):
+        _near_tie_equal(g, w, _decode_margins(cfg, p_cpu, p, w,
+                                              LOOP_MAX_LEN))
+    kernel = "flash_attention" if arch == "qwen3-0.6b" else "wkv6_seq"
+    n = len(prompts) * cfg.n_layers
+    assert {k: v for k, v in ops.launches().items() if v} == {kernel: n}
+    assert loop.prefill_launches == {kernel: n}
+    assert loop.decode_launches == {}
+    assert loop.decode_graphs() == 1
+    assert loop.prefill_shapes() == (2 if arch == "qwen3-0.6b" else 5)
+    _loop_run(loop, prompts[:2], (3, 9))               # churn: a new wave
+    assert loop.decode_graphs() == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b"])
+def test_serve_loop_hot_swap_on_the_card(arch, tmp_path):
+    """A swap to negated params after decode step 4 on the card: two
+    decode graphs (one a parameter slot), tokens equal to an eager
+    batch-1 decode on the card that switches params there."""
+    need_card()
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models import transformer as TF
+    from repro_torch.serving import HotSwapper, ServeLoop
+    cfg, p_cpu, _, prompts = _loop_setup(arch)
+    d = str(tmp_path)
+    ckpt.save(d, p_cpu, step=1)
+    neg = _neg(p_cpu)
+    swapper = HotSwapper(d, like=p_cpu, device="cuda")
+    loop = ServeLoop(cfg, 2, LOOP_MAX_LEN, swapper=swapper)
+    rids = [loop.submit(p, 10) for p in prompts[:2]]
+
+    def on_step(lp, s):
+        if s == 4:
+            ckpt.save(d, neg, step=2)
+
+    done = loop.run(on_step=on_step)
+    assert (swapper.swap_count, swapper.loaded_step) == (1, 2)
+    assert loop.decode_graphs() == 2
+    p_old, p_new = _to(p_cpu, "cuda"), _to(neg, "cuda")
+    for rid, prompt in zip(rids, prompts[:2]):
+        cache = TF.init_cache(cfg, 1, LOOP_MAX_LEN, torch.float32, "cuda")
+        lg, cache = TF.prefill_cache(cfg, p_old, torch.as_tensor(
+            prompt, device="cuda")[None], cache)
+        lg, toks, margins = lg[0, -1], [], []
+        for i in range(10):
+            top = torch.topk(lg, 2).values
+            margins.append(float((top[0] - top[1]) / lg.abs().max()))
+            toks.append(int(lg.argmax()))
+            p = p_old if i < 4 else p_new
+            lg, cache = TF.decode_step(cfg, p, cache, torch.tensor(
+                [[toks[-1]]], device="cuda"), len(prompt) + i)
+            lg = lg[0, 0]
+        _near_tie_equal(done[rid], toks, margins)
+
+
+def _neg(tree):
+    if isinstance(tree, dict):
+        return {k: _neg(v) for k, v in tree.items()}
+    return -tree

@@ -50,6 +50,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      S in {1, 63, 64, 65, 512}, K in {32, 64}, and at the serve loop's
      batch 1 with 64 heads, K = 64, S in {300, 512}, both decay ranges,
      from a nonzero state;
+  3b. B6's and B7's backward kernels against autograd of their plain
+     versions: B6 (dq, dk, dv) at the launcher's train shape [2, 16, 8,
+     128, 128], one train_4k sequence [1, 16, 8, 4096, 128], the prefill
+     shape, a ragged S = 200 with window 64, D = 64 and 80, S = 5, S one
+     past a tile, groups 1, 2 and 8, the model's strided views against
+     contiguous copies (bit-equal); B7 (dr, dk, dv, dw, du, dS_in) at
+     [2, 128, 64, 64] and [1, 4096, 64, 64], S in {1, 63, 64, 65}, K = 32,
+     w in (e^-1, 1) and down to e^-3, from a nonzero state, with a given
+     dS_final and without; each backward launched twice (the same bits),
+     and the training forward (log-sum-exp / chunk states written) bit-
+     equal to the serve forward;
   4. the paper loop: one make_sim_step step on the card and one on the
      CPU from the same params and batch (brsgd under scale at 0.25, and
      trimmed_mean under scale at 0.1, which it trims away), then 5 card
@@ -80,16 +91,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      steps over a float32 and over the bfloat16 cache, greedy tokens);
      prefill == sequential decode on the card for both reduced configs;
   7b. the continuous-batching serve loop at full width: (a)
-     serve.main --serve-loop for qwen3-0.6b (16 requests, --max-batch
-     8, prompts 256-512, 32 new tokens) from a port checkpoint in a
+     serve.main --serve-loop for qwen3-0.6b (8 requests, --max-batch
+     8, prompts 256-512, 16 new tokens) from a port checkpoint in a
      temporary directory under build/ (removed at the end), and for
-     rwkv6-7b from --seed (8 requests, --max-batch 4, 16 new tokens):
+     rwkv6-7b from --seed (4 requests, --max-batch 4, 8 new tokens):
      every request completes, one decode graph, and B6 / B7 held
      against their plain versions on the inputs the loop's prefills
-     gave them (the first call at each distinct shape); (b) a swap to negated
-     params published after decode step 4 of a 4-request loop with a
-     float32 cache: swap_count 1, two decode graphs, tokens equal to an
-     eager batch-1 decode that switches params there, not to the
+     gave them (the first call at each distinct shape); (b) at full
+     width cut to 4 layers, from a checkpoint of that depth, a swap to
+     negated params published after decode step 4 of a 4-request loop
+     with a float32 cache: swap_count 1, two decode graphs, tokens equal
+     to an eager batch-1 decode that switches params there, not to the
      never-swapped one; (c) every request of (a) equal to the same loop
      serving it alone (exact), and against its isolated batch-1
      serve.generate decode; then the same stream, params and slots
@@ -98,13 +110,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      (top-two logits within 1e-4 of max|logit| with the float32 cache,
      1e-2 with the bfloat16 one), counted and printed;
      (d) B6 = 28 per qwen3 admission, B7 = 32 per rwkv6 admission, none
-     in the decode step (counted on its eager warm-up); (e) a torn and a
+     in the decode step (counted on its eager warm-up); (e) at the same
+     cut depth, a torn and a
      corrupt publish under live decode quarantined, the served step
      kept, a slot stalled for 12 ticks requeued by a 4-tick timeout,
      every request complete and held to its isolated serve.generate
      decode (float32 cache, 1e-4); (f) the loop's decode tok/s and its
      decode step's device time (its graph replayed, by CUDA events and
      torch.profiler) against its median host-clock step;
+  7c. the training loss and its gradient at full width: one worker's
+     loss_fn and torch.autograd.grad over every parameter on batches from
+     LMWorkerPipeline, qwen3-0.6b and rwkv6-7b at batch 2 x 128 and at
+     [1, 4096] with remat, with B6's and B7's plain versions made to
+     raise on the card: per gradient one forward launch a layer (two with
+     remat) and one backward launch a layer, the loss bit-equal to the
+     no_grad forward's, every gradient finite; host ms (median of 3),
+     peak memory and device ms by kernel group (torch.profiler); then the
+     card against the host CPU at full width cut to 2 layers (batch 1 x
+     80): the loss within 1e-5, each leaf's gradient within 1e-4 of its
+     largest |g|;
   8. timing with CUDA events (bare kernel launch, wrapper call, plain
      version, one library call) and each bare kernel's device time
      (torch.profiler) at [20, 61706] and [20, 8388608] (the fused select
@@ -115,8 +139,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      of each gram rule; B6 at
      its serve shape and at S = 4096 beside SDPA, with its FP32-pipe and
      3xTF32 tensor-core bounds; B7 per layer launch at [4, 512, 64, 64]
-     and its one-chunk call;
-  9. the {"kernels": [...]} line, the nvidia-smi line, and last the
+     and its one-chunk call; B6's backward at [2, 16, 8, 128, 128] and
+     [1, 16, 8, 4096, 128] beside the backward of SDPA, B7's at [2, 128,
+     64, 64] and [1, 4096, 64, 64], each with the plain versions'
+     autograd backward;
+  9. the {"gradient": [...]}, {"phase_seconds": {...}} and
+     {"kernels": [...]} lines, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 """
 from __future__ import annotations
@@ -215,20 +243,87 @@ WKV_SEQ_K = (32, 64)
 # heads, a ragged prompt length and a whole number of chunks
 WKV_SEQ_SERVE = ((1, 64, 300, 64), (1, 64, 512, 64))
 WKV_TOL = (2e-5, 1e-5)        # y, S_out: relative to the largest |plain|
+# B6's backward (B, H, Hkv, S, D, window): the launcher's train shape, one
+# train_4k sequence, the prefill shape, a ragged S with a window, D = 64
+# and 80, S = 5, S one past a dK/dV query tile (33), a dQ / dK/dV row tile
+# (65) and the forward's query tile (129), groups 1, 2 and 8
+FLASH_BWD_CASES = ((2, 16, 8, 128, 128, 0), (1, 16, 8, 4096, 128, 0),
+                   (4, 16, 8, 512, 128, 0), (1, 16, 8, 200, 128, 64),
+                   (2, 8, 4, 300, 64, 0), (1, 8, 8, 256, 80, 0),
+                   (2, 4, 4, 5, 64, 0), (1, 4, 2, 33, 64, 0),
+                   (1, 16, 2, 65, 128, 0), (1, 8, 1, 129, 128, 100),
+                   (1, 16, 16, 97, 80, 0))
+# dq, dk, dv: relative to the largest |plain| of each (3xTF32 against the
+# plain float32 autograd).  The error grows with the keys a row sums over:
+# on an H100 80GB HBM3 the largest of the three read 3.9e-6 at S = 128,
+# at most 8.0e-6 for the other cases below S = 512, 1.3e-5 at S = 512 and
+# 8.2e-5 at S = 4096, the same bits in every run (seeded inputs, a
+# deterministic kernel).  So each case is held to 2e-5 + 2e-8 per key,
+# never above FLASH_BWD_TOL, which the S = 4096 case meets at 82%.
+FLASH_BWD_TOL = 1e-4
+
+
+def _flash_bwd_tol(S: int) -> float:
+    return min(FLASH_BWD_TOL, 2e-5 + 2e-8 * S)
+
+
+# B7's backward (B, S, H, K, log-decay range): rwkv6-7b's train shape and
+# one train_4k sequence, S around one chunk, K = 32; w in (e^-1, 1) and
+# down to e^-3 (the clamps bite); from a nonzero state, with a given
+# dS_final (and without one where S <= 130)
+WKV_BWD_CASES = ((2, 128, 64, 64, 1.0), (2, 128, 64, 64, 3.0),
+                 (1, 4096, 64, 64, 1.0), (2, 1, 8, 64, 1.0),
+                 (2, 63, 8, 64, 1.0), (2, 64, 8, 64, 3.0),
+                 (2, 65, 8, 64, 1.0), (2, 130, 8, 32, 1.0),
+                 (2, 130, 8, 32, 3.0))
+WKV_BWD_TOL = 2e-5            # each gradient, relative to its largest |plain|
+BWD_KERNELS = {
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/layers.py:109 (_sdpa: no Pallas kernel, the JAX "
+        "package lets XLA differentiate the plain jnp attention)"),
+    "wkv6_seq_bwd": (
+        "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+        "src/repro/models/rwkv6.py:100 (_wkv_chunked: no Pallas kernel, the "
+        "JAX package lets XLA differentiate the plain jnp scan)"),
+}
+# the full-width gradient (arch, batch, seq, remat): the JAX launcher's
+# defaults (batch 2 x seq 128) and one train_4k sequence with remat
+GRAD_CASES = (("qwen3-0.6b", 2, 128, False), ("qwen3-0.6b", 1, 4096, True),
+              ("rwkv6-7b", 2, 128, False), ("rwkv6-7b", 1, 4096, True))
+GRAD_REPS = 3                 # timed gradients per case (median), the
+                              # first also checked
+GRAD_KERNELS = {"dense": ("flash_attention", "flash_attention_bwd"),
+                "rwkv": ("wkv6_seq", "wkv6_seq_bwd")}
+# card = CPU at full width cut to 2 layers, batch 1 x 80 (two rwkv chunks,
+# the second ragged): the loss relative, each leaf's gradient relative to
+# its largest |g|
+GRAD_CPU_LAYERS, GRAD_CPU_SEQ = 2, 80
+GRAD_CPU_TOL = (1e-5, 1e-4)
 SERVE_ARCHS = ("qwen3-0.6b", "rwkv6-7b")
 SERVE_ARGS = ("--batch", "4", "--prompt-len", "512", "--gen", "16",
               "--repeat", "3")
 SERVE_TOL = 1e-4              # logits, relative to the largest |logit|
 # the serve loop at full width (serve.main --serve-loop): qwen3-0.6b from a
 # port checkpoint, with the hot swap and the faults; rwkv6-7b from --seed
+# (each request is checked against the loop serving it alone and its
+# batch-1 decode twice).  Each stream holds more requests than slots, so
+# a second wave is admitted into used slots under the captured decode
+# graph (qwen3's K/V, rwkv6's wkv state and carries written over a used
+# slot).  The streams were 16 x 32 and 8 x 16 tokens before the gradient
+# phase joined the script; to keep its time they are cut in tokens, not
+# in requests.
 SERVE_LOOP_ARGS = {
-    "qwen3-0.6b": ("--requests", "16", "--max-batch", "8", "--prompt-len",
-                   "512", "--gen", "32"),
-    "rwkv6-7b": ("--requests", "8", "--max-batch", "4", "--prompt-len",
-                 "512", "--gen", "16"),
+    "qwen3-0.6b": ("--requests", "12", "--max-batch", "8", "--prompt-len",
+                   "512", "--gen", "8"),
+    "rwkv6-7b": ("--requests", "6", "--max-batch", "4", "--prompt-len",
+                 "512", "--gen", "6"),
 }
 SWAP_ARCH = "qwen3-0.6b"
-SWAP_REQUESTS, SWAP_GEN, SWAP_AT = 4, 12, 4   # negated params after step 4
+SWAP_REQUESTS, SWAP_GEN, SWAP_AT = 4, 8, 4    # negated params after step 4
+# the swap and the faults publish and restore checkpoints: at 28 layers
+# (2.38 GB) their I/O was most of the sub-phase's 42 s
+SWAP_LAYERS = 4
 # (e): a slot stalled for FAULT_STALL ticks, requeued after FAULT_TIMEOUT
 FAULT_REQUESTS, FAULT_GEN, FAULT_STALL, FAULT_TIMEOUT = 6, 8, 12, 4
 # a greedy token may differ from its reference only where the reference's
@@ -329,8 +424,9 @@ def phase_build():
 
 
 def phase_sass(paths):
-    """B6 and B7 run their products on the tensor cores: count the HMMA
-    instructions in each library's SASS (cuobjdump beside nvcc).  Also
+    """B6 (forward and backward) and B7 run their products on the tensor
+    cores: count the HMMA instructions in each library's SASS (cuobjdump
+    beside nvcc).  Also
     B3's load batching at m = 20, read from its SASS."""
     from repro_torch.kernels import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -338,7 +434,7 @@ def phase_sass(paths):
         fail(f"no cuobjdump beside nvcc ({tool}): the tensor-core check "
              f"of B6 and B7 cannot run")
     out = {}
-    for name in ("flash_attention", "wkv6"):
+    for name in ("flash_attention", "flash_attention_bwd", "wkv6"):
         sass = subprocess.run([str(tool), "-sass", str(paths[name])],
                               capture_output=True, text=True, timeout=300)
         n = sum("HMMA" in line for line in sass.stdout.splitlines())
@@ -832,6 +928,90 @@ def phase_seq_kernels(torch, ref):
     return worst
 
 
+def _grad_errs(got, want, names) -> dict:
+    """{name: max|got - want| / max|want|} over pairs of gradients."""
+    return {n: float((a.double() - b.double()).abs().max()
+                     / max(float(b.double().abs().max()), 1e-30))
+            for n, a, b in zip(names, got, want)}
+
+
+def _same_bits(torch, a, b) -> bool:
+    """a and b (tensors, or sequences of them) are equal bit for bit."""
+    if torch.is_tensor(a):
+        a, b = (a,), (b,)
+    return all(x.shape == y.shape and bool(torch.equal(x, y))
+               for x, y in zip(a, b))
+
+
+def phase_bwd_kernels(torch, ref):
+    """B6's and B7's backward kernels against autograd of their plain
+    versions on the card, each launched twice on the same inputs (the
+    same bits), and the training forward (log-sum-exp / chunk states
+    written) against the serve forward (the same bits)."""
+    from repro_torch.kernels import flash_attention as fa_kern
+    from repro_torch.kernels import wkv6 as wkv_kern
+    worst = {name: 0.0 for name in BWD_KERNELS}
+    for B, H, Hkv, S, D, win in FLASH_BWD_CASES:
+        label = f"[{B},{H},{Hkv},{S},{D}] window={win}"
+        q, k, v, dO = (_bshd(torch, B, S, h, D, i, "float32")
+                       for i, h in enumerate((H, Hkv, Hkv, H)))
+        o_serve = fa_kern.flash_attention(q, k, v, win)
+        o, lse = fa_kern.flash_attention_lse(q, k, v, win)
+        got = fa_kern.flash_attention_bwd(q, k, v, o, lse, dO, win)
+        again = fa_kern.flash_attention_bwd(q, k, v, o, lse, dO, win)
+        cont = [t.contiguous() for t in (q, k, v, o, dO)]
+        contig = fa_kern.flash_attention_bwd(*cont[:4], lse, cont[4], win)
+        want = ref.flash_attention_grads_ref(q, k, v, dO, win)
+        torch.cuda.synchronize()
+        errs = _grad_errs(got, want, ("dq", "dk", "dv"))
+        row = {"check": "flash_attention_bwd", "input": label, **errs,
+               "rel_tol": _flash_bwd_tol(S),
+               "forward_bits_unchanged": _same_bits(torch, o, o_serve),
+               "second_launch_same_bits": _same_bits(torch, got, again),
+               "strided_equals_contiguous": _same_bits(torch, got, contig)}
+        worst["flash_attention_bwd"] = max(
+            worst["flash_attention_bwd"],
+            *(float((a - b).abs().max()) for a, b in zip(got, want)))
+        if not (max(errs.values()) <= row["rel_tol"]
+                and row["forward_bits_unchanged"]
+                and row["second_launch_same_bits"]
+                and row["strided_equals_contiguous"]):
+            fail(f"flash_attention_bwd {label}: {row}")
+        emit(row)
+        del q, k, v, dO, o, lse, got, again, cont, contig, want
+    names = ("dr", "dk", "dv", "dw", "du", "dS_in")
+    for B, S, H, K, decay in WKV_BWD_CASES:
+        r, k, v, w, u, S0 = _wkv_inputs(torch, B, H, S, K, decay, seed=S + K)
+        r, k, v, w = (x.transpose(1, 2).contiguous() for x in (r, k, v, w))
+        g = torch.Generator(device="cuda").manual_seed(S)
+        dy = torch.randn(B, S, H, K, generator=g, device="cuda")
+        dSf = torch.randn(B, H, K, K, generator=g, device="cuda")
+        y_serve, s_serve = wkv_kern.wkv6_seq(r, k, v, w, u, S0, 64)
+        states = wkv_kern.chunk_states(r, 64)
+        y, s_out = wkv_kern.wkv6_seq(r, k, v, w, u, S0, 64, states)
+        same = _same_bits(torch, (y, s_out), (y_serve, s_serve))
+        for dsf in (dSf, None) if S <= 130 else (dSf,):
+            label = (f"[{B},{S},{H},{K}] w in (e^-{decay:g}, 1) dS_final="
+                     f"{'given' if dsf is not None else 'none'}")
+            got = wkv_kern.wkv6_seq_bwd(r, k, v, w, u, states, dy, dsf, 64)
+            again = wkv_kern.wkv6_seq_bwd(r, k, v, w, u, states, dy, dsf, 64)
+            want = ref.wkv6_seq_grads_plain(r, k, v, w, u, S0, 64, dy, dsf)
+            torch.cuda.synchronize()
+            errs = _grad_errs(got, want, names)
+            row = {"check": "wkv6_seq_bwd", "input": label, **errs,
+                   "rel_tol": WKV_BWD_TOL, "forward_bits_unchanged": same,
+                   "second_launch_same_bits": _same_bits(torch, got,
+                                                         again)}
+            worst["wkv6_seq_bwd"] = max(
+                worst["wkv6_seq_bwd"],
+                *(float((a - b).abs().max()) for a, b in zip(got, want)))
+            if not (max(errs.values()) <= WKV_BWD_TOL and same
+                    and row["second_launch_same_bits"]):
+                fail(f"wkv6_seq_bwd {label}: {row}")
+            emit(row)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # 4. the paper loop, card against CPU, and the launch counters
 # ---------------------------------------------------------------------------
@@ -1273,7 +1453,8 @@ def _device_ms(torch, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"flash_attention": 0.0, "wkv6_seq": 0.0, "gemm": 0.0,
+    groups = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
+              "wkv6_seq": 0.0, "wkv6_seq_bwd": 0.0, "gemm": 0.0,
               "other": 0.0}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -1283,7 +1464,9 @@ def _device_ms(torch, fn):
             us = e.self_cuda_time_total
         name = e.key.lower()
         g = ("flash_attention" if "flash_kernel" in name else
+             "flash_attention_bwd" if "flash_bwd_" in name else
              "wkv6_seq" if "wkv6_seq_kernel" in name else
+             "wkv6_seq_bwd" if "wkv6_seq_bwd_kernel" in name else
              "gemm" if ("gemm" in name or "cutlass" in name
                         or "xmma" in name) else "other")
         groups[g] += us / 1e3
@@ -1716,6 +1899,9 @@ def phase_serve_loop(torch, ref, worst):
             if res["decode_graphs"] != 1:
                 fail(f"serve loop {arch}: {res['decode_graphs']} decode "
                      f"graphs without a swap (expected 1)")
+            if res["prefills"] <= res["max_batch"]:
+                fail(f"serve loop {arch}: {res['prefills']} prefills on "
+                     f"{res['max_batch']} slots: no slot was used again")
             stream, done = res["stream"], res["done"]
             if sorted(done) != list(range(len(stream))) or any(
                     len(done[r]) != g for r, (_, g) in enumerate(stream)):
@@ -1760,18 +1946,26 @@ def phase_serve_loop(torch, ref, worst):
             # turns those bits into ~1e-3 of max|logit|.  The same stream
             # over a float32 cache, where nothing rounds them up, is held
             # at NEAR_TIE.
+            sub_s = {"serve_main": secs}
+            t0 = time.perf_counter()
             row["equal_to_solo_loop"] = _against_solo_loop(
                 ServeLoop, cfg, loop.params(), stream, done,
                 res["max_batch"], res["max_len"])
+            sub_s["solo_loops"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
             row["against_generate"] = {
                 "cache_dtype": cfg.dtype, "near_tie_tol": BF16_CACHE_TOL,
                 **_ties(_against_generate(
                     torch, serve, cfg, loop.params(), stream, done,
                     res["max_len"], BF16_CACHE_TOL))}
+            sub_s["against_generate"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
             row["float32_cache"] = _float32_cache_loop(
                 torch, serve, ServeLoop, dataclasses.replace(
                     cfg, dtype="float32"), loop.params(), stream,
                 res["max_batch"], res["max_len"])
+            sub_s["float32_cache"] = time.perf_counter() - t0
+            row["sub_seconds"] = sub_s
             # (f) the decode step's device time: its graph replayed
             dev = _loop_decode_device(torch, loop)
             row["decode_step_device_ms"] = dev
@@ -1798,9 +1992,12 @@ def phase_serve_loop(torch, ref, worst):
             out[arch] = row
             del res, loop, done
             if d is not None:
+                t0 = time.perf_counter()
                 out["swap"] = _swap_and_faults(torch, ckpt, get_spec, TF,
                                                serve, HotSwapper, ServeLoop,
                                                cfg, d, stream)
+                emit({"check": "serve_loop_swap_and_faults_seconds",
+                      "seconds": time.perf_counter() - t0})
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1832,13 +2029,18 @@ def _float32_cache_loop(torch, serve, ServeLoop, cfg, params, stream,
 
 def _swap_and_faults(torch, ckpt, get_spec, TF, serve, HotSwapper, ServeLoop,
                      cfg, d, stream):
-    """(b) a mid-stream swap to negated params, (e) the faults, on the
-    checkpoint directory of (a).  Both loops keep a float32 cache, so
-    their tokens are held to batch-1 eager references under the near-tie
-    rule at NEAR_TIE (the bfloat16 cache's rounding would mask it)."""
+    """(b) a mid-stream swap to negated params, (e) the faults, at full
+    width cut to SWAP_LAYERS layers, from a checkpoint of that depth
+    beside (a)'s.  Both loops keep a float32 cache, so their tokens are
+    held to batch-1 eager references under the near-tie rule at NEAR_TIE
+    (the bfloat16 cache's rounding would mask it)."""
     import dataclasses
     import numpy as np
-    cfg = dataclasses.replace(cfg, dtype="float32")
+    from repro_torch.models import params as PM
+    cfg = dataclasses.replace(cfg, dtype="float32", n_layers=SWAP_LAYERS)
+    d = f"{d}_{SWAP_LAYERS}_layers"
+    ckpt.save(d, PM.init_params(TF.param_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(0), device="cuda"), step=1)
     max_len = max(len(p) for p, _ in stream) + max(SWAP_GEN, FAULT_GEN)
     # (b): SWAP_REQUESTS requests, all admitted at the first tick, the
     # negated params published after decode step SWAP_AT
@@ -1938,6 +2140,190 @@ def _swap_and_faults(torch, ckpt, get_spec, TF, serve, HotSwapper, ServeLoop,
 
 
 # ---------------------------------------------------------------------------
+# 7c. the training loss and its gradient at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _plain_versions_refuse_the_card(torch):
+    """B6's and B7's plain versions raise for a CUDA tensor while the
+    block runs: the gradient on the card must go through the kernels."""
+    from repro_torch.kernels import ref
+    names = ("flash_attention_ref", "wkv6_seq_plain", "wkv6_chunk_plain")
+    saved = {n: getattr(ref, n) for n in names}
+
+    def guard(name, fn):
+        def call(*args, **kw):
+            if any(torch.is_tensor(a) and a.is_cuda for a in args):
+                raise RuntimeError(f"{name}: the plain version was called "
+                                   f"on the card")
+            return fn(*args, **kw)
+        return call
+    for n, fn in saved.items():
+        setattr(ref, n, guard(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ref, n, fn)
+
+
+def _flat_leaves(tree) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update({f"{k}/{n}" if n else k: t
+                        for n, t in _flat_leaves(tree[k]).items()})
+        return out
+    return {"": tree}
+
+
+def _gradient(torch, TF, cfg, params, leaves, batch, remat):
+    """One worker's loss_fn and torch.autograd.grad over every leaf."""
+    loss, _ = TF.loss_fn(cfg, params, batch, remat=remat)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads
+
+
+def _grad_on_card(torch, ops, TF, PL, cfg, params, leaves, kind, B, S,
+                  remat):
+    """The full-width gradient at [B, S]: launch counts, the loss against
+    the no_grad forward's (bit for bit), finite gradients, host ms
+    (median of GRAD_REPS), peak memory and device ms by group."""
+    toks = PL.LMWorkerPipeline(cfg, 2, B, S, seed=0).batch(0)["tokens"][0]
+    batch = {"tokens": torch.from_numpy(toks).to("cuda")}
+    fwd, bwd = GRAD_KERNELS[kind]
+    with torch.no_grad():
+        ops.reset_launches()
+        ng_loss, _ = TF.loss_fn(cfg, params, batch)
+        torch.cuda.synchronize()
+        ng_launches = ops.launches()
+    # the first gradient is read (launches, copies, peak memory, finite)
+    # and timed with the others; the cache is emptied before each: at
+    # rwkv6-7b's width the blocks a gradient frees are split by the next
+    # one's per-layer gradients, and its stacked ones then find no room
+    # (an OOM with 22 GB cached); the host time includes the allocations
+    ts = []
+    for i in range(GRAD_REPS):
+        torch.cuda.empty_cache()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = _gradient(torch, TF, cfg, params, leaves, batch, remat)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            loss0, got, copies = loss, ops.launches(), ops.copies()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            finite = bool(torch.isfinite(loss)) and all(
+                bool(torch.isfinite(g).all()) for g in grads)
+        del grads
+    L = cfg.n_layers
+    want = {fwd: 2 * L if remat else L, bwd: L}
+    res = {"check": "gradient", "arch": cfg.name, "batch": B, "seq": S,
+           "remat": remat, "loss": float(loss0), "no_grad_loss":
+           float(ng_loss), "loss_equals_no_grad_bits":
+           _same_bits(torch, loss0, ng_loss), "finite": finite,
+           "launches": {k: got[k] for k in want},
+           "no_grad_launches": {k: ng_launches[k] for k in want},
+           "gradient_input_copies": copies, "peak_device_gb": peak_gb}
+    others = {k: n for k, n in got.items() if n and k not in want}
+    if (not finite or not res["loss_equals_no_grad_bits"]
+            or any(copies.values())
+            or {k: got[k] for k in want} != want or others
+            or ng_launches[fwd] != L or ng_launches[bwd] != 0):
+        fail(f"gradient {cfg.name} [{B}, {S}] remat={remat}: {res} "
+             f"(expected launches {want}, no others: {others}, and no "
+             f"gradient input copied)")
+    res["host_ms"] = sorted(ts)[len(ts) // 2]
+    res["host_ms_runs"] = ts
+
+    def once():
+        _, g = _gradient(torch, TF, cfg, params, leaves, batch, remat)
+        del g
+    torch.cuda.empty_cache()
+    res["device_ms_by_group"] = _device_ms(torch, once)
+    res["device_busy_ms"] = sum(res["device_ms_by_group"].values())
+    emit(res)
+    return res
+
+
+def _grad_card_vs_cpu(torch, TF, PL, PM, cfg):
+    """The gradient of full-width cfg cut to GRAD_CPU_LAYERS layers on the
+    card against the same on the host CPU (the plain versions)."""
+    import dataclasses
+    cfg2 = dataclasses.replace(cfg, n_layers=GRAD_CPU_LAYERS)
+    p_gpu = PM.init_params(TF.param_defs(cfg2), torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    p_cpu = _tree_to(p_gpu, "cpu")
+    toks = PL.LMWorkerPipeline(cfg2, 1, 1, GRAD_CPU_SEQ,
+                               seed=3).batch(0)["tokens"][0]
+    out = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        leaves = _flat_leaves(p)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        loss, grads = _gradient(torch, TF, cfg2, p, list(leaves.values()),
+                                batch, False)
+        out[dev] = (float(loss), dict(zip(leaves, (g.cpu() for g in grads))))
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    # float32 on the host: a 1e-4 relative tolerance needs no float64
+    errs = {k: float((gg[k] - gc[k]).abs().max()
+                     / max(float(gc[k].abs().max()), 1e-30)) for k in gc}
+    res = {"check": "gradient_card_vs_cpu", "arch": cfg.name,
+           "n_layers": GRAD_CPU_LAYERS, "seq": GRAD_CPU_SEQ,
+           "loss_rel_err": abs(lg - lc) / abs(lc),
+           "worst_leaf": max(errs, key=errs.get),
+           "worst_leaf_rel_err": max(errs.values()),
+           "tol": {"loss": GRAD_CPU_TOL[0], "leaf": GRAD_CPU_TOL[1]}}
+    if not (res["loss_rel_err"] <= GRAD_CPU_TOL[0]
+            and res["worst_leaf_rel_err"] <= GRAD_CPU_TOL[1]):
+        fail(f"gradient card vs CPU {cfg.name}: {res} (leaves {errs})")
+    emit(res)
+
+
+def phase_grad(torch):
+    """One worker's loss_fn and its gradient over every parameter at
+    full width, on batches from LMWorkerPipeline, with the plain versions
+    of B6 and B7 refusing the card; then card = CPU at 2 layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline as PL
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    results, launches = [], {name: 0 for name in BWD_KERNELS}
+    torch.cuda.empty_cache()
+    for arch in dict.fromkeys(a for a, *_ in GRAD_CASES):
+        cfg = get_config(arch)
+        kind = TF.segments(cfg)[0].kind
+        params = PM.init_params(
+            TF.param_defs(cfg), torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        leaves = list(_flat_leaves(params).values())
+        for t in leaves:
+            t.requires_grad_(True)
+        with _plain_versions_refuse_the_card(torch):
+            for a, B, S, remat in GRAD_CASES:
+                if a == arch:
+                    t0 = time.perf_counter()
+                    res = _grad_on_card(torch, ops, TF, PL, cfg, params,
+                                        leaves, kind, B, S, remat)
+                    res["seconds"] = time.perf_counter() - t0
+                    results.append(res)
+                    bwd = GRAD_KERNELS[kind][1]
+                    launches[bwd] += res["launches"][bwd]
+        del params, leaves
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _grad_card_vs_cpu(torch, TF, PL, PM, cfg)
+        emit({"check": "gradient_card_vs_cpu_seconds", "arch": arch,
+              "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    return results, launches
+
+
+# ---------------------------------------------------------------------------
 # 8. timing
 # ---------------------------------------------------------------------------
 
@@ -1972,32 +2358,44 @@ KERNEL_NAMES = {
 }
 
 
-def _kernel_device_ms(torch, fn, reps: int, names, warmup: int = 3):
-    """Device time of one kernel launch, by torch.profiler: the kernels
-    whose names hold one of ``names`` over reps calls of fn, divided by
-    their count.  Unlike CUDA events around back-to-back launches it
-    leaves out the idle gaps when the host launches slower than the
-    kernel runs (the L2 shape's few-microsecond kernels).  None when the
-    profiler saw no such kernel."""
+def _kernel_device_ms(torch, fn, reps: int, kernels, warmup: int = 3,
+                      records: dict = None):
+    """Device time of the kernels one call of fn launches, by
+    torch.profiler over reps calls.  ``kernels`` has one entry per kernel
+    a call launches (one for the aggregation kernels, three for B6's
+    backward), each a tuple of name parts of which the kernel's name
+    holds one; each is taken at its mean over the records the trace kept
+    (a trace can lose records), and the means are summed.  A trace that
+    lost every record of one of them is taken again; after three such
+    traces the result is None, as a sum that leaves a kernel out would
+    read low.  ``records``, when given, receives the number of records
+    of each kernel in the trace read.  Unlike CUDA events around
+    back-to-back launches it leaves out the idle gaps when the host
+    launches slower than the kernel runs (the L2 shape's few-microsecond
+    kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(2):      # a trace that lost its kernel records: once more
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us, n = 0.0, 0
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and any(k in e.key
-                                                        for k in names):
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count]
+        us, counts = 0.0, {}
+        for parts in kernels:
+            hit = [e for e in evs if any(k in e.key for k in parts)]
+            n = counts[parts[0]] = sum(e.count for e in hit)
+            for e in hit:
                 t = getattr(e, "self_device_time_total", None)
-                us += e.self_cuda_time_total if t is None else t
-                n += e.count
-        if n:
-            return us / 1e3 / n
+                us += (e.self_cuda_time_total if t is None else t) / n
+        if records is not None:
+            records.update(counts)
+        if all(counts.values()):
+            return us / 1e3
     return None
 
 
@@ -2127,7 +2525,7 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps, worst):
         bound_ms, bound_by = _bound(r["nbytes"], r["ops"])
         res = {"kernel_ms": _time_ms(torch, raw[name], reps),
                "device_ms": _kernel_device_ms(torch, raw[name], reps,
-                                              KERNEL_NAMES[name]),
+                                              (KERNEL_NAMES[name],)),
                "wrapper_ms": _time_ms(torch, r["fn"], reps),
                "plain_ms": _time_ms(torch, r["plain"], plain_reps, 1),
                "library_ms": (None if r["library"] is None else
@@ -2267,6 +2665,139 @@ def phase_seq_timing(torch, ref):
     return out
 
 
+def _backward_ms(torch, fn, inputs, grad_out, reps):
+    """CUDA-event ms of the backward alone of out = fn(*inputs): the
+    graph is built once and differentiated reps times."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    grads = grad_out if isinstance(grad_out, tuple) else (grad_out,)
+    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+    return _time_ms(torch, lambda: torch.autograd.grad(
+        [o for o, _ in pairs], leaves, [g for _, g in pairs],
+        retain_graph=True, allow_unused=True), reps, 1)
+
+
+def _sdpa_backend(torch, fn) -> str:
+    """The backend PyTorch's scaled_dot_product_attention took, read from
+    the name of the attention kernel fn() launches; "not measured" when
+    three traces show none (the math backend launches no such kernel,
+    but a trace that lost its records shows none either)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernel = next((e.key for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and any(
+                           k in e.key.lower() for k in
+                           ("fmha", "flash", "cudnn", "attention"))), None)
+        if kernel:
+            break
+    else:
+        return "not measured (no attention kernel in three traces)"
+    low = kernel.lower()
+    backend = ("cudnn" if "cudnn" in low else
+               "flash" if "flash" in low else
+               "efficient (memory-efficient / cutlass fmha)"
+               if ("fmha" in low or "efficient" in low) else "unknown")
+    return f"{backend}: {kernel[:100]}"
+
+
+def phase_bwd_timing(torch, ref):
+    """B6's and B7's backward kernels by CUDA events (wrapper calls) and
+    device time (torch.profiler, every kernel of a call) at the gradient
+    phase's shapes; the plain versions' backward (autograd, the forward
+    graph built once) and, for B6, the backward of one
+    scaled_dot_product_attention call.  Bounds from this run's shapes:
+    the larger of the bytes over 3.35 TB/s and 3 x FLOPs / 495 TFLOP/s
+    (3xTF32), with the FP32-pipe bound beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa_kern
+    from repro_torch.kernels import wkv6 as wkv_kern
+    out = {}
+    for label, (B, H, Hkv, S, D) in (("train", (2, 16, 8, 128, 128)),
+                                     ("long", (1, 16, 8, 4096, 128))):
+        q, k, v, dO = (_bshd(torch, B, S, h, D, i, "float32")
+                       for i, h in enumerate((H, Hkv, Hkv, H)))
+        o, lse = fa_kern.flash_attention_lse(q, k, v)
+        reps = 50 if label == "train" else 10
+        kern = lambda: fa_kern.flash_attention_bwd(  # noqa: E731
+            q, k, v, o, lse, dO)
+        nbytes = 4 * (4 * B * H * S * D + 4 * B * Hkv * S * D + B * H * S)
+        ops = 10 * D * B * H * _visible_pairs(S, S, 0)
+        bound_ms, bound_by = _tc_bound(nbytes, ops)
+        kx, vx = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+        sdpa = lambda a, b, c: F.scaled_dot_product_attention(  # noqa: E731
+            a, b, c, is_causal=True)
+        sdpa_ins = [t.contiguous() for t in (q, kx, vx)]
+        ms = [_time_ms(torch, kern, reps)]
+        lib = [_backward_ms(torch, sdpa, sdpa_ins, dO.contiguous(), reps)]
+        lib.append(_backward_ms(torch, sdpa, sdpa_ins, dO.contiguous(),
+                                reps))
+        ms.append(_time_ms(torch, kern, reps))
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in sdpa_ins]
+        o_lib = sdpa(*leaves)
+        records = {}
+        res = {"shape": [B, H, Hkv, S, D], "ms": min(ms), "ms_runs": ms,
+               "device_ms": _kernel_device_ms(
+                   torch, kern, reps, (("flash_bwd_dot",),
+                                       ("flash_bwd_dkdv",),
+                                       ("flash_bwd_dq",)), 1, records),
+               "device_records": records, "reps": reps,
+               "plain_ms": _backward_ms(
+                   torch, ref.flash_attention_ref, (q, k, v), dO,
+                   max(2, reps // 5)),
+               "library_ms": min(lib), "library_ms_runs": lib,
+               "library_backend": _sdpa_backend(
+                   torch, lambda: torch.autograd.grad(
+                       o_lib, leaves, dO.contiguous(), retain_graph=True)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "fp32_bound_ms": _bound(nbytes, ops)[0],
+               "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+        out[f"flash_attention_bwd/{label}"] = res
+        emit({"timing": "flash_attention_bwd", **res,
+              "library_call": "backward of F.scaled_dot_product_attention("
+                              "is_causal=True), float32, kv heads repeated"})
+        del q, k, v, dO, o, lse, kx, vx, sdpa_ins, leaves, o_lib
+    for label, (B, S, H, K) in (("train", (2, 128, 64, 64)),
+                                ("long", (1, 4096, 64, 64))):
+        Q = 64
+        r, k, v, w, u, S0 = _wkv_inputs(torch, B, H, S, K, 1.0)
+        r, k, v, w = (x.transpose(1, 2).contiguous() for x in (r, k, v, w))
+        dy = torch.randn(B, S, H, K, device="cuda")
+        states = wkv_kern.chunk_states(r, Q)
+        wkv_kern.wkv6_seq(r, k, v, w, u, S0, Q, states)
+        reps = 50 if label == "train" else 10
+        kern = lambda: wkv_kern.wkv6_seq_bwd(  # noqa: E731
+            r, k, v, w, u, states, dy, None, Q)
+        C = -(-S // Q)
+        nbytes = 4 * (9 * B * S * H * K + B * H * C * K * K
+                      + B * H * K * K + H * K + B * H * K)
+        ops = 0
+        for c0 in range(0, S, Q):
+            Qc = min(Q, S - c0)
+            tri = Qc * (Qc - 1) // 2
+            ops += B * H * (5 * 2 * tri * K + 4 * 2 * Qc * K * K)
+        bound_ms, bound_by = _tc_bound(nbytes, ops)
+        res = {"shape": [B, S, H, K], "chunk": Q,
+               "ms": _time_ms(torch, kern, reps),
+               "device_ms": _kernel_device_ms(torch, kern, reps,
+                                              (("wkv6_seq_bwd_kernel",),), 1),
+               "plain_ms": _backward_ms(
+                   torch, lambda *x: ref.wkv6_seq_plain(*x, Q),
+                   (r, k, v, w, u, S0), (dy, None), max(2, reps // 5)),
+               "library_ms": None, "bound_ms": bound_ms,
+               "bound_by": bound_by, "fp32_bound_ms": _bound(nbytes, ops)[0],
+               "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
+        out[f"wkv6_seq_bwd/{label}"] = res
+        emit({"timing": "wkv6_seq_bwd", **res, "library_call": "none",
+              "per": "one layer launch"})
+    return out
+
+
 def _raw_launchers(torch, G, sl, pr, w, k):
     """Each kernel's bare launch through the C interface, on buffers
     allocated once: the kernel's own time, without the wrapper's checks,
@@ -2403,7 +2934,7 @@ def kernel_times(torch, src: Path, shapes=()) -> int:
         for name, fn in fns.items():
             emit({"kernel_times": name, "src": str(src), "shape": [m, d],
                   "device_ms": _kernel_device_ms(torch, fn, reps,
-                                                 KERNEL_NAMES[name]),
+                                                 (KERNEL_NAMES[name],)),
                   "events_ms": _time_ms(torch, fn, reps)})
         del G
         torch.cuda.empty_cache()
@@ -2422,21 +2953,32 @@ def main() -> int:
     from repro_torch.kernels import brsgd_stats as kern
     from repro_torch.kernels import ref
     resolve_device("cuda")                 # TF32 off for the whole run
-    phase_build()
-    worst = phase_kernels(torch, kern, ref)
-    worst.update(phase_seq_kernels(torch, ref))
-    phase_loop(torch, kern, ref)
-    agg_t = phase_aggregation(torch, kern, ref)
-    launches = phase_main_path(torch, kern)
-    elastic_launches = phase_elastic(torch, kern)
-    serve_res, serve_launches, per_prefill = phase_serve(torch)
-    loop_res, loop_launches, per_admission = phase_serve_loop(torch, ref,
-                                                              worst)
-    main_t = phase_timing(torch, kern, ref, MAIN_SHAPE, reps=200,
-                          plain_reps=20, worst=worst)
-    hbm_t = phase_timing(torch, kern, ref, HBM_SHAPE, reps=20, plain_reps=3,
-                         worst=worst)
-    seq_t = phase_seq_timing(torch, ref)
+    phase_s = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+    timed("build", phase_build)
+    worst = timed("kernels", phase_kernels, torch, kern, ref)
+    worst.update(timed("seq_kernels", phase_seq_kernels, torch, ref))
+    worst.update(timed("bwd_kernels", phase_bwd_kernels, torch, ref))
+    timed("loop", phase_loop, torch, kern, ref)
+    agg_t = timed("aggregation", phase_aggregation, torch, kern, ref)
+    launches = timed("main_path", phase_main_path, torch, kern)
+    elastic_launches = timed("elastic", phase_elastic, torch, kern)
+    serve_res, serve_launches, per_prefill = timed("serve", phase_serve,
+                                                   torch)
+    loop_res, loop_launches, per_admission = timed(
+        "serve_loop", phase_serve_loop, torch, ref, worst)
+    grad_res, grad_launches = timed("grad", phase_grad, torch)
+    main_t = timed("timing_main", phase_timing, torch, kern, ref, MAIN_SHAPE,
+                   reps=200, plain_reps=20, worst=worst)
+    hbm_t = timed("timing_hbm", phase_timing, torch, kern, ref, HBM_SHAPE,
+                  reps=20, plain_reps=3, worst=worst)
+    seq_t = timed("seq_timing", phase_seq_timing, torch, ref)
+    bwd_t = timed("bwd_timing", phase_bwd_timing, torch, ref)
     kernels = []
     for name in REPLACES:
         # the fused select launch's headline numbers are krum's; every
@@ -2536,6 +3078,32 @@ def main() -> int:
                        chunk_plain_ms=t["chunk_plain_ms"],
                        chunk_bound_ms=t["chunk_bound_ms"])
         kernels.append(row)
+    for name, (source, replaces) in BWD_KERNELS.items():
+        t, lt = bwd_t[f"{name}/train"], bwd_t[f"{name}/long"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": grad_launches[name],
+            "launches_per_gradient": {
+                f"{r['arch']} [{r['batch']},{r['seq']}]"
+                f"{' remat' if r['remat'] else ''}": r["launches"].get(name)
+                for r in grad_res if name in r["launches"]},
+            "max_abs_err": worst[name], "ms": lt["ms"],
+            "device_ms": lt["device_ms"], "plain_ms": lt["plain_ms"],
+            "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
+            "fp32_bound_ms": lt["fp32_bound_ms"],
+            "library_ms": lt["library_ms"],
+            "library_call": ("backward of F.scaled_dot_product_attention"
+                             if name == "flash_attention_bwd" else "none"),
+            "library_backend": lt.get("library_backend"),
+            "shape": lt["shape"], "train_shape": t["shape"],
+            "train_ms": t["ms"], "train_device_ms": t["device_ms"],
+            "train_plain_ms": t["plain_ms"], "train_bound_ms": t["bound_ms"],
+            "train_library_ms": t["library_ms"]})
+    emit({"gradient": [{k: r[k] for k in (
+        "arch", "batch", "seq", "remat", "host_ms", "peak_device_gb",
+        "device_busy_ms", "device_ms_by_group", "launches")}
+        for r in grad_res]})
+    emit({"phase_seconds": phase_s})
     emit({"serve": {a: {k: r[k] for k in ("prefill_tok_s", "decode_tok_s",
                                           "prefill_s", "decode_s",
                                           "n_layers", "batch", "prompt_len",

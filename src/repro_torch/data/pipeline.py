@@ -1,5 +1,5 @@
-"""Per-worker batch pipeline for the LeNet repro, and the arrival
-schedule of elastic rounds.
+"""Per-worker batch pipelines (token batches for LM training, images
+for the LeNet repro), and the arrival schedule of elastic rounds.
 
 Batches carry a leading worker axis [m, b, ...] (numpy).  Byzantine
 *data* corruption happens here: a data-scope ``AttackSpec`` (label_flip)
@@ -14,9 +14,9 @@ from typing import Optional
 
 import numpy as np
 
-from ..configs.base import ByzantineConfig
+from ..configs.base import ByzantineConfig, ModelConfig
 from ..core import threat
-from .synthetic import fmnist_like
+from .synthetic import TokenStream, fmnist_like
 
 
 def _attack_spec(byz: Optional[ByzantineConfig], scope: str):
@@ -113,6 +113,38 @@ class ArrivalSchedule:
         act = np.zeros(self.m, np.float32)
         act[order[:self.quorum]] = 1.0
         return act * np.isfinite(d)
+
+
+class LMWorkerPipeline:
+    """Token batches [m, b, S] (int32, numpy) for LM training: one
+    ``TokenStream`` draw of m·b sequences per step, split by worker.  A
+    data-scope attack (label_flip) corrupts the byzantine workers' token
+    streams, per ``batch(step)``, from the config's membership mask.
+    Configs with prefix embeddings (vision / audio frontends) are not
+    ported yet."""
+
+    def __init__(self, cfg: ModelConfig, n_workers: int,
+                 batch_per_worker: int, seq_len: int, seed: int = 0,
+                 byz: Optional[ByzantineConfig] = None):
+        if cfg.n_prefix_tokens:
+            raise NotImplementedError(
+                f"{cfg.name}: prefix embeddings are not ported yet "
+                f"(ROADMAP A.3)")
+        self.cfg = cfg
+        self.m = n_workers
+        self.b = batch_per_worker
+        self.seq = seq_len
+        self.stream = TokenStream(cfg.vocab, seed=seed)
+        self.byz = byz
+
+    def batch(self, step: int) -> dict:
+        toks = self.stream.batch(step, self.m * self.b, self.seq)
+        toks = toks.reshape(self.m, self.b, self.seq)
+        spec = data_attack_spec(self.byz)
+        if spec is not None:
+            mask = threat.data_membership(self.byz, self.m, step)
+            toks[mask] = spec.corrupt_labels(toks[mask], self.cfg.vocab)
+        return {"tokens": toks}
 
 
 class ImageWorkerPipeline:

@@ -24,7 +24,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "brsgd_stats.cu"
 SOURCES = {"brsgd_stats": SOURCE,
            "flash_attention": CSRC / "flash_attention.cu",
-           "wkv6": CSRC / "wkv6.cu"}
+           "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
+           "wkv6": CSRC / "wkv6.cu",
+           "wkv6_bwd": CSRC / "wkv6_bwd.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler",
@@ -66,22 +68,36 @@ SIGNATURES = {
         "brsgd_select_aggregate_coresident": (_I, _I, _L, _P),
     },
     "flash_attention": {
-        # q, k, v, o, dtype, B, H, Hkv, S, T, D, 4 x (b, h, s) strides,
-        # window, stream
-        "flash_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                _L, _I, _P),
+        # q, k, v, o, lse (nullable), dtype, B, H, Hkv, S, T, D,
+        # 4 x (b, h, s) strides, window, stream
+        "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                _L, _L, _I, _P),
+    },
+    "flash_attention_bwd": {
+        # q, k, v, o, dO, lse, di, dq, dk, dv, B, H, Hkv, S, T, D,
+        # 8 x (b, h, s) strides (q, k, v, o, dO, dq, dk, dv), window, stream
+        "flash_attention_bwd": (_P,) * 10 + (_I,) * 6 + (_L,) * 24
+                               + (_I, _P),
     },
     "wkv6": {
-        # r, k, v, w, u, S0, y, S_out, B, H, S, Q, K, input strides
-        # (batch, token, head), y strides (batch, token, head), stream
-        "wkv6_seq_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _L, _L, _L, _L, _L, _L, _P),
+        # r, k, v, w, u, S0, y, S_out, S_chunks (nullable), B, H, S, Q, K,
+        # input strides (batch, token, head), y strides, stream
+        "wkv6_seq_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _L, _L, _L, _L, _L, _L, _P),
+    },
+    "wkv6_bwd": {
+        # r, k, v, w, u, S_chunks, dy, dS_final (nullable), dr, dk, dv, dw,
+        # du_part, dS_in, B, H, S, Q, K, input, dy and gradient strides
+        # (batch, token, head), stream
+        "wkv6_seq_bwd": (_P,) * 14 + (_I,) * 5 + (_L,) * 9 + (_P,),
     },
 }
 ERROR_STRING = {"brsgd_stats": "brsgd_error_string",
                 "flash_attention": "flash_error_string",
-                "wkv6": "wkv6_error_string"}
+                "flash_attention_bwd": "flash_bwd_error_string",
+                "wkv6": "wkv6_error_string",
+                "wkv6_bwd": "wkv6_bwd_error_string"}
 
 
 def find_nvcc() -> str:
@@ -177,10 +193,13 @@ def load(name: str = "brsgd_stats") -> ctypes.CDLL:
 def aligned(t) -> bool:
     """Every row start of t (4-D, the last dim contiguous) lies on a
     16-byte boundary, as the kernels' 16-byte copies need: the data
-    pointer and the three outer strides in bytes are multiples of 16."""
+    pointer and the three outer strides in bytes are multiples of 16.
+    The stride of a dimension of size 1 never moves an address (autograd
+    hands out such strides freely), so it is not held to that."""
     es = t.element_size()
     return (t.data_ptr() % 16 == 0
-            and all(s * es % 16 == 0 for s in t.stride()[:3]))
+            and all(s * es % 16 == 0 or n == 1
+                    for s, n in zip(t.stride()[:3], t.shape[:3])))
 
 
 def error_string(name: str, rc: int) -> str:

@@ -155,7 +155,8 @@ __device__ __forceinline__ void load_tile(T* sk, T* sv, const T* kb,
 template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int H, int group,
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int H, int group,
              int S, int T_len, Strides qs, Strides ks, Strides vs, Strides os,
              int window, float scale) {
   using L = typename Layout<T>::template Of<D>;
@@ -316,8 +317,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qp = r0 + g + 8 * r;
-    const float den = fmaxf(quad_sum(l_i[r]), 1e-30f);
+    const float l = quad_sum(l_i[r]);
+    const float den = fmaxf(l, 1e-30f);
     if (qp >= S) continue;
+    // the row's log-sum-exp for the backward (training calls only): a row
+    // that sees no key gets +inf, so its recomputed p is exactly 0
+    if (lse != nullptr && t4 == 0)
+      lse[(long long)bh * S + qp] = l > 0.f ? m_i[r] + logf(l) : INFINITY;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       store2(ob + qp * os.s + 8 * n + 2 * t4, acc[n][2 * r] / den,
@@ -326,9 +332,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int S, int T_len, Strides qs, Strides ks, Strides vs,
-           Strides os, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int Hkv, int S, int T_len, Strides qs, Strides ks,
+           Strides vs, Strides os, int window, cudaStream_t stream) {
   constexpr int bytes = Layout<T>::template Of<D>::BYTES;
   auto kern = flash_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -338,19 +344,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   kern<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / Hkv, S, T_len, qs,
-      ks, vs, os, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, H / Hkv, S, T_len,
+      qs, ks, vs, os, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               int B, int H, int Hkv, int S, int T_len, Strides qs, Strides ks,
-               Strides vs, Strides os, int window, cudaStream_t st) {
+               float* lse, int B, int H, int Hkv, int S, int T_len,
+               Strides qs, Strides ks, Strides vs, Strides os, int window,
+               cudaStream_t st) {
 #define FLASH_CASE(DD)                                                     \
   case DD:                                                                 \
-    return launch<DD, T>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, \
-                         window, st);
+    return launch<DD, T>(q, k, v, o, lse, B, H, Hkv, S, T_len, qs, ks, vs, \
+                         os, window, st);
   switch (D) {
     FLASH_CASE(64)
     FLASH_CASE(80)
@@ -372,12 +379,14 @@ const char* flash_error_string(int err) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Strides are in
 // elements, (batch, head, sequence) for each tensor; the head dimension
 // D is contiguous and every row start is 16-byte aligned (the wrapper
-// checks).  Causal; window > 0 adds the sliding window.  Returns
-// cudaErrorInvalidValue for a D without an instance (64, 80, 128) or a
-// bad dtype.
+// checks).  Causal; window > 0 adds the sliding window.  lse, when not
+// null, receives each row's log-sum-exp of the scaled logits, [B, H, S]
+// float32 contiguous (the backward's input; the serve path passes null).
+// Returns cudaErrorInvalidValue for a D without an instance (64, 80,
+// 128) or a bad dtype.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int B, int H, int Hkv, int S, int T_len,
-                        int D, long long qsb, long long qsh, long long qss,
+                        void* lse, int dtype, int B, int H, int Hkv, int S,
+                        int T_len, int D, long long qsb, long long qsh, long long qss,
                         long long ksb, long long ksh, long long kss,
                         long long vsb, long long vsh, long long vss,
                         long long osb, long long osh, long long oss,
@@ -388,11 +397,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs,
-                             os, window, st);
+    return dispatch_d<float>(D, q, k, v, o, static_cast<float*>(lse), B, H,
+                             Hkv, S, T_len, qs, ks, vs, os, window, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, H, Hkv, S, T_len, qs,
-                                     ks, vs, os, window, st);
+    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, static_cast<float*>(lse),
+                                     B, H, Hkv, S, T_len, qs, ks, vs, os,
+                                     window, st);
   return cudaErrorInvalidValue;
 }
 

@@ -131,9 +131,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 wkv6_seq_kernel(const float* __restrict__ r, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ w,
                 const float* __restrict__ u, const float* __restrict__ S0,
-                float* __restrict__ y, float* __restrict__ S_out, int H,
-                int S_len, int Q, long long sb, long long ss, long long sh,
-                long long yb, long long ys, long long yh) {
+                float* __restrict__ y, float* __restrict__ S_out,
+                float* __restrict__ S_chunks, int H, int S_len, int Q,
+                long long sb, long long ss, long long sh, long long yb,
+                long long ys, long long yh) {
   using L = Smem<K>;
   constexpr int NT = K / 16;             // n-tiles of 8 per warp (two halves)
   static_assert(K % 16 == 0 && K <= MQ && MQ == 64 &&
@@ -158,11 +159,19 @@ wkv6_seq_kernel(const float* __restrict__ r, const float* __restrict__ k,
     sm[L::ST + (i / K) * L::VS + i % K] = s0[i];
   for (int i = tid; i < K; i += THREADS) sm[L::U + i] = u[h * K + i];
 
+  const int n_chunks = (S_len + Q - 1) / Q;
   for (int c0 = 0; c0 < S_len; c0 += Q) {
     const int Qc = min(Q, S_len - c0);
     const int ksq = (Qc + 7) / 8;  // k steps over this chunk's tokens
     tc::cp_async_wait<0>();
     __syncthreads();
+    // training calls: the chunk's incoming state, for the backward (the
+    // state is next written after the barrier that ends its reads)
+    if (S_chunks != nullptr) {
+      float* sc = S_chunks + ((long long)bh * n_chunks + c0 / Q) * K * K;
+      for (int i = tid; i < K * K; i += THREADS)
+        sc[i] = sm[L::ST + (i / K) * L::VS + i % K];
+    }
 
     // ---- cumulative log-decay and the decay factors ----
     // lane: channel a = 8·warp + lane/4 (+ 64 i), tokens 4j + lane%4; each
@@ -371,16 +380,18 @@ wkv6_seq_kernel(const float* __restrict__ r, const float* __restrict__ k,
 
 template <int K>
 int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, const float* S0, float* y, float* S_out, int B,
-           int H, int S_len, int Q, long long sb, long long ss, long long sh,
-           long long yb, long long ys, long long yh, cudaStream_t stream) {
+           const float* u, const float* S0, float* y, float* S_out,
+           float* S_chunks, int B, int H, int S_len, int Q, long long sb,
+           long long ss, long long sh, long long yb, long long ys,
+           long long yh, cudaStream_t stream) {
   constexpr int bytes = Smem<K>::BYTES;
   auto kern = wkv6_seq_kernel<K>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kern<<<B * H, THREADS, bytes, stream>>>(r, k, v, w, u, S0, y, S_out, H,
-                                         S_len, Q, sb, ss, sh, yb, ys, yh);
+  kern<<<B * H, THREADS, bytes, stream>>>(r, k, v, w, u, S0, y, S_out,
+                                         S_chunks, H, S_len, Q, sb, ss, sh,
+                                         yb, ys, yh);
   return cudaGetLastError();
 }
 
@@ -395,11 +406,14 @@ const char* wkv6_error_string(int err) {
 // r/k/v/w [B, S, H, K] through element strides (sb, ss, sh) over (batch,
 // token, head), the channel contiguous, every row start 16-byte aligned;
 // y likewise through (yb, ys, yh).  u [H, K], S0 and S_out [B, H, K, K]
-// contiguous.  Chunks of Q tokens (1..64), the last one ragged.  Returns
-// cudaErrorInvalidValue for a K without an instance (32, 64) or Q outside
-// 1..64.
+// contiguous.  Chunks of Q tokens (1..64), the last one ragged.  S_chunks,
+// when not null, receives each chunk's incoming state, [B, H, C, K, K]
+// float32 contiguous with C = ceil(S / Q) (the backward's input; the serve
+// path passes null).  Returns cudaErrorInvalidValue for a K without an
+// instance (32, 64) or Q outside 1..64.
 int wkv6_seq_fwd(const void* r, const void* k, const void* v, const void* w,
-                 const void* u, const void* S0, void* y, void* S_out, int B,
+                 const void* u, const void* S0, void* y, void* S_out,
+                 void* S_chunks, int B,
                  int H, int S_len, int Q, int K, long long sb,
                  long long ss, long long sh, long long yb, long long ys,
                  long long yh, void* stream) {
@@ -412,13 +426,14 @@ int wkv6_seq_fwd(const void* r, const void* k, const void* v, const void* w,
               *wp = static_cast<const float*>(w),
               *up = static_cast<const float*>(u),
               *sp = static_cast<const float*>(S0);
-  float *yp = static_cast<float*>(y), *op = static_cast<float*>(S_out);
+  float *yp = static_cast<float*>(y), *op = static_cast<float*>(S_out),
+        *cp = static_cast<float*>(S_chunks);
   if (K == 32)
-    return launch<32>(rp, kp, vp, wp, up, sp, yp, op, B, H, S_len, Q, sb, ss,
-                      sh, yb, ys, yh, st);
+    return launch<32>(rp, kp, vp, wp, up, sp, yp, op, cp, B, H, S_len, Q, sb,
+                      ss, sh, yb, ys, yh, st);
   if (K == 64)
-    return launch<64>(rp, kp, vp, wp, up, sp, yp, op, B, H, S_len, Q, sb, ss,
-                      sh, yb, ys, yh, st);
+    return launch<64>(rp, kp, vp, wp, up, sp, yp, op, cp, B, H, S_len, Q, sb,
+                      ss, sh, yb, ys, yh, st);
   return cudaErrorInvalidValue;
 }
 

@@ -18,6 +18,15 @@ row start of q, k, v (and of the output, which takes q's strides) must be
 sequence) strides with ``_build.aligned`` and raises otherwise; it never
 copies.  The model's [B, S, H, D] activations pass for every supported D
 in float32 and bfloat16.
+
+Training (:class:`FlashAttentionFn`, float32 only): the forward also
+writes each row's log-sum-exp, and the backward is the hand-written
+``csrc/flash_attention_bwd.cu`` (three launches: Di = rowsum(dO ∘ o), a
+dK/dV kernel, a dQ kernel; no atomics).  The Function saves q, k, v, o
+and the log-sum-exp and copies none of them; a dO whose head dimension
+is not contiguous or whose rows are off 16 bytes is copied once, and
+:data:`COPIES` counts it.  The plain gradient is autograd's of
+``ref.flash_attention_ref`` (``ref.flash_attention_grads_ref``).
 """
 from __future__ import annotations
 
@@ -30,12 +39,17 @@ from ._build import aligned, error_string, load
 SUPPORTED_D = (64, 80, 128)     # csrc FLASH_CASE instances
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches since the last reset_launches()
-LAUNCHES = {"flash_attention": 0}
+# launches since the last reset_launches(): forward launches, and
+# backward calls (three kernels each)
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+# dO tensors the backward had to copy to a layout its kernels read
+COPIES = {"flash_attention_bwd.dO": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for c in (LAUNCHES, COPIES):
+        for key in c:
+            c[key] = 0
 
 
 def _check(q, k, v):
@@ -79,25 +93,110 @@ def _check(q, k, v):
                              f"kernel copies rows in 16-byte pieces")
 
 
-def flash_attention(q, k, v, window: int = 0):
-    """q [B,H,S,D], k/v [B,Hkv,T,D] (float32 or bfloat16, H a multiple
-    of Hkv) -> [B,H,S,D] in q's dtype: causal (and, with window > 0,
-    sliding-window) softmax attention, query head h on kv head
-    h // (H/Hkv), math in float32."""
+def _forward(q, k, v, window: int, with_lse: bool):
     _check(q, k, v)
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     lib = load("flash_attention")
     st = [x for t in (q, k, v, o) for x in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            DTYPES[q.dtype], B, H, Hkv, S, T, D, *st, int(window), stream)
+            None if lse is None else lse.data_ptr(), DTYPES[q.dtype], B, H,
+            Hkv, S, T, D, *st, int(window), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {rc} "
                            f"({error_string('flash_attention', rc)})")
     LAUNCHES["flash_attention"] += 1
-    return o
+    return o, lse
+
+
+def flash_attention(q, k, v, window: int = 0):
+    """q [B,H,S,D], k/v [B,Hkv,T,D] (float32 or bfloat16, H a multiple
+    of Hkv) -> [B,H,S,D] in q's dtype: causal (and, with window > 0,
+    sliding-window) softmax attention, query head h on kv head
+    h // (H/Hkv), math in float32."""
+    return _forward(q, k, v, window, False)[0]
+
+
+def flash_attention_lse(q, k, v, window: int = 0):
+    """:func:`flash_attention` that also returns each row's log-sum-exp
+    of the scaled logits, [B,H,S] float32 (+inf for a row that sees no
+    key): the training forward, one launch."""
+    return _forward(q, k, v, window, True)
+
+
+def _train_dtype(fn, *ts):
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: the backward kernel is float32 only, got "
+                            f"{t.dtype} (train in float32; bfloat16 runs "
+                            f"the forward alone)")
+
+
+def flash_attention_bwd(q, k, v, o, lse, dO, window: int = 0):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` at (q, k,
+    v) given its output o, its log-sum-exp and dO [B,H,S,D], float32:
+    three launches (Di, dK/dV, dQ), outputs in q's, k's and v's
+    layouts."""
+    _check(q, k, v)
+    _train_dtype("flash_attention_bwd", q, dO)
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if dO.shape != q.shape or o.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and dO "
+                         f"{tuple(dO.shape)} must be q's {tuple(q.shape)}")
+    if (tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous "
+                         f"float32 [{B}, {H}, {S}], got {tuple(lse.shape)}")
+    if dO.stride(-1) != 1 or not aligned(dO):
+        dO = dO.contiguous()
+        COPIES["flash_attention_bwd.dO"] += 1
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    di = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    for name, t in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        if t.stride(-1) != 1 or not aligned(t):
+            raise ValueError(f"flash_attention_bwd: {name}'s rows are not "
+                             f"16-byte aligned or its head dimension is not "
+                             f"contiguous (strides {t.stride()})")
+    lib = load("flash_attention_bwd")
+    st = [x for t in (q, k, v, o, dO, dq, dk, dv) for x in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dO.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, Hkv, S, T, D, *st,
+            int(window), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd: kernel launch failed with "
+                           f"CUDA error {rc} "
+                           f"({error_string('flash_attention_bwd', rc)})")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """B6 with its hand-written backward: the forward is one launch that
+    also writes the log-sum-exp; q, k, v, o and the log-sum-exp are
+    saved as they are (no copy)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int = 0):
+        _train_dtype("FlashAttentionFn", q, k, v)
+        o, lse = flash_attention_lse(q, k, v, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window = int(window)
+        return o
+
+    @staticmethod
+    def backward(ctx, dO):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dO, ctx.window)
+        return dq, dk, dv, None

@@ -2,9 +2,15 @@
 
 A CUDA tensor goes to the hand-written kernel (:mod:`.brsgd_stats`,
 :mod:`.flash_attention`, :mod:`.wkv6`), which launches or raises; a CPU
-tensor goes to the plain version (:mod:`.ref`).  There is no flag that
-sends a CUDA tensor to the plain version, and no fallback when a build
-or launch fails.
+tensor goes to the plain version (:mod:`.ref`), which autograd
+differentiates.  There is no flag that sends a CUDA tensor to the plain
+version, and no fallback when a build or launch fails.
+
+Attention and the WKV6 scan take their ``torch.autograd.Function``
+(forward kernel + hand-written backward kernel) only when grad mode is
+on and an input requires grad; otherwise, as in serving and under
+``torch.no_grad()``, the single forward launch that writes nothing for
+a backward.
 
 The elastic ``valid=`` calls are the exception by design, as in the JAX
 package, which has no Pallas kernel for masked statistics and takes its
@@ -16,12 +22,15 @@ fused masked kernel is optional later work.
 """
 from __future__ import annotations
 
+import torch
+
 from . import brsgd_stats as kern
 from . import flash_attention as fa_kern
 from . import ref
 from . import wkv6 as wkv_kern
 
 _COUNTERS = (kern.LAUNCHES, fa_kern.LAUNCHES, wkv_kern.LAUNCHES)
+_COPY_COUNTERS = (fa_kern.COPIES, wkv_kern.COPIES)
 
 
 def launches() -> dict:
@@ -30,8 +39,14 @@ def launches() -> dict:
     return {k: n for c in _COUNTERS for k, n in c.items()}
 
 
+def copies() -> dict:
+    """Gradient inputs the backward kernels had to copy to a layout they
+    read, since the last :func:`reset_launches` ({name: count})."""
+    return {k: n for c in _COPY_COUNTERS for k, n in c.items()}
+
+
 def reset_launches() -> None:
-    for c in _COUNTERS:
+    for c in _COUNTERS + _COPY_COUNTERS:
         for k in c:
             c[k] = 0
 
@@ -134,10 +149,16 @@ def trimmed_mean(G, trim_frac: float, valid=None):
     return ref.trimmed_mean_ref(G, trim_frac)
 
 
+def _training(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def flash_attention(q, k, v, window: int = 0):
     """q [B,H,S,D], k/v [B,Hkv,T,D] -> [B,H,S,D]: causal (sliding-window
     when window > 0) GQA softmax attention (B6 on the card)."""
     if q.is_cuda:
+        if _training(q, k, v):
+            return fa_kern.FlashAttentionFn.apply(q, k, v, window)
         return fa_kern.flash_attention(q, k, v, window)
     return ref.flash_attention_ref(q, k, v, window)
 
@@ -147,6 +168,8 @@ def wkv6_seq(r, k, v, w, u, S_in, chunk: int):
     min(chunk, S) tokens -> (y [B,S,H,K], S_final [B,H,K,K]) (B7 on the
     card, one launch)."""
     if r.is_cuda:
+        if _training(r, k, v, w, u, S_in):
+            return wkv_kern.WKV6SeqFn.apply(r, k, v, w, u, S_in, chunk)
         return wkv_kern.wkv6_seq(r, k, v, w, u, S_in, chunk)
     return ref.wkv6_seq_plain(r, k, v, w, u, S_in, chunk)
 

@@ -645,3 +645,40 @@ def wkv6_chunk_ref(r, k, v, w, u, S_in):
                                S + u[None, :, :, None] * kv))
         S = wt[..., None] * S + kv
     return torch.stack(ys, dim=2), S
+
+
+# ---------------------------------------------------------------------------
+# the plain gradients B6's and B7's backward kernels are held to (tests and
+# the chip smoke; nothing on the card's path calls them)
+# ---------------------------------------------------------------------------
+
+def _grads(fn, inputs, grad_outputs):
+    """autograd's gradients of fn(*inputs) (float32 leaves copied from
+    ``inputs``) for the given output gradients, None for an input that
+    does not reach the outputs."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    with torch.enable_grad():
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grad_outputs) if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs],
+                                   leaves, [g for _, g in pairs],
+                                   allow_unused=True)
+
+
+def flash_attention_grads_ref(q, k, v, dO, window: int = 0):
+    """(dq, dk, dv): autograd's gradient of :func:`flash_attention_ref`
+    at (q, k, v) for the output gradient dO."""
+    return _grads(lambda a, b, c: flash_attention_ref(a, b, c, window),
+                  (q, k, v), (dO,))
+
+
+def wkv6_seq_grads_plain(r, k, v, w, u, S_in, chunk: int, dy,
+                         dS_final=None):
+    """(dr, dk, dv, dw, du, dS_in): autograd's gradient of
+    :func:`wkv6_seq_plain` for the output gradients dy and dS_final
+    (None: the final state is not used)."""
+    g = _grads(lambda *x: wkv6_seq_plain(*x, chunk), (r, k, v, w, u, S_in),
+               (dy, dS_final))
+    return tuple(torch.zeros_like(x) if d is None else d
+                 for d, x in zip(g, (r, k, v, w, u, S_in)))

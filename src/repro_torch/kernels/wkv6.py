@@ -16,6 +16,14 @@ they share their strides, the channel is contiguous and every row start
 is 16-byte aligned (the kernel copies rows in 16-byte pieces; see
 ``_build.aligned``).  The plain versions are ``ref.wkv6_seq_plain`` and
 ``ref.wkv6_chunk_plain``; :mod:`.ops` picks by the tensor's device.
+
+Training (:class:`WKV6SeqFn`): the forward also writes each chunk's
+incoming state ([B, H, C, K, K], C = ceil(S / Q)), and the backward is
+the hand-written ``csrc/wkv6_bwd.cu``: one launch per layer, one CTA per
+(b, h) walking the chunks in reverse, giving dr, dk, dv, dw, dS_in and
+du as per-(b, h) partials that :func:`wkv6_seq_bwd` sums over b in a
+fixed order.  The plain gradient is autograd's of ``ref.wkv6_seq_plain``
+(``ref.wkv6_seq_grads_plain``).
 """
 from __future__ import annotations
 
@@ -29,11 +37,15 @@ SUPPORTED_K = (32, 64)          # csrc instances
 MAX_Q = 64                      # shared-memory sizing of the kernel
 
 # launches since the last reset_launches()
-LAUNCHES = {"wkv6_seq": 0}
+LAUNCHES = {"wkv6_seq": 0, "wkv6_seq_bwd": 0}
+# dy tensors the backward had to copy to a layout its kernel reads
+COPIES = {"wkv6_seq_bwd.dy": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["wkv6_seq"] = 0
+    for c in (LAUNCHES, COPIES):
+        for key in c:
+            c[key] = 0
 
 
 def _check(fn, r, k, v, w, u, S_in, layout):
@@ -74,11 +86,15 @@ def _check_state(fn, u, S_in, B, H, K):
                          f"[{B}, {H}, {K}, {K}], got {tuple(S_in.shape)}")
 
 
-def _launch(fn, r, k, v, w, u, S_in, y, B, H, S, Q, K, in_strides,
-            y_strides):
+def _instance(fn, Q, K):
     if K not in SUPPORTED_K or not 1 <= Q <= MAX_Q:
         raise ValueError(f"{fn}: Q={Q}, K={K} has no kernel instance; Q in "
                          f"1..{MAX_Q}, K in {SUPPORTED_K}")
+
+
+def _launch(fn, r, k, v, w, u, S_in, y, B, H, S, Q, K, in_strides,
+            y_strides, S_chunks=None):
+    _instance(fn, Q, K)
     _check_state(fn, u, S_in, B, H, K)
     S_out = torch.empty_like(S_in)
     lib = load("wkv6")
@@ -87,6 +103,7 @@ def _launch(fn, r, k, v, w, u, S_in, y, B, H, S, Q, K, in_strides,
         rc = lib.wkv6_seq_fwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), S_in.data_ptr(), y.data_ptr(), S_out.data_ptr(),
+            None if S_chunks is None else S_chunks.data_ptr(),
             B, H, S, Q, K, *in_strides, *y_strides, stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error "
@@ -95,16 +112,102 @@ def _launch(fn, r, k, v, w, u, S_in, y, B, H, S, Q, K, in_strides,
     return y, S_out
 
 
-def wkv6_seq(r, k, v, w, u, S_in, chunk: int):
+def wkv6_seq(r, k, v, w, u, S_in, chunk: int, S_chunks=None):
     """The chunked WKV6 scan of one layer: r/k/v/w [B,S,H,K], u [H,K],
     S_in [B,H,K,K] (float32), chunks of min(chunk, S) tokens ->
-    (y [B,S,H,K], S_final [B,H,K,K])."""
+    (y [B,S,H,K], S_final [B,H,K,K]).  ``S_chunks`` (the training
+    forward's, see :func:`chunk_states`) receives each chunk's incoming
+    state."""
     _check("wkv6_seq", r, k, v, w, u, S_in, "[B, S, H, K]")
     B, S, H, K = r.shape
     y = torch.empty((B, S, H, K), dtype=torch.float32, device=r.device)
     sb, ss, sh = r.stride()[:3]
     return _launch("wkv6_seq", r, k, v, w, u, S_in, y, B, H, S,
-                   min(int(chunk), S), K, (sb, ss, sh), y.stride()[:3])
+                   min(int(chunk), S), K, (sb, ss, sh), y.stride()[:3],
+                   S_chunks)
+
+
+def chunk_states(r, chunk: int):
+    """The scratch a training forward fills: [B, H, C, K, K] float32, C =
+    ceil(S / Q) chunks of Q = min(chunk, S) tokens (r [B, S, H, K])."""
+    B, S, H, K = r.shape
+    Q = min(int(chunk), S)
+    return torch.empty((B, H, -(-S // Q), K, K), dtype=torch.float32,
+                       device=r.device)
+
+
+def wkv6_seq_bwd(r, k, v, w, u, S_chunks, dy, dS_final, chunk: int):
+    """The gradients of :func:`wkv6_seq` at (r, k, v, w, u, S_in) given
+    the forward's chunk states, dy [B,S,H,K] and dS_final [B,H,K,K]
+    (None: zeros) -> (dr, dk, dv, dw [B,S,H,K], du [H,K], dS_in
+    [B,H,K,K]): one launch, du summed over b in order."""
+    _check("wkv6_seq_bwd", r, k, v, w, u, S_chunks, "[B, S, H, K]")
+    B, S, H, K = r.shape
+    Q = min(int(chunk), S)
+    _instance("wkv6_seq_bwd", Q, K)
+    if tuple(u.shape) != (H, K) or not u.is_contiguous():
+        raise ValueError(f"wkv6_seq_bwd: u must be contiguous [{H}, {K}], "
+                         f"got {tuple(u.shape)}")
+    if (tuple(S_chunks.shape) != (B, H, -(-S // Q), K, K)
+            or not S_chunks.is_contiguous()):
+        raise ValueError(f"wkv6_seq_bwd: S_chunks must be the forward's "
+                         f"contiguous [B, H, C, K, K], got "
+                         f"{tuple(S_chunks.shape)}")
+    if dy is None:
+        dy = torch.zeros_like(r)
+    if dy.shape != r.shape or dy.dtype != torch.float32:
+        raise ValueError(f"wkv6_seq_bwd: dy must be float32 "
+                         f"{tuple(r.shape)}, got {tuple(dy.shape)} "
+                         f"{dy.dtype}")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+        COPIES["wkv6_seq_bwd.dy"] += 1
+    if dS_final is not None:
+        _check_state("wkv6_seq_bwd", u, dS_final, B, H, K)
+    grads = [torch.empty((B, S, H, K), dtype=torch.float32, device=r.device)
+             for _ in range(4)]
+    du_part = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
+    dS_in = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
+    lib = load("wkv6_bwd")
+    with torch.cuda.device(r.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = lib.wkv6_seq_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), S_chunks.data_ptr(), dy.data_ptr(),
+            None if dS_final is None else dS_final.data_ptr(),
+            *(g.data_ptr() for g in grads), du_part.data_ptr(),
+            dS_in.data_ptr(), B, H, S, Q, K, *r.stride()[:3],
+            *dy.stride()[:3], *grads[0].stride()[:3], stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_seq_bwd: kernel launch failed with CUDA "
+                           f"error {rc} ({error_string('wkv6_bwd', rc)})")
+    LAUNCHES["wkv6_seq_bwd"] += 1
+    du = du_part[0]
+    for b in range(1, B):           # a fixed order: the same bits each call
+        du = du + du_part[b]
+    return (*grads, du, dS_in)
+
+
+class WKV6SeqFn(torch.autograd.Function):
+    """B7's layer call with its hand-written backward: the forward is one
+    launch that also writes each chunk's incoming state; r, k, v, w, u
+    and those states are saved as they are (no copy)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, S_in, chunk: int):
+        S_chunks = chunk_states(r, chunk)
+        y, S_out = wkv6_seq(r, k, v, w, u, S_in, chunk, S_chunks)
+        ctx.save_for_backward(r, k, v, w, u, S_chunks)
+        ctx.chunk = int(chunk)
+        ctx.set_materialize_grads(False)
+        return y, S_out
+
+    @staticmethod
+    def backward(ctx, dy, dS_final):
+        r, k, v, w, u, S_chunks = ctx.saved_tensors
+        dr, dk, dv, dw, du, dS_in = wkv6_seq_bwd(r, k, v, w, u, S_chunks, dy,
+                                                 dS_final, ctx.chunk)
+        return dr, dk, dv, dw, du, dS_in, None
 
 
 def wkv6_chunk(r, k, v, w, u, S_in):

@@ -1,6 +1,7 @@
 """Model assembly (the port of the JAX package's
-``models/transformer.py``): config -> param defs -> forward, the decode
-cache, the fused prefill and the single-token decode step.
+``models/transformer.py``): config -> param defs -> forward, the
+training loss, the decode cache, the fused prefill and the single-token
+decode step.
 
 Layers are grouped into homogeneous *segments* with stacked parameters
 (``[L, ...]`` leaves, as in the JAX package, so weights carry across
@@ -28,6 +29,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -94,11 +96,15 @@ def param_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def _layer(p_stack, i: int):
-    """Layer i's parameters (or cache entries): views of the stack."""
+def _layers(p_stack, n: int) -> list:
+    """Every layer's parameters, views of the stack by one ``unbind`` per
+    leaf: in a backward the layers' gradients are stacked once, where
+    ``n`` indexings would each add a zero-filled copy of the whole
+    stack."""
     if isinstance(p_stack, dict):
-        return {k: _layer(v, i) for k, v in p_stack.items()}
-    return p_stack[i]
+        per = {k: _layers(v, n) for k, v in p_stack.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(torch.unbind(p_stack))
 
 
 def _stack_entries(ents: list):
@@ -131,21 +137,32 @@ def _rwkv_block(cfg, p, x):
     return x + h, {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x}
 
 
+def _block(cfg, kind: str, p_l, x, positions):
+    if kind == "dense":
+        return _dense_block(cfg, p_l, x, positions)
+    if kind == "rwkv":
+        return _rwkv_block(cfg, p_l, x)
+    raise ValueError(kind)
+
+
 def _run_segment(cfg, seg: Segment, p_stack, x, positions,
-                 collect_cache=False):
+                 collect_cache=False, remat=False):
     """Run a stacked segment over x, layer by layer.  Returns (x, cache
     entries): with ``collect_cache`` (the fused prefill) each layer's
     full-sequence cache pieces stacked on a leading layer axis, in the
-    ``cache_defs`` layout; else None."""
+    ``cache_defs`` layout; else None.  ``remat`` (training) keeps only
+    each layer's input for the backward and runs the layer again there
+    (``torch.utils.checkpoint``, non-reentrant: the JAX package's
+    ``jax.checkpoint`` of the scan body)."""
     ents = []
-    for i in range(seg.n):
-        p_l = _layer(p_stack, i)
-        if seg.kind == "dense":
-            x, ent = _dense_block(cfg, p_l, x, positions)
-        elif seg.kind == "rwkv":
-            x, ent = _rwkv_block(cfg, p_l, x)
-        else:
-            raise ValueError(seg.kind)
+    for p_l in _layers(p_stack, seg.n):
+        if remat:
+            x = checkpoint(
+                lambda x, p_l=p_l: _block(cfg, seg.kind, p_l, x,
+                                          positions)[0],
+                x, use_reentrant=False)
+            continue
+        x, ent = _block(cfg, seg.kind, p_l, x, positions)
         if collect_cache:
             ents.append(ent)
     return x, (_stack_entries(ents) if collect_cache else None)
@@ -165,13 +182,37 @@ def _head(cfg: ModelConfig, params, x):
     return x @ head
 
 
-def forward(cfg: ModelConfig, params, tokens):
-    """tokens [B,S] -> logits [B,S,V]."""
+def forward(cfg: ModelConfig, params, tokens, remat: bool = False):
+    """tokens [B,S] -> logits [B,S,V].  ``remat``: recompute each layer
+    in the backward instead of keeping its activations."""
     x = embed_inputs(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     for i, seg in enumerate(segments(cfg)):
-        x, _ = _run_segment(cfg, seg, params[f"seg_{i}"], x, positions)
+        x, _ = _run_segment(cfg, seg, params[f"seg_{i}"], x, positions,
+                            remat=remat)
     return _head(cfg, params, x)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False):
+    """Next-token cross-entropy of one worker's batch (``{"tokens":
+    [B,S]}`` and optionally ``"loss_mask"`` [B,S]): the logits at
+    position t predict token t+1, the log-softmax in float32.  Returns
+    (ce + aux, {"ce", "aux"}); aux (the MoE balance loss in the JAX
+    package) is 0 for the ported dense and rwkv families."""
+    tokens = batch["tokens"]
+    logits = forward(cfg, params, tokens, remat)
+    pred = logits[:, :-1]
+    tgt = tokens[:, 1:].long()
+    logp = torch.log_softmax(pred.float(), dim=-1)
+    ll = torch.gather(logp, -1, tgt[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:].to(ll.dtype)
+        ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        ce = -torch.mean(ll)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -236,19 +277,19 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
     for i, seg in enumerate(segments(cfg)):
         p_stack, c_stack = params[f"seg_{i}"], cache[f"seg_{i}"]
         if seg.kind == "dense":
-            for l in range(seg.n):
-                p_l = _layer(p_stack, l)
+            for p_l, c_l in zip(_layers(p_stack, seg.n),
+                                _layers(c_stack, seg.n)):
                 h, _ = L.gqa_decode(
                     p_l["attn"], cfg.attention,
                     L.rms_norm(x, p_l["ln1"], cfg.rms_eps),
-                    c_stack["k"][l], c_stack["v"][l], pos)
+                    c_l["k"], c_l["v"], pos)
                 x = x + h
                 x = x + L.mlp(p_l["mlp"],
                               L.rms_norm(x, p_l["ln2"], cfg.rms_eps),
                               cfg.activation)
         elif seg.kind == "rwkv":
-            for l in range(seg.n):
-                p_l, c_l = _layer(p_stack, l), _layer(c_stack, l)
+            for p_l, c_l in zip(_layers(p_stack, seg.n),
+                                _layers(c_stack, seg.n)):
                 h, (tm_x, wkv) = R6.rwkv6_timemix(
                     p_l["tm"], cfg.rwkv,
                     L.rms_norm(x, p_l["ln1"], cfg.rms_eps),

@@ -951,3 +951,175 @@ def _neg(tree):
     if isinstance(tree, dict):
         return {k: _neg(v) for k, v in tree.items()}
     return -tree
+
+
+# ---------------------------------------------------------------------------
+# the training path: B6's and B7's backward kernels, and the loss gradient
+# ---------------------------------------------------------------------------
+
+# (B, H, Hkv, S, D, window): the launcher's train shape, a ragged S with a
+# window, D = 64 and 80, S = 5, S one past a tile, groups 1, 2 and 8
+FLASH_BWD_CASES = [(2, 16, 8, 128, 128, 0), (1, 16, 8, 200, 128, 64),
+                   (2, 8, 4, 300, 64, 0), (1, 8, 8, 256, 80, 0),
+                   (2, 4, 4, 5, 64, 0), (1, 16, 2, 65, 128, 0),
+                   (1, 8, 1, 129, 128, 100)]
+# (B, S, H, K, log-decay range): rwkv6-7b's train shape, S around one
+# chunk, K = 32, w down to e^-3 where the clamps bite
+WKV_BWD_CASES = [(2, 128, 64, 64, 1.0), (2, 128, 64, 64, 3.0),
+                 (2, 1, 8, 64, 1.0), (2, 63, 8, 64, 1.0),
+                 (2, 65, 8, 64, 3.0), (2, 130, 8, 32, 1.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,S,D,win", FLASH_BWD_CASES)
+def test_flash_attention_backward_kernel_matches_plain_gradient(
+        B, H, Hkv, S, D, win):
+    """Through the autograd Function on the model's strided views: one
+    forward launch (the output bit-equal to the serve launch's), one
+    backward call within 1e-4 of autograd of the plain version; a second
+    backward gives the same bits."""
+    need_card()
+    q, k, v, dO = (_bshd(B, S, h, D, i, torch.float32)
+                   for i, h in enumerate((H, Hkv, Hkv, H)))
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launches()
+    o = fa_kern.FlashAttentionFn.apply(*ins, win)
+    got = torch.autograd.grad(o, ins, dO)
+    assert ops.launches()["flash_attention"] == 1
+    assert ops.launches()["flash_attention_bwd"] == 1
+    assert torch.equal(o, fa_kern.flash_attention(q, k, v, win))
+    want = ref.flash_attention_grads_ref(q, k, v, dO, win)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.stride() == t.stride()
+        close(g, w, 1e-4)
+    _, lse = fa_kern.flash_attention_lse(q, k, v, win)
+    again = fa_kern.flash_attention_bwd(q, k, v, o.detach(), lse, dO, win)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_copies_a_do_it_cannot_read():
+    need_card()
+    q, k, v = (_bshd(1, 70, h, 64, i, torch.float32)
+               for i, h in enumerate((4, 2, 2)))
+    dO = _bshd(1, 70, 4, 128, 7, torch.float32)[..., ::2]
+    assert dO.stride(-1) == 2
+    o, lse = fa_kern.flash_attention_lse(q, k, v)
+    ops.reset_launches()
+    got = fa_kern.flash_attention_bwd(q, k, v, o, lse, dO)
+    assert ops.copies()["flash_attention_bwd.dO"] == 1
+    want = fa_kern.flash_attention_bwd(q, k, v, o, lse, dO.contiguous())
+    assert ops.copies()["flash_attention_bwd.dO"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(TypeError, match="float32 only"):
+        fa_kern.FlashAttentionFn.apply(*(t.bfloat16() for t in (q, k, v)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,K,decay", WKV_BWD_CASES)
+def test_wkv6_seq_backward_kernel_matches_plain_gradient(B, S, H, K, decay):
+    """Through the autograd Function from a nonzero state, with and
+    without a gradient on the final state: one launch each way, within
+    2e-5 of autograd of the plain version, the forward bit-equal to the
+    serve launch, a second backward the same bits."""
+    need_card()
+    r, k, v, w, u, S0 = _wkv_case(B, H, S, K, decay, seed=S)
+    r, k, v, w = (x.transpose(1, 2).contiguous() for x in (r, k, v, w))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dy = torch.randn(B, S, H, K, generator=g, device="cuda")
+    dSf = torch.randn(B, H, K, K, generator=g, device="cuda")
+    for dsf in (dSf, None):
+        ins = [t.detach().requires_grad_(True) for t in (r, k, v, w, u, S0)]
+        ops.reset_launches()
+        y, S_out = wkv_kern.WKV6SeqFn.apply(*ins, 64)
+        outs, grads = ((y, S_out), (dy, dsf)) if dsf is not None else (
+            (y,), (dy,))
+        got = torch.autograd.grad(outs, ins, grads)
+        assert ops.launches()["wkv6_seq"] == 1
+        assert ops.launches()["wkv6_seq_bwd"] == 1
+        y_serve, S_serve = wkv_kern.wkv6_seq(r, k, v, w, u, S0, 64)
+        assert torch.equal(y, y_serve) and torch.equal(S_out, S_serve)
+        want = ref.wkv6_seq_grads_plain(r, k, v, w, u, S0, 64, dy, dsf)
+        for a, b in zip(got, want):
+            close(a, b, 2e-5)
+        states = wkv_kern.chunk_states(r, 64)
+        wkv_kern.wkv6_seq(r, k, v, w, u, S0, 64, states)
+        again = wkv_kern.wkv6_seq_bwd(r, k, v, w, u, states, dy, dsf, 64)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_no_grad_calls_make_the_single_serve_launch(monkeypatch):
+    """Under torch.no_grad (and for inputs that need no grad) ops takes
+    the serve launch: no log-sum-exp, no chunk states, no Function."""
+    need_card()
+
+    def refuse(*a, **kw):
+        raise AssertionError("a training forward ran")
+    monkeypatch.setattr(fa_kern, "flash_attention_lse", refuse)
+    monkeypatch.setattr(wkv_kern, "chunk_states", refuse)
+    q, k, v = (_bshd(1, 64, h, 64, i, torch.float32).requires_grad_(True)
+               for i, h in enumerate((4, 2, 2)))
+    r, kk, vv, w, u, S0 = _wkv_case(1, 4, 64, 32, 1.0)
+    wins = [t.transpose(1, 2).contiguous().requires_grad_(True)
+            for t in (r, kk, vv, w)]
+    ops.reset_launches()
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, v)
+        y, _ = ops.wkv6_seq(*wins, u, S0, 64)
+    o2 = ops.flash_attention(q.detach(), k.detach(), v.detach())
+    assert o.grad_fn is None and y.grad_fn is None
+    assert torch.equal(o, o2)
+    assert {n: c for n, c in ops.launches().items() if c} == {
+        "flash_attention": 2, "wkv6_seq": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_loss_gradient_on_the_card_matches_the_cpu(arch, remat):
+    """Reduced config, one worker's batch of 2 x 80 tokens: the loss
+    within 1e-5 and every parameter's gradient within 1e-4 of its
+    largest |g|, one forward launch per layer (two with remat) and one
+    backward launch per layer; the loss equals the no_grad loss."""
+    need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMWorkerPipeline
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    cfg = get_config(arch).reduced()
+    p_cpu = PM.init_params(TF.param_defs(cfg),
+                           torch.Generator().manual_seed(0))
+    toks = LMWorkerPipeline(cfg, 1, 2, 80, seed=1).batch(0)["tokens"][0]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(p_cpu, dev)
+        leaves = _flat(params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        ops.reset_launches()
+        loss, _ = TF.loss_fn(cfg, params, batch, remat=remat)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        launched = {n: c for n, c in ops.launches().items() if c}
+        with torch.no_grad():
+            ng, _ = TF.loss_fn(cfg, params, batch)
+        assert torch.equal(loss.detach(), ng)
+        out[dev] = (loss.detach().cpu(), dict(zip(leaves, grads)), launched)
+    fwd, bwd = (("flash_attention", "flash_attention_bwd")
+                if arch == "qwen3-0.6b" else ("wkv6_seq", "wkv6_seq_bwd"))
+    L = cfg.n_layers
+    assert out["cuda"][2] == {fwd: 2 * L if remat else L, bwd: L}
+    assert out["cpu"][2] == {}
+    close(out["cuda"][0], out["cpu"][0], 1e-5)
+    for name, g in out["cpu"][1].items():
+        close(out["cuda"][1][name], g, 1e-4)
+
+
+def _flat(tree, path=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{path}/{k}"))
+        return out
+    return {path: tree}

@@ -17,14 +17,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      per source, all started together) and print the -Xptxas -v
      register / shared-memory / spill summary (the column pass's
      instances at m = 20 on a line of their own); from the SASS, the
-     HMMA count of B6 and B7 and B3's load batching at m = 20;
+     HMMA count of B6 and B7, the HGMMA (wgmma) count of B6's backward,
+     which must hold some, and B3's load batching at m = 20;
   3. every kernel (B1-B5, and the median alone) against its plain
      PyTorch version on the card, at the LeNet main-path shape [20,
      61706], a ragged [7, 1003], [64, 4096], the robustness twin's
      [20, 20] and the rate twin's [10, 20], and at [20, 61706] with one
-     worker's row NaN (whole, or every 5th column); the column pass (B1
-     at every needs subset, B4, the median alone) at every instance m
-     at d = 1003 and d = 61 with a NaN worker row and with NaN columns;
+     worker's row NaN (whole, or every 5th column); at every m in 1..64
+     (each on its tuned or bucket instance) the column pass (B1 at every
+     needs subset, B4, the median alone) at d = 1003 and d = 61 with a
+     NaN worker row and with NaN columns, and at [m, 1003] with one
+     worker NaN in every third column B1-B5, the fused launches and every
+     rule through aggregate_local, fixed and elastic, against the CPU
+     (one line of checks per instance and the worst errors; m = 65 must
+     raise);
      B5 at trim fractions 0.1, 0.25, 0.49 and 0.5;
      the fused brsgd launch (B1's brsgd call + B2, one cooperative
      kernel) at the same inputs with G resident in shared memory, and at
@@ -140,9 +146,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      its serve shape and at S = 4096 beside SDPA, with its FP32-pipe and
      3xTF32 tensor-core bounds; B7 per layer launch at [4, 512, 64, 64]
      and its one-chunk call; B6's backward at [2, 16, 8, 128, 128] and
-     [1, 16, 8, 4096, 128] beside the backward of SDPA, B7's at [2, 128,
-     64, 64] and [1, 4096, 64, 64], each with the plain versions'
-     autograd backward;
+     [1, 16, 8, 4096, 128] beside the backward of SDPA (its kernels'
+     registers, spills, shared memory and CTAs an SM first), B7's at [2,
+     128, 64, 64] and [1, 4096, 64, 64], each with the plain versions'
+     autograd backward; every BrSGD kernel's device time at m = 10, 12,
+     16, 32, 33 and 64 (12 and 33 on bucket instances) at d = 61706 and
+     8388608;
   9. the {"gradient": [...]}, {"phase_seconds": {...}} and
      {"kernels": [...]} lines, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
@@ -245,8 +254,8 @@ WKV_SEQ_SERVE = ((1, 64, 300, 64), (1, 64, 512, 64))
 WKV_TOL = (2e-5, 1e-5)        # y, S_out: relative to the largest |plain|
 # B6's backward (B, H, Hkv, S, D, window): the launcher's train shape, one
 # train_4k sequence, the prefill shape, a ragged S with a window, D = 64
-# and 80, S = 5, S one past a dK/dV query tile (33), a dQ / dK/dV row tile
-# (65) and the forward's query tile (129), groups 1, 2 and 8
+# and 80, S = 5, S one past two streamed tiles of 16 rows (33), one past a
+# CTA's 64 rows (65) and two (129), groups 1, 2 and 8
 FLASH_BWD_CASES = ((2, 16, 8, 128, 128, 0), (1, 16, 8, 4096, 128, 0),
                    (4, 16, 8, 512, 128, 0), (1, 16, 8, 200, 128, 64),
                    (2, 8, 4, 300, 64, 0), (1, 8, 8, 256, 80, 0),
@@ -255,11 +264,12 @@ FLASH_BWD_CASES = ((2, 16, 8, 128, 128, 0), (1, 16, 8, 4096, 128, 0),
                    (1, 16, 16, 97, 80, 0))
 # dq, dk, dv: relative to the largest |plain| of each (3xTF32 against the
 # plain float32 autograd).  The error grows with the keys a row sums over:
-# on an H100 80GB HBM3 the largest of the three read 3.9e-6 at S = 128,
-# at most 8.0e-6 for the other cases below S = 512, 1.3e-5 at S = 512 and
-# 8.2e-5 at S = 4096, the same bits in every run (seeded inputs, a
-# deterministic kernel).  So each case is held to 2e-5 + 2e-8 per key,
-# never above FLASH_BWD_TOL, which the S = 4096 case meets at 82%.
+# on an H100 80GB HBM3 the first (mma.sync) kernel's largest of the three
+# read 3.9e-6 at S = 128, at most 8.0e-6 for the other cases below S =
+# 512, 1.3e-5 at S = 512 and 8.2e-5 at S = 4096; the wgmma kernel, whose
+# two warpgroups each sum half the tiles, 4.6e-5 at S = 4096; the same
+# bits in every run (seeded inputs, a deterministic kernel).  So each case
+# is held to 2e-5 + 2e-8 per key, never above FLASH_BWD_TOL.
 FLASH_BWD_TOL = 1e-4
 
 
@@ -396,26 +406,15 @@ def phase_build():
     spills = 0
     column = {}
     for lib, log in _build.BUILD_LOGS.items():
-        fn, stack_line, spill = None, "", 0
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                fn = m.group(1)
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m:
-                spill = int(m.group(1)) + int(m.group(2))
-                spills += spill
-                stack_line = line.strip()
-            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
-                          line)
-            if m and fn:
-                print(f"  ptxas {lib} {fn}: {m.group(1)} registers, "
-                      f"{m.group(2) or 0} B smem, {stack_line}", flush=True)
-                v = re.search(r"column_stats_kernelILi20ELi(\d+)E", fn)
-                if v:
-                    column[int(v.group(1))] = {
-                        "registers": int(m.group(1)), "spill_bytes": spill}
+        for fn, r in _ptxas_entries(log).items():
+            spills += r["spill_bytes"]
+            print(f"  ptxas {lib} {fn}: {r['registers']} registers, "
+                  f"{r['smem']} B smem, {r['stack']}", flush=True)
+            v = re.search(r"column_stats_kernelILi20ELi(\d+)E", fn)
+            if v and lib == "brsgd_stats":
+                column[int(v.group(1))] = {
+                    "registers": r["registers"],
+                    "spill_bytes": r["spill_bytes"]}
     print(f"build: spill bytes over all kernels = {spills}", flush=True)
     # the column pass's instances at m = 20 by variant (B1's needs bits;
     # 19 = B4; 16 = the median alone): registers and spill bytes
@@ -423,26 +422,54 @@ def phase_build():
           "spill_bytes": sum(c["spill_bytes"] for c in column.values())})
 
 
+def _ptxas_entries(log: str) -> dict:
+    """{kernel: registers, static shared memory, spill bytes and the
+    stack line} from nvcc's -Xptxas -v report of one library."""
+    out, fn, stack_line, spill = {}, None, "", 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            stack_line = line.strip()
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and fn:
+            out[fn] = {"registers": int(m.group(1)),
+                       "smem": int(m.group(2) or 0), "spill_bytes": spill,
+                       "stack": stack_line}
+    return out
+
+
 def phase_sass(paths):
     """B6 (forward and backward) and B7 run their products on the tensor
     cores: count the HMMA instructions in each library's SASS (cuobjdump
-    beside nvcc).  Also
-    B3's load batching at m = 20, read from its SASS."""
+    beside nvcc), and the backward's warpgroup HGMMA, which it must hold.
+    Also B3's load batching at m = 20, read from its SASS."""
     from repro_torch.kernels import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     if not tool.exists():
         fail(f"no cuobjdump beside nvcc ({tool}): the tensor-core check "
              f"of B6 and B7 cannot run")
-    out = {}
+    out, hgmma = {}, 0
     for name in ("flash_attention", "flash_attention_bwd", "wkv6"):
         sass = subprocess.run([str(tool), "-sass", str(paths[name])],
                               capture_output=True, text=True, timeout=300)
-        n = sum("HMMA" in line for line in sass.stdout.splitlines())
+        lines = sass.stdout.splitlines()
+        n = sum("HMMA" in line for line in lines)
         if sass.returncode != 0 or n == 0:
             fail(f"{name}: no HMMA instruction in its SASS "
                  f"(cuobjdump rc {sass.returncode})")
         out[name] = n
-    emit({"check": "tensor_core_sass", "hmma_instructions": out})
+        if name == "flash_attention_bwd":
+            hgmma = sum("HGMMA" in line for line in lines)
+            if hgmma == 0:
+                fail("flash_attention_bwd: no HGMMA (wgmma) instruction in "
+                     "its SASS")
+    emit({"check": "tensor_core_sass", "hmma_instructions": out,
+          "flash_attention_bwd_hgmma_instructions": hgmma})
     # B3 at m = 20: how many global loads of a column go out before the
     # first add that consumes one (the longest run of LDG without an
     # FADD/FMUL between them in its SASS)
@@ -475,10 +502,11 @@ def _same_nan(a, b):
 
 
 def _err(a, b):
-    """Largest absolute difference where both are finite-or-inf; NaN
-    positions are compared by _same_nan."""
+    """Largest absolute difference where both are finite-or-inf (equal
+    values, equal infinities among them, differ by 0); NaN positions are
+    compared by _same_nan."""
     keep = ~(a.isnan() | b.isnan())
-    diff = (a.double() - b.double())[keep].abs()
+    diff = (a.double() - b.double()).abs().masked_fill(a == b, 0.0)[keep]
     return float(diff.max()) if diff.numel() else 0.0
 
 
@@ -750,6 +778,120 @@ def _check_select(torch, kern, ref, G, label, worst):
     return plans
 
 
+EVERY_M_D = 1003             # the every-m sweep's ragged width
+
+
+def _check_rules(torch, G, worst) -> int:
+    """Every registered rule through engine.aggregate_local on the card
+    against the same call on the CPU, fixed and elastic (the masked pass
+    over all but every third worker), and stream_aggregate (3 arrival
+    buckets, quorum 3m/4) against the bulk masked pass on the card: the
+    selection equal, the aggregate exact (geomedian, and the elastic
+    pass's l1 sums and gram products: within REL_TOL).  Returns the
+    checks made."""
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import engine
+    m = G.shape[0]
+    G_cpu = G.cpu()
+    valid = (torch.arange(m) % 3 != 1).float()
+    arrival = torch.zeros(3, m)
+    arrival[torch.arange(m) % 3, torch.arange(m)] = 1.0
+    q = max(1, (3 * m) // 4)
+    n = 0
+    for agg in engine.registered():
+        cfg = ByzantineConfig(aggregator=agg, alpha=0.25)
+        for v in (None, valid):
+            got, st = engine.aggregate_local(
+                G, cfg, True, valid=None if v is None else v.cuda())
+            want, wst = engine.aggregate_local(G_cpu, cfg, True, valid=v)
+            got = got.cpu()
+            exact_rule = agg != "geomedian" and (v is None or agg in (
+                "median", "trimmed_mean", "mean"))
+            ok = _exact(got, want) if exact_rule else _rel_ok(got, want)
+            if st is not None:
+                ok &= torch.equal(st.selected.cpu(), wst.selected)
+            worst["aggregate_local"] = max(worst.get("aggregate_local", 0.0),
+                                           _err(got, want))
+            if not ok:
+                fail(f"aggregate_local {agg} [{m},{G.shape[1]}] "
+                     f"{'fixed' if v is None else 'elastic'}: card and CPU "
+                     f"differ (max abs err {_err(got, want)})")
+            n += 1
+        scfg = ByzantineConfig(aggregator=agg, alpha=0.25, quorum=q)
+        got, st = engine.stream_aggregate(G, scfg, arrival.cuda(), None, True)
+        want, bst = engine.aggregate_local(
+            G, scfg, True, valid=engine.arrival_active(arrival.cuda(), q))
+        if not (_exact(got, want) and torch.equal(st.selected, bst.selected)):
+            fail(f"stream_aggregate {agg} [{m},{G.shape[1]}]: differs from "
+                 f"the bulk masked pass (max abs err {_err(got, want)})")
+        n += 1
+    return n
+
+
+def _check_every_m(torch, kern, ref, subsets, worst):
+    """Every worker count 1 <= m <= MAX_M, each on its tuned or bucket
+    instance: the column pass (B1 at every needs subset, B4, the median
+    alone) at d = 1003 and d = 61 (rows off 16 bytes; one ragged tile)
+    with a NaN worker row, then with NaN entries scattered over the
+    columns and one column all NaN; at [m, 1003] with one worker's row NaN
+    in every third column, B1-B5 (_check_kernels), the fused brsgd launch
+    (_check_fused), the fused select launch of each gram rule
+    (_check_select) and every rule through aggregate_local, fixed and
+    elastic (_check_rules).  The per-check lines are not printed: one line
+    gives the checks per instance and the worst errors.  m = MAX_M + 1
+    must raise, naming the limit."""
+    import contextlib
+    import io
+    import numpy as np
+    per = {}
+    for m in range(1, kern.MAX_M + 1):
+        inst = (f"tuned {m}" if m in kern.TUNED_M
+                else f"bucket {kern.instance_rows(m)}")
+        n = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            for d in (EVERY_M_D, 61):
+                g = np.random.default_rng(m * d).normal(size=(m, d)).astype(
+                    np.float32)
+                g[m // 3] = np.nan
+                _check_column_pass(torch, kern, ref, torch.as_tensor(
+                    g, device="cuda"), f"[{m},{d}] worker {m // 3} NaN",
+                    subsets, worst)
+                g[m // 3] = 1.0
+                g[np.arange(0, d, 7) % m, np.arange(0, d, 7)] = np.nan
+                g[:, 3] = np.nan
+                _check_column_pass(torch, kern, ref, torch.as_tensor(
+                    g, device="cuda"), f"[{m},{d}] NaN columns", subsets,
+                    worst)
+                n += 2
+            rng = np.random.default_rng(500 + m)
+            g = rng.normal(size=(m, EVERY_M_D)).astype(np.float32)
+            g[: m // 4] *= -4.0
+            g[(m - 1) // 2, ::3] = np.nan
+            G = torch.as_tensor(g, device="cuda")
+            label = f"[{m},{EVERY_M_D}] worker {(m - 1) // 2} NaN"
+            _check_kernels(torch, kern, ref, G, label, rng, subsets, worst)
+            _check_fused(torch, kern, ref, G, label, worst)
+            _check_select(torch, kern, ref, G, label, worst)
+            n += 3 + _check_rules(torch, G, worst)
+        row = per.setdefault(inst, {"m": [], "checks": 0})
+        row["m"].append(m)
+        row["checks"] += n
+    try:
+        kern.cwise_median(torch.zeros(kern.MAX_M + 1, 8, device="cuda"))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail(f"m = {kern.MAX_M + 1} did not raise")
+    if str(kern.MAX_M) not in refused:
+        fail(f"m = {kern.MAX_M + 1} raised without naming the limit: "
+             f"{refused}")
+    emit({"check": "every_worker_count", "m": [1, kern.MAX_M],
+          "d": [EVERY_M_D, 61], "instances": per,
+          "worst_abs_err": dict(worst), "m_above_limit": refused,
+          "gates": "PERF.md section 2 (exact; l1, d2med, gram, krum scores, "
+                   "geomedian weights within 1e-5 of the largest)"})
+
+
 def phase_kernels(torch, kern, ref):
     import itertools
     import numpy as np
@@ -785,22 +927,7 @@ def phase_kernels(torch, kern, ref):
         _check_kernels(torch, kern, ref, G, label, rng, subsets, worst)
         _check_fused(torch, kern, ref, G, label, worst)
         _check_select(torch, kern, ref, G, label, worst)
-    # the column pass at every instance, at d % 4 != 0 (rows off 16 bytes)
-    # and d < 128 (one ragged tile), with a NaN worker row, then with NaN
-    # entries scattered over the columns and one column all NaN
-    for m in kern.SUPPORTED_M:
-        for d in (1003, 61):
-            g = np.random.default_rng(m * d).normal(size=(m, d)).astype(
-                np.float32)
-            g[m // 3] = np.nan
-            _check_column_pass(torch, kern, ref, torch.as_tensor(
-                g, device="cuda"), f"[{m},{d}] worker {m // 3} NaN", subsets,
-                worst)
-            g[m // 3] = 1.0
-            g[np.arange(0, d, 7) % m, np.arange(0, d, 7)] = np.nan
-            g[:, 3] = np.nan
-            _check_column_pass(torch, kern, ref, torch.as_tensor(
-                g, device="cuda"), f"[{m},{d}] NaN columns", subsets, worst)
+    _check_every_m(torch, kern, ref, subsets, worst)
     # the fused launch where G does not fit in shared memory: pass 2
     # reads it again
     m, d = NONRESIDENT_SHAPE
@@ -2713,10 +2840,29 @@ def phase_bwd_timing(torch, ref):
     scaled_dot_product_attention call.  Bounds from this run's shapes:
     the larger of the bytes over 3.35 TB/s and 3 x FLOPs / 495 TFLOP/s
     (3xTF32), with the FP32-pipe bound beside it."""
+    import ctypes
+
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa_kern
     from repro_torch.kernels import wkv6 as wkv_kern
     out = {}
+    # B6-bwd's resources: each kernel's registers, spills and shared memory
+    # (the build's ptxas report) and the CTAs an SM holds (the occupancy
+    # calculator, with the launch's dynamic shared memory)
+    occ = (ctypes.c_int * 4)()
+    rc = _build.load("flash_attention_bwd").flash_bwd_ctas_per_sm(128, occ)
+    if rc != 0:
+        fail(f"flash_bwd_ctas_per_sm: CUDA error {rc}")
+    log = _build.BUILD_LOGS.get("flash_attention_bwd")
+    emit({"check": "flash_attention_bwd_resources", "D": 128,
+          "threads_per_cta": 384, "ctas_per_sm": {"dkdv": occ[0],
+                                                  "dq": occ[1]},
+          "dynamic_smem_bytes": {"dkdv": occ[2], "dq": occ[3]},
+          "ptxas": ({fn: {k: r[k] for k in ("registers", "smem",
+                                            "spill_bytes")}
+                     for fn, r in _ptxas_entries(log).items()}
+                    if log else "not measured (library reused)")})
     for label, (B, H, Hkv, S, D) in (("train", (2, 16, 8, 128, 128)),
                                      ("long", (1, 16, 8, 4096, 128))):
         q, k, v, dO = (_bshd(torch, B, S, h, D, i, "float32")
@@ -2893,6 +3039,59 @@ def ops_select_plain(ref, G, st, kth, T):
 
 # ---------------------------------------------------------------------------
 
+def _kernel_fns(torch, kern, ref, G) -> dict:
+    """{timing row: one wrapper call} of every BrSGD kernel on G."""
+    m = G.shape[0]
+    ones = torch.ones(m, device="cuda")
+    sc, l1 = kern.brsgd_partials(G)
+    kth, T = ref.brsgd_thresholds(sc, l1, 0.5, 0.0)
+    fns = {"fused_stats": lambda: kern.fused_stats(G, ("scores", "l1")),
+           "brsgd_stats": lambda: kern.brsgd_stats(G),
+           "cwise_median": lambda: kern.cwise_median(G),
+           "fused_stats[gram]": lambda: kern.fused_stats(G, ("gram",)),
+           "masked_mean": lambda: kern.masked_mean(G, ones),
+           "select_mean": lambda: kern.select_mean(G, sc, l1, kth, T),
+           "trimmed_mean": lambda: kern.trimmed_mean(G, 0.1),
+           "brsgd_aggregate": lambda: kern.brsgd_aggregate(G, 0.5, 0.0)}
+    if hasattr(kern, "select_aggregate"):
+        for rule, args in _select_cases(m):
+            fns[f"select_aggregate[{rule}]"] = (
+                lambda rule=rule, args=args: kern.select_aggregate(
+                    G, rule, **args))
+    return fns
+
+
+# two bucket instances beside their tuned neighbours, at the two timing
+# widths
+BUCKET_TIMING_M = (10, 12, 16, 32, 33, 64)
+
+
+def phase_bucket_timing(torch, kern, ref) -> dict:
+    """Each BrSGD kernel's device time (torch.profiler) on the bucket
+    instances of m = 12 and 33 and on the tuned m = 10, 16, 32 and 64, at
+    d = 61706 and 8388608; one line per shape.  Returns {kernel row:
+    {"m,d": ms}}."""
+    import numpy as np
+    out = {}
+    for d in (MAIN_SHAPE[1], HBM_SHAPE[1]):
+        for m in BUCKET_TIMING_M:
+            G = torch.as_tensor(np.random.default_rng(7).standard_normal(
+                (m, d), dtype=np.float32), device="cuda")
+            reps = 200 if d == MAIN_SHAPE[1] else 10
+            row = {}
+            for name, fn in _kernel_fns(torch, kern, ref, G).items():
+                row[name] = _kernel_device_ms(torch, fn, reps,
+                                              (KERNEL_NAMES[name],))
+                out.setdefault(name, {})[f"{m},{d}"] = row[name]
+            emit({"timing": "worker_counts", "shape": [m, d],
+                  "instance": (f"tuned {m}" if m in kern.TUNED_M else
+                               f"bucket {kern.instance_rows(m)}"),
+                  "reps": reps, "device_ms": row})
+            del G
+            torch.cuda.empty_cache()
+    return out
+
+
 def kernel_times(torch, src: Path, shapes=()) -> int:
     """``--kernel-times SRC [M,D ...]``: the kernels of the repro_torch
     package under SRC (this tree's src, or another tree's, such as a
@@ -2915,23 +3114,7 @@ def kernel_times(torch, src: Path, shapes=()) -> int:
         reps = 200 if m * d <= MAIN_SHAPE[0] * MAIN_SHAPE[1] else 20
         G = torch.as_tensor(np.random.default_rng(7).standard_normal(
             (m, d), dtype=np.float32), device="cuda")
-        ones = torch.ones(m, device="cuda")
-        sc, l1 = kern.brsgd_partials(G)
-        kth, T = ref.brsgd_thresholds(sc, l1, 0.5, 0.0)
-        fns = {"fused_stats": lambda: kern.fused_stats(G, ("scores", "l1")),
-               "brsgd_stats": lambda: kern.brsgd_stats(G),
-               "cwise_median": lambda: kern.cwise_median(G),
-               "fused_stats[gram]": lambda: kern.fused_stats(G, ("gram",)),
-               "masked_mean": lambda: kern.masked_mean(G, ones),
-               "select_mean": lambda: kern.select_mean(G, sc, l1, kth, T),
-               "trimmed_mean": lambda: kern.trimmed_mean(G, 0.1),
-               "brsgd_aggregate": lambda: kern.brsgd_aggregate(G, 0.5, 0.0)}
-        if hasattr(kern, "select_aggregate"):
-            for rule, args in _select_cases(m):
-                fns[f"select_aggregate[{rule}]"] = (
-                    lambda rule=rule, args=args: kern.select_aggregate(
-                        G, rule, **args))
-        for name, fn in fns.items():
+        for name, fn in _kernel_fns(torch, kern, ref, G).items():
             emit({"kernel_times": name, "src": str(src), "shape": [m, d],
                   "device_ms": _kernel_device_ms(torch, fn, reps,
                                                  (KERNEL_NAMES[name],)),
@@ -2975,6 +3158,7 @@ def main() -> int:
     grad_res, grad_launches = timed("grad", phase_grad, torch)
     main_t = timed("timing_main", phase_timing, torch, kern, ref, MAIN_SHAPE,
                    reps=200, plain_reps=20, worst=worst)
+    bucket_t = timed("timing_buckets", phase_bucket_timing, torch, kern, ref)
     hbm_t = timed("timing_hbm", phase_timing, torch, kern, ref, HBM_SHAPE,
                   reps=20, plain_reps=3, worst=worst)
     seq_t = timed("seq_timing", phase_seq_timing, torch, ref)
@@ -2998,7 +3182,8 @@ def main() -> int:
                "hbm_ms": h["kernel_ms"], "hbm_device_ms": h["device_ms"],
                "hbm_wrapper_ms": h["wrapper_ms"],
                "hbm_bound_ms": h["bound_ms"], "hbm_plain_ms": h["plain_ms"],
-               "hbm_library_ms": h["library_ms"]}
+               "hbm_library_ms": h["library_ms"],
+               "worker_counts_device_ms": bucket_t[key]}
         if name == "brsgd_aggregate":
             row.update(also_replaces=ALSO_REPLACES[name],
                        grid=t["grid"], resident=t["resident"],

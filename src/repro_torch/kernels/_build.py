@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,6 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "brsgd_stats.cu"
 SOURCES = {"brsgd_stats": SOURCE,
+           "brsgd_bucket": CSRC / "brsgd_bucket.cu",
            "flash_attention": CSRC / "flash_attention.cu",
            "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
            "wkv6": CSRC / "wkv6.cu",
@@ -79,6 +81,8 @@ SIGNATURES = {
         # 8 x (b, h, s) strides (q, k, v, o, dO, dq, dk, dv), window, stream
         "flash_attention_bwd": (_P,) * 10 + (_I,) * 6 + (_L,) * 24
                                + (_I, _P),
+        # D, int out[4]: dK/dV and dQ CTAs an SM holds, their shared memory
+        "flash_bwd_ctas_per_sm": (_I, _P),
     },
     "wkv6": {
         # r, k, v, w, u, S0, y, S_out, S_chunks (nullable), B, H, S, Q, K,
@@ -93,11 +97,30 @@ SIGNATURES = {
         "wkv6_seq_bwd": (_P,) * 14 + (_I,) * 5 + (_L,) * 9 + (_P,),
     },
 }
+# the bucket instances (any other m <= 64) have the tuned library's entries
+SIGNATURES["brsgd_bucket"] = SIGNATURES["brsgd_stats"]
 ERROR_STRING = {"brsgd_stats": "brsgd_error_string",
+                "brsgd_bucket": "brsgd_error_string",
                 "flash_attention": "flash_error_string",
                 "flash_attention_bwd": "flash_bwd_error_string",
                 "wkv6": "wkv6_error_string",
                 "wkv6_bwd": "wkv6_bwd_error_string"}
+
+
+def expanded_source(name: str = "brsgd_stats") -> str:
+    """A library's source as nvcc compiles it: its ``#include "..."`` of
+    the headers in ``csrc/`` replaced by their text (once each)."""
+    seen = set()
+
+    def expand(text: str) -> str:
+        def include(m):
+            header = m.group(1)
+            if header in seen:
+                return ""
+            seen.add(header)
+            return expand((CSRC / header).read_text())
+        return re.sub(r'^#include "([^"]+)"$', include, text, flags=re.M)
+    return expand(SOURCES[name].read_text())
 
 
 def find_nvcc() -> str:

@@ -7,6 +7,12 @@ per-block partials and adds one to its entry of :data:`LAUNCHES`.  The
 plain versions live in :mod:`.ref`; :mod:`.ops` picks between the two
 by the tensor's device.
 
+Every worker count 1 <= m <= :data:`MAX_M` has a kernel instance: the
+m of :data:`TUNED_M` a tuned one (``csrc/brsgd_stats.cu``, m a
+compile-time constant), every other m the instance of its power of two
+(``csrc/brsgd_bucket.cu``, m at run time; :func:`instance_rows`).  A
+larger m raises.
+
 ==================  ====================================================
 wrapper             replaces (src/repro/kernels/brsgd_stats.py)
 ==================  ====================================================
@@ -41,8 +47,12 @@ import torch
 from . import ref
 from ._build import load
 
-# worker counts the kernels are instantiated for (csrc BRSGD_DISPATCH)
-SUPPORTED_M = (4, 5, 7, 8, 10, 16, 20, 32, 64)
+# worker counts with a tuned instance (csrc/brsgd_stats.cu BRSGD_DISPATCH);
+# every other m up to MAX_M runs its power of two's bucket instance
+# (csrc/brsgd_bucket.cu)
+TUNED_M = (4, 5, 7, 8, 10, 16, 20, 32, 64)
+MAX_M = 64
+BUCKETS = (2, 4, 8, 16, 32, 64)
 NEED_BITS = {"scores": 1, "l1": 2, "d2med": 4, "gram": 8}
 
 # launches of each kernel since the last reset_launches()
@@ -78,6 +88,17 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def instance_rows(m: int) -> int:
+    """The rows M of the kernel instance that serves m workers: m itself
+    for a tuned m, else its bucket, the power of two at or above it."""
+    return m if m in TUNED_M else ref.padded_workers(m)
+
+
+def _lib(m: int):
+    """The kernel library that holds m's instance."""
+    return load("brsgd_stats" if m in TUNED_M else "brsgd_bucket")
+
+
 def _check_matrix(G, name: str):
     if not isinstance(G, torch.Tensor) or not G.is_cuda:
         raise ValueError(f"{name}: G must be a CUDA tensor (CPU tensors "
@@ -89,9 +110,9 @@ def _check_matrix(G, name: str):
     if not G.is_contiguous():
         raise ValueError(f"{name}: G must be contiguous")
     m, d = G.shape
-    if m not in SUPPORTED_M:
-        raise ValueError(f"{name}: m={m} workers has no kernel instance; "
-                         f"supported: {SUPPORTED_M}")
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"{name}: m={m} workers: the kernels take 1 <= m "
+                         f"<= {MAX_M}")
     if d == 0:
         raise ValueError(f"{name}: G has no columns")
     return m, d
@@ -150,12 +171,12 @@ def column_stages(m: int) -> int:
 
 
 def column_smem(m: int, variant: int, stages: int) -> int:
-    """Dynamic shared memory of a column-pass instance (csrc
-    ``column_smem``): the sort columns where it takes a median at m >=
-    SMEM_SORT_M, then the ring."""
+    """Dynamic shared memory of a column-pass instance at m workers (csrc
+    ``column_smem``): the sort columns where it takes a median and its
+    instance has SMEM_SORT_M rows or more, then the ring."""
     median = variant & (COLUMN_OUT | NEED_BITS["l1"] | NEED_BITS["d2med"])
-    sort = ref.padded_workers(m) * THREADS if median and m >= SMEM_SORT_M \
-        else 0
+    sort = ref.padded_workers(m) * THREADS \
+        if median and instance_rows(m) >= SMEM_SORT_M else 0
     return 4 * (sort + stages * m * RING_LD)
 
 
@@ -186,7 +207,7 @@ def column_launch_plan(G, variant: int) -> ColumnPlan:
     m, d = _check_matrix(G, "column pass")
     key = (G.device.index, m, d, "column", variant)
     if key not in _plans:
-        lib = load()
+        lib = _lib(m)
 
         def coresident(smem):
             n = ctypes.c_int(0)
@@ -209,7 +230,7 @@ def fused_stats(G, needs) -> dict:
     needs = tuple(n for n in ref.STAT_NAMES if n in needs)
     if not needs:
         return {}
-    lib = load()
+    lib = _lib(m)
     bits = sum(NEED_BITS[n] for n in needs)
     if "gram" in needs:
         nb, stages = _n_blocks(lib, d), 0
@@ -266,7 +287,8 @@ def aggregate_smem(m: int, d: int, grid: int, resident: bool,
                    rule: str = "brsgd") -> int:
     """Dynamic shared memory of the fused kernel of ``rule`` on ``grid``
     blocks (the csrc ``aggregate_smem``): the sort columns where the rule
-    takes a median at m >= SMEM_SORT_M; the rule's scratch (krum: two
+    takes a median and m's instance has SMEM_SORT_M rows or more; the
+    rule's scratch (krum: two
     [m, m+1] matrices; geomedian: one and 3m floats, to 16 bytes); then
     one tile slot per tile of the fullest block when resident, else the
     gram rules' one staging slot.  A brsgd slot is [m, THREADS]; a gram
@@ -275,8 +297,8 @@ def aggregate_smem(m: int, d: int, grid: int, resident: bool,
     n_tiles = -(-d // THREADS)
     gram = rule != "brsgd"
     median = rule in ("brsgd", "geomedian")
-    sort = ref.padded_workers(m) * THREADS if median and m >= SMEM_SORT_M \
-        else 0
+    sort = ref.padded_workers(m) * THREADS \
+        if median and instance_rows(m) >= SMEM_SORT_M else 0
     scratch = {"brsgd": 0, "krum": 2 * m * (m + 1),
                "multi_krum": 2 * m * (m + 1),
                "geomedian": -(-(m * (m + 1) + 3 * m) // 4) * 4}[rule]
@@ -321,7 +343,7 @@ def launch_plan(G, rule: str = "brsgd") -> AggregatePlan:
     m, d = _check_matrix(G, f"{rule} aggregate")
     key = (G.device.index, m, d, rule)
     if key not in _plans:
-        lib = load()
+        lib = _lib(m)
 
         def coresident(smem):
             n = ctypes.c_int(0)
@@ -343,7 +365,7 @@ def brsgd_aggregate(G, beta: float, threshold: float) -> ref.BrSGDAggregate:
     2.  Every output is a view of the two buffers the launch writes."""
     plan = launch_plan(G)                      # checks G
     m, d = G.shape
-    lib = load()
+    lib = _lib(m)
     k_idx, q_idx = ref.brsgd_rank_indices(m, beta)
     n_float = 3 * m + 2                        # scores, l1, w, kth, 𝔗
     n_small = 4 * n_float + 3 * m              # then sel, c1, c2 as bytes
@@ -374,7 +396,7 @@ def select_aggregate(G, rule: str, n_close: int = 1, k: int = 0,
         m, d = _check_matrix(G, "masked_mean")
         buf, _ = _small_buffer(G, m, m)              # w, then w > 0
         out = torch.empty((d,), dtype=torch.float32, device=G.device)
-        lib = load()
+        lib = _lib(m)
         _launch(lib, "masked_mean", lib.brsgd_masked_mean, G, _ptr(G), m, d,
                 None, _ptr(out), _ptr(buf), _n_blocks(lib, d))
         return ref.SelectAggregate(out, buf[:4 * m].view(torch.float32),
@@ -396,7 +418,7 @@ def select_aggregate(G, rule: str, n_close: int = 1, k: int = 0,
     buf, off = _small_buffer(G, n_float, m,    # then w > 0 as bytes
                              partials_floats(m, rule, plan.grid))
     out = torch.empty((d,), dtype=torch.float32, device=G.device)
-    lib = load()
+    lib = _lib(m)
     _launch(lib, "select_aggregate", lib.brsgd_select_aggregate, G, _ptr(G),
             m, d, RULE_IDS[rule], ia, ib, fa, int(plan.resident),
             ctypes.c_void_p(buf.data_ptr() + off), _ptr(buf), _ptr(out),
@@ -421,7 +443,7 @@ def select_mean(G, scores, l1, kth, T):
     _check_vector(pr, G, 2, "select_mean thresholds")
     out = torch.empty((d,), dtype=torch.float32, device=G.device)
     w = torch.empty((m,), dtype=torch.float32, device=G.device)
-    lib = load()
+    lib = _lib(m)
     _launch(lib, "select_mean", lib.brsgd_select_mean, G, _ptr(G), m, d,
             _ptr(sl), _ptr(pr), _ptr(out), _ptr(w), _n_blocks(lib, d))
     return out, w
@@ -434,7 +456,7 @@ def masked_mean(G, mask):
     w = mask.to(device=G.device, dtype=torch.float32).contiguous()
     _check_vector(w, G, m, "masked_mean mask")
     out = torch.empty((d,), dtype=torch.float32, device=G.device)
-    lib = load()
+    lib = _lib(m)
     _launch(lib, "masked_mean", lib.brsgd_masked_mean, G, _ptr(G), m, d,
             _ptr(w), _ptr(out), None, _n_blocks(lib, d))
     return out
@@ -444,7 +466,7 @@ def brsgd_stats(G):
     """G [m, d] -> (median [d], mean [d], scores [m], l1 [m])."""
     plan = column_launch_plan(G, B4_VARIANT)       # checks G
     m, d = G.shape
-    lib = load()
+    lib = _lib(m)
     med = torch.empty((d,), dtype=torch.float32, device=G.device)
     mean = torch.empty((d,), dtype=torch.float32, device=G.device)
     sc = torch.empty((plan.grid, m), dtype=torch.float32, device=G.device)
@@ -460,7 +482,7 @@ def cwise_median(G):
     one launch that writes nothing else."""
     plan = column_launch_plan(G, COLUMN_OUT)       # checks G
     m, d = G.shape
-    lib = load()
+    lib = _lib(m)
     med = torch.empty((d,), dtype=torch.float32, device=G.device)
     _launch(lib, "cwise_median", lib.brsgd_cwise_median, G, _ptr(G), m, d,
             _ptr(med), plan.grid, plan.stages)
@@ -473,7 +495,7 @@ def trimmed_mean(G, trim_frac: float):
     m, d = _check_matrix(G, "trimmed_mean")
     k = ref.trim_k(trim_frac, m)
     out = torch.empty((d,), dtype=torch.float32, device=G.device)
-    lib = load()
+    lib = _lib(m)
     _launch(lib, "trimmed_mean", lib.brsgd_trimmed_mean, G, _ptr(G), m, d,
             k, _ptr(out), _n_blocks(lib, d))
     return out

@@ -19,33 +19,69 @@
 // atomics, so two backwards on the same inputs give the same bits.
 //
 // What bounds it on this card: operations.  ≈ 10·B·H·D FLOPs per visible
-// (query, key) pair (s twice, dp twice, dv, dk, dq): at [1, 16, 8, 4096,
-// 128] 1.72e11 FLOPs, 1.04 ms by 3xTF32 at 495 TFLOP/s (2.56 ms on the
-// FP32 pipes); q, k, v, o, dO, dq, dk, dv are 0.1 GB, 0.03 ms.
+// (query, key) pair (s, dp, dv, dk, dq): at [1, 16, 8, 4096, 128] 1.72e11
+// FLOPs, 1.04 ms by 3xTF32 at 495 TFLOP/s (2.56 ms on the FP32 pipes);
+// q, k, v, o, dO, dq, dk, dv are 0.1 GB, 0.03 ms.  The two kernels
+// recompute s and dp, 14·D FLOPs a pair.
 //
-// Route: the forward's 3xTF32 mma.sync m16n8k8 fragments (tf32_mma.cuh),
-// which keep float32 accuracy.  A simple design first (wgmma and TMA are
-// later work):
-//   * dK/dV: one CTA of 4 warps per (b, kv head, 64-key tile); each warp
-//     owns 16 keys, holds its dk and dv [16, D] accumulators in registers,
-//     and walks the group's query heads and the query tiles (32 rows) that
-//     see its keys: sᵀ = k·qᵀ and dpᵀ = v·dOᵀ with k and v as the A
-//     operands from shared memory, then pᵀ and dsᵀ go from the accumulator
-//     layout to the A fragment in registers (the forward's P·V
-//     permutation) for dv += pᵀ·dO and dk += dsᵀ·q.  q, dO, lse and Di
-//     stream through a two-stage cp.async ring.  The GQA group is summed
-//     inside the CTA, so no atomics.  Earliest key tiles (the heaviest
-//     under the causal mask) launch first.
-//   * dQ: one CTA of 4 warps per (b, head, 64-query tile), the forward's
-//     shape: q and dO in shared memory, k and v tiles (64 rows) in a
-//     two-stage ring; s and dp per warp, ds = p(dp - Di) in registers and
-//     straight into dq += ds·k.
-//   * Tiles and warps skip work no visible pair reaches, as in the
-//     forward; masked pairs take p = 0.
-//   * Every shared row is D + 8 floats (8-byte fragment loads along d hit
-//     32 banks; the column reads of the dv/dk/dq products take a 2-way
-//     conflict).  Shared memory at D = 128: dK/dV 136 KB, dQ 204 KB,
-//     opted in with cudaFuncSetAttribute.
+// Design (every float32 product 3xTF32: hi·hi + hi·lo + lo·hi):
+//   * Two kinds of product.  Those over the head dimension (s and dp in
+//     both kernels) run on mma.sync m16n8k8 from a stationary operand in
+//     shared memory (tf32_mma.cuh's split on the fly).  Those over the
+//     sequence (dv += pᵀ·dO, dk += dsᵀ·q, dq += ds·k) run on wgmma
+//     m64nDk8 by warpgroups: A is p or ds straight from the mma.sync
+//     accumulators in registers (split there), B is the streamed tile
+//     with N = D; their [64, D] sums live in wgmma accumulators.  wgmma
+//     reads a .tf32 B operand only K-major, here [D][rows of the tile], so
+//     the streamed tiles are stored transposed, with their low parts.
+//     Putting s and dp on wgmma too would need the stationary operand's
+//     low part and the streamed tile in its natural layout as well, which
+//     at D = 128 leaves no room for two stages; with N = 16 its A reads
+//     would also bind on shared-memory bandwidth.
+//   * CTA: two consumer warpgroups and a producer warpgroup (384
+//     threads, one CTA an SM: 8 warps issue tensor work, against 4
+//     before); the producers hand registers to the consumers with
+//     setmaxnreg (56 and 224 a thread: without it a 384-thread block
+//     gets 168 a thread, and 288 threads got 168 too, the dK/dV
+//     consumers spilling).  A CTA owns 64 rows, keys for dK/dV (of one
+//     (batch, kv head); it walks the group's heads and the query tiles of
+//     BT = 16 rows that see them), queries for dQ (of one (batch, head);
+//     the key tiles of 16 rows they see); warp w of each warpgroup owns
+//     rows 16w .. 16w + 15.  The two warpgroups take alternate tiles, each
+//     with its own accumulators, summed at the end through shared memory
+//     in a fixed order (warpgroup 0's, then 1's: no atomics), so one
+//     warpgroup's wgmma runs while the other's mma.sync does.  Heaviest
+//     CTAs launch first.  (Measured on an H100 against the others: 128-row
+//     CTAs, both warpgroups on one tile, were 6% faster at S = 4096 and
+//     47% slower at S = 128; a tile's mma.sync overlapped with the wgmma
+//     of the tile before in the same warpgroup, slower at both; staging
+//     the producers' loads through cp.async slots, or splitting the
+//     stationary operand once, within 3%.)
+//   * The producer warps stage each tile: they load 16 rows (4 rows × 8
+//     columns a warp load, 32-byte pieces), write them transposed into a
+//     ring stage (raw, read by the tensor cores as its top 19 bits, and
+//     the exact low part x - trunc(x)), fence them for the async proxy
+//     and arrive on the stage's `full` mbarrier; the consumer warps of
+//     the tile's warpgroup wait on it and, once their wgmma has
+//     completed, arrive on `empty`.
+//   * The transposed tile [D][16]: element (d, r) at (d / 8)·SBO + (r' /
+//     4)·LBO + (d % 8)·4 + r' % 4 floats, with r' the row's k position:
+//     rows 2t, 2t + 1 of each 8 go to t and t + 4, so the columns 2t,
+//     2t + 1 a thread holds in an mma.sync accumulator are exactly the k
+//     = t, t + 4 of the wgmma A fragment (no shuffle).  LBO = 144 bytes
+//     (a core matrix and 16 bytes) puts the two k chunks 4 banks apart:
+//     the mma.sync B loads of s and dp from the same arrays hit 32 banks.
+//   * Shared memory at D = 128 (227 KB a block; a stationary row is D + 8
+//     floats, conflict-free 8-byte fragment loads):
+//       dK/dV: k, v 2 × 64 × 136 × 4 = 69,632 B; a stage qᵀ, qᵀ lo, dOᵀ,
+//              dOᵀ lo 4 × 9,216 B + lse, Di 128 B = 36,992 B; 4 stages;
+//              128 B of barriers: 217,728 B.
+//       dQ:    q, dO 69,632 B; a stage kᵀ, kᵀ lo, vᵀ 27,648 B; 4 stages;
+//              180,352 B.
+//     D = 80 and 64 take 4 stages too.
+//   * Tiles and warps skip work no visible pair reaches; masked pairs take
+//     p = 0.  A warp without visible pairs still joins its warpgroup's
+//     wgmma (with zero fragments) and releases the stage.
 //   * expf and IEEE arithmetic, not the fast intrinsics.
 //
 // Layout: q, o, dO, dq are [B, H, S, D] and k, v, dk, dv [B, Hkv, T, D]
@@ -66,12 +102,20 @@
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BR = 16 * WARPS;  // rows a CTA owns: keys (dK/dV), queries (dQ)
-constexpr int BT = 64;          // dQ: key rows per streamed tile
-constexpr int BQT = 32;         // dK/dV: query rows per streamed tile
-constexpr int DOT_WARPS = 8;    // Di pre-pass: rows per block
+constexpr int CONSUMER_WARPS = 8;                    // two warpgroups
+constexpr int PRODUCER_WARPS = 4;                    // a third one
+constexpr int THREADS = 32 * (CONSUMER_WARPS + PRODUCER_WARPS);
+// registers a thread after the producers hand theirs to the consumers:
+// 128 × 56 + 256 × 224 = 64,512 of the SM's 65,536
+constexpr int PRODUCER_REGS = 56;
+constexpr int CONSUMER_REGS = 224;
+constexpr int BR = 64;       // rows a CTA owns: keys (dK/dV), queries (dQ)
+constexpr int BT = 16;       // rows of a streamed tile: queries, keys
+constexpr int DOT_WARPS = 8; // Di pre-pass: rows per block
+constexpr int SMEM_LIMIT = 232448;
+constexpr int BARRIER_BYTES = 128;        // full and empty, up to 8 stages
+constexpr int LBO_F = 36;                 // the k step's two core matrices
+constexpr int SBO_F = (BT / 4) * LBO_F;   // groups of 8 d rows
 
 struct Strides {
   long long b, h, s;  // element strides; the head dimension is contiguous
@@ -79,17 +123,26 @@ struct Strides {
 
 template <int D>
 struct Shape {
-  static constexpr int PS = D + 8;  // shared row stride, floats
-  // dQ: q, dO [BR] rows, then two stages of k, v [BT] rows
-  static constexpr int DQ_STAGE = 2 * BT * PS;
-  static constexpr int DQ_BYTES = (2 * BR * PS + 2 * DQ_STAGE) * 4;
-  // dK/dV: k, v [BR] rows, then two stages of q, dO [BQT] rows, lse, Di
-  static constexpr int KV_STAGE = 2 * BQT * PS + 2 * BQT;
-  static constexpr int KV_BYTES = (2 * BR * PS + 2 * KV_STAGE) * 4;
+  static constexpr int PS = D + 8;                   // stationary row, floats
+  static constexpr int TL = (D / 8) * SBO_F;         // a transposed tile
+  static constexpr int STATIONARY = 2 * BR * PS;     // two [BR][PS] arrays
+  static constexpr int KV_STAGE = 4 * TL + 2 * BT;   // qᵀ, lo, dOᵀ, lo, lse, Di
+  static constexpr int DQ_STAGE = 3 * TL;            // kᵀ, lo, vᵀ
+  static constexpr int stages(int stage) {
+    const int n = (SMEM_LIMIT - BARRIER_BYTES - 4 * STATIONARY) / (4 * stage);
+    return n > 4 ? 4 : n;
+  }
+  static constexpr int KV_STAGES = stages(KV_STAGE);
+  static constexpr int DQ_STAGES = stages(DQ_STAGE);
+  static constexpr int KV_BYTES = BARRIER_BYTES + 4 * (STATIONARY + KV_STAGES * KV_STAGE);
+  static constexpr int DQ_BYTES = BARRIER_BYTES + 4 * (STATIONARY + DQ_STAGES * DQ_STAGE);
+  static_assert(KV_STAGES >= 2 && DQ_STAGES >= 2, "two stages at least");
+  static_assert(KV_BYTES <= SMEM_LIMIT && DQ_BYTES <= SMEM_LIMIT, "shared memory");
 };
 
 // rows [r0, r0 + n) of one (batch, head) into shared memory with 16-byte
-// cp.async copies; rows at or past `limit` are zero-filled
+// cp.async copies by every thread of the CTA; rows at or past `limit` are
+// zero-filled
 template <int D>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long ss, int r0, int n,
@@ -100,7 +153,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     const int s = r0 + r;
     const bool in = s < limit;
     tc::cp_async16(dst + r * Shape<D>::PS + c,
-                   src + (in ? (long long)s : 0) * ss + c, in);
+                   src + (in ? (long long)s * ss : 0) + c, in);
   }
 }
 
@@ -121,6 +174,95 @@ __device__ __forceinline__ void a_rows(const float* m, int kk, int g, int t4,
 __device__ __forceinline__ bool visible(int qp, int kp, int S, int T_len,
                                         int window) {
   return qp < S && kp < T_len && kp <= qp && (window <= 0 || qp - kp < window);
+}
+
+// float offset of (d, row r) in a transposed tile [D][BT] (see the note)
+__device__ __forceinline__ int tl_off(int d, int r) {
+  const int rk = (r & 8) | ((r & 7) >> 1) | ((r & 1) << 2);
+  return (d >> 3) * SBO_F + (rk >> 2) * LBO_F + (d & 7) * 4 + (rk & 3);
+}
+
+// The producer warpgroup's copy of BT rows [r0, r0 + BT) of x and y (one
+// (batch, head) each, row strides xs, ys) into transposed tiles: x_raw and
+// x_lo, y_raw and, unless null, y_lo.  Rows at or past `limit` are zeros.
+// Producer warp pw takes the column groups pw, pw + 4, ...; its lane (e,
+// r4) loads column 8·group + e of rows 8c + 2·r4 + parity, so a warp load
+// is 4 rows × 32 bytes and a warp store one core matrix.
+template <int D>
+__device__ __forceinline__ void stage_rows(float* x_raw, float* x_lo, const float* x,
+                                           long long xs, float* y_raw, float* y_lo,
+                                           const float* y, long long ys, int r0, int limit,
+                                           int pw, int lane) {
+  constexpr int NG = D / 8;
+  constexpr int NU = 4 * ((NG + PRODUCER_WARPS - 1) / PRODUCER_WARPS);  // units a warp
+  const int e = lane & 7, r4 = lane >> 3;
+  float vx[NU], vy[NU];
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    const int cp = u & 3, dg = pw + PRODUCER_WARPS * (u >> 2);
+    const int row = r0 + 8 * (cp >> 1) + 2 * r4 + (cp & 1);
+    const bool in = row < limit && dg < NG;
+    vx[u] = in ? x[(long long)row * xs + 8 * dg + e] : 0.f;
+    vy[u] = in ? y[(long long)row * ys + 8 * dg + e] : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    const int cp = u & 3, dg = pw + PRODUCER_WARPS * (u >> 2);
+    if (dg >= NG) continue;
+    const int off = dg * SBO_F + cp * LBO_F + e * 4 + r4;
+    x_raw[off] = vx[u];
+    x_lo[off] = vx[u] - __uint_as_float(__float_as_uint(vx[u]) & 0xffffe000u);
+    y_raw[off] = vy[u];
+    if (y_lo != nullptr)
+      y_lo[off] = vy[u] - __uint_as_float(__float_as_uint(vy[u]) & 0xffffe000u);
+  }
+}
+
+// wgmma B descriptor of k step j (rows 8j .. 8j + 7) of a transposed tile
+__device__ __forceinline__ uint64_t tile_desc(const float* tile, int j) {
+  return tc::wgmma_desc(tile + 2 * LBO_F * j, 4 * LBO_F, 4 * SBO_F);
+}
+
+// acc += a·b for one k step, 3xTF32: the small terms first
+template <int D>
+__device__ __forceinline__ void wgmma3(float (&acc)[D / 2], const uint32_t (&ab)[4],
+                                       const uint32_t (&as)[4], uint64_t b_raw,
+                                       uint64_t b_lo) {
+  tc::wgmma<D>(acc, as, b_raw);
+  tc::wgmma<D>(acc, ab, b_lo);
+  tc::wgmma<D>(acc, ab, b_raw);
+}
+
+// acc of warpgroup 0 += acc of warpgroup 1, in that order: warpgroup 1
+// stores its accumulators (thread j's element i at red[128·i + j], the
+// same fragment position in both), a named barrier over the 256 consumer
+// threads, warpgroup 0 adds them; red holds 64·D floats of shared memory
+// no tile uses any more (both warpgroups are past their last tile at the
+// first barrier)
+template <int R>
+__device__ __forceinline__ void pair_sum(float (&acc)[R], float* red, int wg) {
+  const int j = threadIdx.x & 127;
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) red[128 * i + j] = acc[i];
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] += red[128 * i + j];
+  }
+}
+
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, int n) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n; ++s) {
+      tc::mbar_init(&full[s], 32 * PRODUCER_WARPS);  // the producers' threads
+      tc::mbar_init(&empty[s], CONSUMER_WARPS / 2);  // a lane of each warp of
+                                                      // the consuming warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
 }
 
 // Di[row] = Σ_d dO·o, one warp per row of [B, H, S]
@@ -157,121 +299,147 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       Strides dos, Strides dks, Strides dvs, int window,
                       float scale) {
   using L = Shape<D>;
-  constexpr int PS = L::PS, KK = D / 8, ND = D / 8, NJ = BQT / 8;
-  extern __shared__ __align__(16) float sm[];
-  float* sk = sm;
-  float* sv = sm + BR * PS;
+  constexpr int PS = L::PS, KK = D / 8, NS = L::KV_STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + NS;
+  float* sk = reinterpret_cast<float*>(smem + BARRIER_BYTES);
+  float* sv = sk + BR * PS;
   float* ring = sv + BR * PS;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
   const int Hkv = H / group;
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
   const int k0 = blockIdx.y * BR;  // earliest (heaviest) key tiles first
-  const int kw0 = k0 + 16 * warp;  // this warp's first key
 
-  // query tiles that see some key of this tile, for each head of the group
-  const int qt_lo = k0 / BQT;
+  // query tiles that see some key of this CTA, for each head of the group
+  const int qt_lo = k0 / BT;
   const int q_hi = window > 0 ? min(S, k0 + BR - 1 + window) : S;
-  const int n_qt = max(0, (q_hi + BQT - 1) / BQT - qt_lo);
+  const int n_qt = max(0, (q_hi + BT - 1) / BT - qt_lo);
   const int total = group * n_qt;
 
-  auto load_tile = [&](int idx) {
-    const int h = hk * group + idx / n_qt;
-    const int q0 = (qt_lo + idx % n_qt) * BQT;
-    float* st = ring + (idx & 1) * L::KV_STAGE;
-    load_rows<D>(st, q + b * qs.b + h * qs.h, qs.s, q0, BQT, S, tid);
-    load_rows<D>(st + BQT * PS, dO + b * dos.b + h * dos.h, dos.s, q0, BQT, S,
-                 tid);
-    if (tid < BQT) {
-      const bool in = q0 + tid < S;
-      const long long row = ((long long)b * H + h) * S + q0 + tid;
-      st[2 * BQT * PS + tid] = in ? lse[row] : 0.f;
-      st[2 * BQT * PS + BQT + tid] = in ? di[row] : 0.f;
-    }
-  };
-
+  init_barriers(full, empty, NS);
   load_rows<D>(sk, k + b * ks.b + hk * ks.h, ks.s, k0, BR, T_len, tid);
   load_rows<D>(sv, v + b * vs.b + hk * vs.h, vs.s, k0, BR, T_len, tid);
-  if (total > 0) load_tile(0);
   tc::cp_async_commit();
-
-  float adk[ND][4], adv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
-
-  const float* skw = sk + 16 * warp * PS;
-  const float* svw = sv + 16 * warp * PS;
-  for (int idx = 0; idx < total; ++idx) {
-    if (idx + 1 < total) load_tile(idx + 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();  // tile idx has landed (and the k, v rows)
-    __syncthreads();
-
-    const float* sq = ring + (idx & 1) * L::KV_STAGE;
-    const float* sdo = sq + BQT * PS;
-    const float* sl = sq + 2 * BQT * PS;
-    const float* sdi = sl + BQT;
-    const int q0 = (qt_lo + idx % n_qt) * BQT;
-    // does any query of this tile see any key of this warp?
-    const bool skip = kw0 >= T_len || q0 + BQT - 1 < kw0 ||
-                      (window > 0 && q0 - (kw0 + 15) >= window);
-    if (!skip) {
-      // sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, [16 keys, BQT queries] per warp
-      float s[NJ][4], dp[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll 4
-      for (int kk = 0; kk < KK; ++kk) {
-        uint32_t kb[4], ks_[4], vb[4], vs_[4];
-        a_rows<PS>(skw, kk, g, t4, kb, ks_);
-        a_rows<PS>(svw, kk, g, t4, vb, vs_);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float2 qv = ld2(sq + (8 * j + g) * PS + 8 * kk + 2 * t4);
-          tc::mma3<false>(s[j], kb, ks_, qv.x, qv.y);
-          const float2 dv2 = ld2(sdo + (8 * j + g) * PS + 8 * kk + 2 * t4);
-          tc::mma3<false>(dp[j], vb, vs_, dv2.x, dv2.y);
-        }
-      }
-      // element e of s[j]: key kw0 + g + 8·(e >> 1), query q0 + 8j + 2t +
-      // (e & 1); s becomes pᵀ and dp becomes dsᵀ
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kp = kw0 + g + 8 * (e >> 1);
-          const int qi = 8 * j + 2 * t4 + (e & 1);
-          const float p = visible(q0 + qi, kp, S, T_len, window)
-                              ? expf(s[j][e] * scale - sl[qi])
-                              : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - sdi[qi]);
-        }
-      // dv += pᵀ·dO and dk += dsᵀ·q: the k index t / t+4 of the mma is
-      // query 2t / 2t+1 of the n-tile, which the thread holds
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t pb[4], ps[4], db[4], ds[4];
-        tc::split4(s[j][0], s[j][2], s[j][1], s[j][3], pb, ps);
-        tc::split4(dp[j][0], dp[j][2], dp[j][1], dp[j][3], db, ds);
-        const float* o0 = sdo + (8 * j + 2 * t4) * PS + g;
-        const float* q0p = sq + (8 * j + 2 * t4) * PS + g;
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          tc::mma3<false>(adv[n], pb, ps, o0[8 * n], o0[PS + 8 * n]);
-          tc::mma3<false>(adk[n], db, ds, q0p[8 * n], q0p[PS + 8 * n]);
-        }
-      }
-    }
-    __syncthreads();  // this stage is consumed before it is refilled
-  }
   tc::cp_async_wait<0>();
+  __syncthreads();
 
+  if (warp >= CONSUMER_WARPS) {  // the producers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    const int pw = warp - CONSUMER_WARPS;
+    for (int idx = 0; idx < total; ++idx) {
+      const int s = idx % NS;
+      tc::mbar_wait(&empty[s], ((idx / NS) & 1) ^ 1);
+      const int h = hk * group + idx / n_qt;
+      const int q0 = (qt_lo + idx % n_qt) * BT;
+      float* st = ring + s * L::KV_STAGE;
+      stage_rows<D>(st, st + L::TL, q + b * qs.b + h * qs.h, qs.s, st + 2 * L::TL,
+                    st + 3 * L::TL, dO + b * dos.b + h * dos.h, dos.s, q0, S, pw, lane);
+      if (pw == 0 && lane < BT) {
+        const bool in = q0 + lane < S;
+        const long long row = ((long long)b * H + h) * S + q0 + lane;
+        st[4 * L::TL + lane] = in ? lse[row] : 0.f;
+        st[4 * L::TL + BT + lane] = in ? di[row] : 0.f;
+      }
+      tc::fence_proxy_async();
+      tc::mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + 16 * (warp & 3);  // this warp's first key
+  const float* skw = sk + (kw0 - k0) * PS;
+  const float* svw = sv + (kw0 - k0) * PS;
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+
+  // warpgroup wg takes the tiles wg, wg + 2, ...
+  for (int idx = wg; idx < total; idx += 2) {
+    const int s = idx % NS;
+    tc::mbar_wait(&full[s], (idx / NS) & 1);
+    const int q0 = (qt_lo + idx % n_qt) * BT;
+    // does any query of the tile see a key of this CTA, of this warp?
+    const bool wg_on = k0 < T_len && q0 + BT - 1 >= k0 &&
+                       !(window > 0 && q0 - (k0 + BR - 1) >= window);
+    const bool warp_on = kw0 < T_len && q0 + BT - 1 >= kw0 &&
+                         !(window > 0 && q0 - (kw0 + 15) >= window);
+    if (wg_on) {
+      const float* sq = ring + s * L::KV_STAGE;
+      const float* sqlo = sq + L::TL;
+      const float* sdo = sq + 2 * L::TL;
+      const float* sdolo = sq + 3 * L::TL;
+      const float* sl = sq + 4 * L::TL;
+      const float* sdi = sl + BT;
+      uint32_t pb[2][4], ps[2][4], db[2][4], ds[2][4];
+      if (warp_on) {
+        // sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, [16 keys, BT queries] per warp
+        float sc[2][4], dp[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll 4
+        for (int kk = 0; kk < KK; ++kk) {
+          uint32_t kb[4], ks_[4], vb[4], vs_[4];
+          a_rows<PS>(skw, kk, g, t4, kb, ks_);
+          a_rows<PS>(svw, kk, g, t4, vb, vs_);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int o = tl_off(8 * kk + 2 * t4, 8 * j + g);
+            tc::mma3<false>(sc[j], kb, ks_, sq[o], sq[o + 4]);
+            tc::mma3<false>(dp[j], vb, vs_, sdo[o], sdo[o + 4]);
+          }
+        }
+        // element e of sc[j]: key kw0 + g + 8·(e >> 1), query q0 + 8j + 2t
+        // + (e & 1); sc becomes pᵀ and dp becomes dsᵀ, split as the wgmma
+        // A fragments of k steps j
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kp = kw0 + g + 8 * (e >> 1);
+            const int qi = 8 * j + 2 * t4 + (e & 1);
+            const float p = visible(q0 + qi, kp, S, T_len, window)
+                                ? expf(sc[j][e] * scale - sl[qi])
+                                : 0.f;
+            sc[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - sdi[qi]);
+          }
+          tc::split4(sc[j][0], sc[j][2], sc[j][1], sc[j][3], pb[j], ps[j]);
+          tc::split4(dp[j][0], dp[j][2], dp[j][1], dp[j][3], db[j], ds[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pb[j][e] = ps[j][e] = db[j][e] = ds[j][e] = 0u;
+      }
+      // dv += pᵀ·dO and dk += dsᵀ·q on the warpgroup's tensor cores
+      tc::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        wgmma3<D>(adv, pb[j], ps[j], tile_desc(sdo, j), tile_desc(sdolo, j));
+        wgmma3<D>(adk, db[j], ds[j], tile_desc(sq, j), tile_desc(sqlo, j));
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+      tc::fence_regs(adv);
+      tc::fence_regs(adk);
+    }
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(&empty[s]);  // this stage is consumed
+  }
+
+  // the two warpgroups' sums, warpgroup 0's first (through the ring,
+  // which every tile has left)
+  float* red = ring;
+  pair_sum(adk, red, wg);
+  pair_sum(adv, red + 64 * D, wg);
+  if (wg == 1) return;
   float* dkb = dk + b * dks.b + hk * dks.h;
   float* dvb = dv + b * dvs.b + hk * dvs.h;
 #pragma unroll
@@ -279,11 +447,11 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int kp = kw0 + g + 8 * r;
     if (kp >= T_len) continue;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<float2*>(dkb + kp * dks.s + 8 * n + 2 * t4) =
-          make_float2(adk[n][2 * r] * scale, adk[n][2 * r + 1] * scale);
+          make_float2(adk[4 * n + 2 * r] * scale, adk[4 * n + 2 * r + 1] * scale);
       *reinterpret_cast<float2*>(dvb + kp * dvs.s + 8 * n + 2 * t4) =
-          make_float2(adv[n][2 * r], adv[n][2 * r + 1]);
+          make_float2(adv[4 * n + 2 * r], adv[4 * n + 2 * r + 1]);
     }
   }
 }
@@ -298,34 +466,52 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     Strides ks, Strides vs, Strides dos, Strides dqs,
                     int window, float scale) {
   using L = Shape<D>;
-  constexpr int PS = L::PS, KK = D / 8, ND = D / 8, NJ = BT / 8;
-  extern __shared__ __align__(16) float sm[];
-  float* sq = sm;
-  float* sdo = sm + BR * PS;
+  constexpr int PS = L::PS, KK = D / 8, NS = L::DQ_STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + NS;
+  float* sq = reinterpret_cast<float*>(smem + BARRIER_BYTES);
+  float* sdo = sq + BR * PS;
   float* ring = sdo + BR * PS;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, hk = h / group;
   // heaviest (latest) causal tiles first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
-  const int r0 = q0 + 16 * warp;  // this warp's first query row
-
-  const float* kb = k + b * ks.b + hk * ks.h;
-  const float* vb = v + b * vs.b + hk * vs.h;
   const int k_hi = min(T_len, min(S, q0 + BR));
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t_lo = k_lo / BT, t_hi = (k_hi + BT - 1) / BT;
+  const int t_lo = k_lo / BT, total = max(0, (k_hi + BT - 1) / BT - t_lo);
 
+  init_barriers(full, empty, NS);
   load_rows<D>(sq, q + b * qs.b + h * qs.h, qs.s, q0, BR, S, tid);
   load_rows<D>(sdo, dO + b * dos.b + h * dos.h, dos.s, q0, BR, S, tid);
-  if (t_lo < t_hi) {
-    load_rows<D>(ring, kb, ks.s, t_lo * BT, BT, T_len, tid);
-    load_rows<D>(ring + BT * PS, vb, vs.s, t_lo * BT, BT, T_len, tid);
-  }
   tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
 
+  if (warp >= CONSUMER_WARPS) {  // the producers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    const int pw = warp - CONSUMER_WARPS;
+    const float* kb = k + b * ks.b + hk * ks.h;
+    const float* vb = v + b * vs.b + hk * vs.h;
+    for (int idx = 0; idx < total; ++idx) {
+      const int s = idx % NS;
+      tc::mbar_wait(&empty[s], ((idx / NS) & 1) ^ 1);
+      float* st = ring + s * L::DQ_STAGE;
+      stage_rows<D>(st, st + L::TL, kb, ks.s, st + 2 * L::TL, nullptr, vb, vs.s,
+                    (t_lo + idx) * BT, T_len, pw, lane);
+      tc::fence_proxy_async();
+      tc::mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+  const int r0 = q0 + 16 * (warp & 3);    // this warp's first query
+  const float* sqw = sq + (r0 - q0) * PS;
+  const float* sdow = sdo + (r0 - q0) * PS;
   float lr[2], dr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -333,86 +519,88 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     lr[r] = row < S ? lse[(long long)bh * S + row] : 0.f;
     dr[r] = row < S ? di[(long long)bh * S + row] : 0.f;
   }
-  float acc[ND][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-  const float* sqw = sq + 16 * warp * PS;
-  const float* sdow = sdo + 16 * warp * PS;
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * BT;
-    if (t + 1 < t_hi) {
-      float* nxt = ring + ((t + 1 - t_lo) & 1) * L::DQ_STAGE;
-      load_rows<D>(nxt, kb, ks.s, k0 + BT, BT, T_len, tid);
-      load_rows<D>(nxt + BT * PS, vb, vs.s, k0 + BT, BT, T_len, tid);
-    }
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    __syncthreads();
-
-    const float* skt = ring + ((t - t_lo) & 1) * L::DQ_STAGE;
-    const float* svt = skt + BT * PS;
-    const bool skip = r0 >= S || k0 > r0 + 15 ||
-                      (window > 0 && k0 + BT - 1 <= r0 - window);
-    if (!skip) {
-      // s = q·kᵀ and dp = dO·vᵀ, [16 queries, BT keys] per warp
-      float s[NJ][4], dp[NJ][4];
+  // warpgroup wg takes the tiles wg, wg + 2, ...
+  for (int idx = wg; idx < total; idx += 2) {
+    const int s = idx % NS;
+    tc::mbar_wait(&full[s], (idx / NS) & 1);
+    const int kt0 = (t_lo + idx) * BT;
+    // does a query of this CTA, of this warp, see a key of the tile?
+    const bool wg_on = q0 < S && kt0 <= q0 + BR - 1 &&
+                       !(window > 0 && q0 - (kt0 + BT - 1) >= window);
+    const bool warp_on = r0 < S && kt0 <= r0 + 15 &&
+                         !(window > 0 && r0 - (kt0 + BT - 1) >= window);
+    if (wg_on) {
+      const float* skt = ring + s * L::DQ_STAGE;
+      const float* sklo = skt + L::TL;
+      const float* svt = skt + 2 * L::TL;
+      uint32_t ab[2][4], as[2][4];
+      if (warp_on) {
+        // s = q·kᵀ and dp = dO·vᵀ, [16 queries, BT keys] per warp
+        float sc[2][4], dp[2][4];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < KK; ++kk) {
-        uint32_t qb_[4], qs_[4], ob[4], os_[4];
-        a_rows<PS>(sqw, kk, g, t4, qb_, qs_);
-        a_rows<PS>(sdow, kk, g, t4, ob, os_);
+          for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll 4
+        for (int kk = 0; kk < KK; ++kk) {
+          uint32_t qb_[4], qs_[4], ob[4], os_[4];
+          a_rows<PS>(sqw, kk, g, t4, qb_, qs_);
+          a_rows<PS>(sdow, kk, g, t4, ob, os_);
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float2 kv = ld2(skt + (8 * j + g) * PS + 8 * kk + 2 * t4);
-          tc::mma3<false>(s[j], qb_, qs_, kv.x, kv.y);
-          const float2 vv = ld2(svt + (8 * j + g) * PS + 8 * kk + 2 * t4);
-          tc::mma3<false>(dp[j], ob, os_, vv.x, vv.y);
+          for (int j = 0; j < 2; ++j) {
+            const int o = tl_off(8 * kk + 2 * t4, 8 * j + g);
+            tc::mma3<false>(sc[j], qb_, qs_, skt[o], skt[o + 4]);
+            tc::mma3<false>(dp[j], ob, os_, svt[o], svt[o + 4]);
+          }
         }
-      }
-      // element e of s[j]: query r0 + g + 8·(e >> 1), key k0 + 8j + 2t +
-      // (e & 1); s becomes ds
+        // element e of sc[j]: query r0 + g + 8·(e >> 1), key kt0 + 8j + 2t
+        // + (e & 1); it becomes ds, split as the A fragment of k step j
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+        for (int j = 0; j < 2; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qp = r0 + g + 8 * (e >> 1);
-          const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
-          const float p = visible(qp, kp, S, T_len, window)
-                              ? expf(s[j][e] * scale - lr[e >> 1])
-                              : 0.f;
-          s[j][e] = p * (dp[j][e] - dr[e >> 1]);
+          for (int e = 0; e < 4; ++e) {
+            const int qp = r0 + g + 8 * (e >> 1);
+            const int kp = kt0 + 8 * j + 2 * t4 + (e & 1);
+            const float p = visible(qp, kp, S, T_len, window)
+                                ? expf(sc[j][e] * scale - lr[e >> 1])
+                                : 0.f;
+            sc[j][e] = p * (dp[j][e] - dr[e >> 1]);
+          }
+          tc::split4(sc[j][0], sc[j][2], sc[j][1], sc[j][3], ab[j], as[j]);
         }
-      // dq += ds·k: the k index t / t+4 is key 2t / 2t+1 of the n-tile
+      } else {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        uint32_t ab[4], as[4];
-        tc::split4(s[j][0], s[j][2], s[j][1], s[j][3], ab, as);
-        const float* k0p = skt + (8 * j + 2 * t4) * PS + g;
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int n = 0; n < ND; ++n)
-          tc::mma3<false>(acc[n], ab, as, k0p[8 * n], k0p[PS + 8 * n]);
+          for (int e = 0; e < 4; ++e) ab[j][e] = as[j][e] = 0u;
       }
+      // dq += ds·k on the warpgroup's tensor cores
+      tc::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wgmma3<D>(acc, ab[j], as[j], tile_desc(skt, j), tile_desc(sklo, j));
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+      tc::fence_regs(acc);
     }
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(&empty[s]);  // this stage is consumed
   }
-  tc::cp_async_wait<0>();
 
+  pair_sum(acc, ring, wg);  // the two warpgroups' sums
+  if (wg == 1) return;
   float* dqb = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qp = r0 + g + 8 * r;
     if (qp >= S) continue;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<float2*>(dqb + qp * dqs.s + 8 * n + 2 * t4) =
-          make_float2(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+          make_float2(acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale);
   }
 }
 
@@ -462,6 +650,39 @@ extern "C" {
 
 const char* flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// out[0], out[1]: the dK/dV and the dQ CTAs of head dimension D that one
+// SM of the current card holds at once (the occupancy calculator, with
+// each kernel's dynamic shared memory); out[2], out[3]: those bytes
+int flash_bwd_ctas_per_sm(int D, void* out) {
+  int* o = static_cast<int*>(out);
+  const auto query = [o](auto kv, auto qk, int kv_bytes, int dq_bytes) {
+    cudaError_t e = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kv_bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(qk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[0], kv, THREADS, kv_bytes);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[1], qk, THREADS, dq_bytes);
+    o[2] = kv_bytes;
+    o[3] = dq_bytes;
+    return static_cast<int>(e);
+  };
+  switch (D) {
+    case 64:
+      return query(flash_bwd_dkdv_kernel<64>, flash_bwd_dq_kernel<64>, Shape<64>::KV_BYTES,
+                   Shape<64>::DQ_BYTES);
+    case 80:
+      return query(flash_bwd_dkdv_kernel<80>, flash_bwd_dq_kernel<80>, Shape<80>::KV_BYTES,
+                   Shape<80>::DQ_BYTES);
+    case 128:
+      return query(flash_bwd_dkdv_kernel<128>, flash_bwd_dq_kernel<128>, Shape<128>::KV_BYTES,
+                   Shape<128>::DQ_BYTES);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // float32 only.  q, o, dO, dq [B, H, S, D] and k, v, dk, dv [B, Hkv, T, D]

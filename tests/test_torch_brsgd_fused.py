@@ -190,7 +190,7 @@ def test_plan_streams_hbm_shapes_twice(d, occ):
     assert plan == kern.AggregatePlan(H100_BLOCKS, False, 0)
 
 
-@pytest.mark.parametrize("m", kern.SUPPORTED_M)
+@pytest.mark.parametrize("m", kern.TUNED_M)
 def test_plan_never_asks_more_shared_memory_than_a_block_has(m):
     limit = kern.SMEM_BLOCK_LIMIT - kern.AGG_STATIC_SMEM
     for d in (1, 20, 127, 1003, 4096, 61706, 2 ** 20, 2_000_003,
@@ -203,6 +203,23 @@ def test_plan_never_asks_more_shared_memory_than_a_block_has(m):
             assert plan.smem == kern.aggregate_smem(m, d, plan.grid,
                                                     plan.resident)
             sort = 4 * 64 * kern.THREADS if m == 64 else 0
+            slots = -(-n_tiles // plan.grid) if plan.resident else 0
+            assert plan.smem == sort + 4 * m * kern.THREADS * slots
+
+
+def test_plan_fits_a_block_at_every_worker_count():
+    """Every m in 1..64 (tuned or bucket): the brsgd launch's grid is
+    co-resident, its shared memory within a block, its slots [m, THREADS]
+    after the 64-row sort columns of m > 32."""
+    limit = kern.SMEM_BLOCK_LIMIT - kern.AGG_STATIC_SMEM
+    for m in range(1, kern.MAX_M + 1):
+        assert kern.gram_pairs(m, "brsgd") == 2 * m
+        for d in (61, 1003, 61706, 2_000_003):
+            plan = kern.aggregate_plan(m, d, h100_blocks)
+            n_tiles = -(-d // kern.THREADS)
+            assert 1 <= plan.grid <= min(n_tiles, h100_blocks(plan.smem))
+            assert plan.smem <= limit
+            sort = 4 * 64 * kern.THREADS if m > 32 else 0
             slots = -(-n_tiles // plan.grid) if plan.resident else 0
             assert plan.smem == sort + 4 * m * kern.THREADS * slots
 
@@ -224,7 +241,7 @@ def test_plan_takes_more_tiles_per_block_when_blocks_run_out():
 
 
 def test_plan_constants_match_the_cuda_source():
-    src = _build.SOURCE.read_text()
+    src = _build.expanded_source()
     for name in ("THREADS", "SMEM_SORT_M", "SMEM_BLOCK_LIMIT",
                  "AGG_STATIC_SMEM"):
         found = re.search(rf"constexpr int {name} = (\d+);", src)

@@ -30,7 +30,7 @@ def h100_blocks(smem):
     return 132 * min(8, 233472 // (smem + 3 * 1024 + 1024))
 
 
-@pytest.mark.parametrize("m", kern.SUPPORTED_M)
+@pytest.mark.parametrize("m", kern.TUNED_M)
 @pytest.mark.parametrize("d", [20, 1003, 61706, 8_388_608])
 def test_column_plan_fits_a_block_and_keeps_loads_in_flight(m, d):
     n_tiles = -(-d // kern.THREADS)
@@ -47,6 +47,24 @@ def test_column_plan_fits_a_block_and_keeps_loads_in_flight(m, d):
         assert plan.grid == min(n_tiles, h100_blocks(plan.smem)) >= 1
         sort = 4 * 64 * kern.THREADS if m == 64 else 0   # each takes a median
         assert plan.smem == sort + plan.stages * stage
+
+
+def test_column_plan_at_every_worker_count():
+    """Every m in 1..64, tuned or bucket: the ring of [m, RING_LD] stages
+    and, where m's instance has 64 rows and takes a median, the sort
+    columns of its power of two; within a block and on the card."""
+    for m in range(1, kern.MAX_M + 1):
+        stage = 4 * m * kern.RING_LD
+        for d in (61, 1003, 61706, 8_388_608):
+            n_tiles = -(-d // kern.THREADS)
+            for variant in VARIANTS:
+                plan = kern.column_plan(m, d, variant, h100_blocks)
+                assert plan.stages == kern.column_stages(m)
+                assert 2 <= plan.stages <= kern.MAX_STAGES
+                # each variant takes a median; 33..63 run the 64-row bucket
+                sort = 4 * 64 * kern.THREADS if m > 32 else 0
+                assert plan.smem == sort + plan.stages * stage <= LIMIT
+                assert plan.grid == min(n_tiles, h100_blocks(plan.smem)) >= 1
 
 
 def test_column_plan_at_the_paper_shapes():
@@ -77,7 +95,7 @@ def test_column_plan_keeps_a_blocks_tiles_below_its_count_planes(n_tiles):
 
 
 def test_column_constants_match_the_cuda_source():
-    src = _build.SOURCE.read_text()
+    src = _build.expanded_source()
     for name in ("COLUMN_OUT", "MAX_STAGES", "COUNT_PLANES"):
         found = re.search(rf"constexpr int {name} = (\d+);", src)
         assert found and int(found.group(1)) == getattr(kern, name), name
@@ -104,7 +122,7 @@ def _extern_c_entries(src: str) -> dict:
 def test_every_c_entry_is_declared_with_its_arity():
     """Every entry of _build.SIGNATURES is defined in the extern "C"
     block with as many parameters, the median's own among them."""
-    entries = _extern_c_entries(_build.SOURCE.read_text())
+    entries = _extern_c_entries(_build.expanded_source())
     sig = _build.SIGNATURES["brsgd_stats"]
     assert {"brsgd_cwise_median", "brsgd_column_coresident",
             "brsgd_column_stats", "brsgd_fused_stats"} <= set(sig)
@@ -117,7 +135,7 @@ def test_every_c_entry_is_declared_with_its_arity():
         _build.ctypes.c_void_p)
 
 
-@pytest.mark.parametrize("m", kern.SUPPORTED_M)
+@pytest.mark.parametrize("m", kern.TUNED_M)
 @pytest.mark.parametrize("where", ["none", "row", "columns"])
 def test_cwise_median_matches_pallas(m, where):
     """ops.cwise_median on the CPU (the plain version the kernel is held

@@ -148,8 +148,8 @@ def test_cuda_wrappers_count_launches_and_refuse_bad_input():
                              "masked_mean": 1, "brsgd_stats": 0,
                              "cwise_median": 0, "trimmed_mean": 0,
                              "brsgd_aggregate": 0, "select_aggregate": 0}
-    with pytest.raises(ValueError, match="no kernel instance"):
-        kern.fused_stats(torch.zeros(6, 10, device="cuda"), ("l1",))
+    with pytest.raises(ValueError, match="1 <= m <= 64"):
+        kern.fused_stats(torch.zeros(65, 10, device="cuda"), ("l1",))
     with pytest.raises(TypeError):
         kern.masked_mean(G.double(), torch.ones(20, device="cuda"))
     with pytest.raises(ValueError, match="contiguous"):
@@ -196,7 +196,7 @@ def test_column_pass_matches_plain_versions(m, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", kern.SUPPORTED_M)
+@pytest.mark.parametrize("m", kern.TUNED_M)
 @pytest.mark.parametrize("d", [61, 1003, 4098])
 @pytest.mark.parametrize("where", ["row", "columns"])
 def test_column_pass_every_m_with_nan(m, d, where):
@@ -297,7 +297,7 @@ def test_fused_brsgd_kernel_matches_plain_version(m, d, beta, threshold):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", kern.SUPPORTED_M)
+@pytest.mark.parametrize("m", kern.TUNED_M)
 @pytest.mark.parametrize("where", ["row", "scattered"])
 def test_fused_brsgd_kernel_every_m_with_a_nan_worker(m, where):
     need_card()
@@ -345,8 +345,8 @@ def test_fused_brsgd_wrapper_refuses_bad_input():
     need_card()
     with pytest.raises(ValueError, match="CUDA tensor"):
         kern.brsgd_aggregate(torch.zeros(20, 10), 0.5, 0.0)
-    with pytest.raises(ValueError, match="no kernel instance"):
-        kern.brsgd_aggregate(torch.zeros(6, 10, device="cuda"), 0.5, 0.0)
+    with pytest.raises(ValueError, match="1 <= m <= 64"):
+        kern.brsgd_aggregate(torch.zeros(65, 10, device="cuda"), 0.5, 0.0)
     with pytest.raises(TypeError):
         kern.brsgd_aggregate(torch.zeros(20, 10, device="cuda",
                                          dtype=torch.float64), 0.5, 0.0)
@@ -480,7 +480,7 @@ def check_select(G, rule, args):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", kern.SUPPORTED_M)
+@pytest.mark.parametrize("m", kern.TUNED_M)
 @pytest.mark.parametrize("rule", SELECT_RULES)
 def test_fused_select_kernel_matches_plain_version(m, rule):
     """Every m, resident in shared memory ([m, 5003]), a NaN worker and
@@ -496,6 +496,47 @@ def test_fused_select_kernel_matches_plain_version(m, rule):
         assert float(r.scores[m - 1]) == float(r.scores[m // 2])
     G[m // 2, ::7] = float("nan")
     check_select(G, rule, select_args(rule, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", range(1, kern.MAX_M + 1))
+def test_every_wrapper_at_every_worker_count(m):
+    """Every m in 1..64, on its tuned or bucket instance, at the ragged
+    [m, 1003] with one worker's row NaN in every third column: B1 (the
+    column pass at every non-gram subset, gram), B2, B3, B4, the median
+    alone, B5 at every trim fraction, the fused brsgd launch and the fused
+    select launch of each gram rule against their plain versions; then
+    every rule through aggregate_local, fixed and elastic, against the
+    same call on the CPU (the selection equal; the aggregate exact, within
+    RTOL for geomedian and the elastic select rules)."""
+    need_card()
+    G = mat(m, 1003, seed=m + 700)
+    G[: m // 4] *= -4.0
+    G[(m - 1) // 2, ::3] = float("nan")
+    check_column_pass(G)
+    check_pass2_and_columns(G)
+    for trim_frac in (0.1, 0.25, 0.49, 0.5):
+        exact(kern.trimmed_mean(G, trim_frac),
+              ref.trimmed_mean_ref(G, trim_frac))
+    check_fused(G, 0.5, 0.0)
+    for rule in SELECT_RULES:
+        check_select(G, rule, select_args(rule, m))
+    from repro_torch.configs.base import ByzantineConfig
+    from repro_torch.core import engine
+    valid = (torch.arange(m) % 3 != 1).float()
+    for agg in engine.registered():
+        cfg = ByzantineConfig(aggregator=agg, alpha=0.25)
+        for v in (None, valid):
+            got, st = engine.aggregate_local(
+                G, cfg, True, valid=None if v is None else v.cuda())
+            want, wst = engine.aggregate_local(G.cpu(), cfg, True, valid=v)
+            if agg == "geomedian" or (v is not None and agg not in (
+                    "median", "trimmed_mean", "mean")):
+                close(got, want)
+            else:
+                exact(got, want)
+            if st is not None:
+                exact(st.selected, wst.selected)
 
 
 @pytest.mark.gpu
@@ -994,6 +1035,36 @@ def test_flash_attention_backward_kernel_matches_plain_gradient(
         close(g, w, 1e-4)
     _, lse = fa_kern.flash_attention_lse(q, k, v, win)
     again = fa_kern.flash_attention_bwd(q, k, v, o.detach(), lse, dO, win)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def flash_bwd_tol(S):
+    """The backward's limit, relative to each gradient's largest |plain|:
+    2e-5 + 2e-8 per key a row sums over, at most 1e-4 (chip_smoke.py)."""
+    return min(1e-4, 2e-5 + 2e-8 * S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("win", [0, 48])
+@pytest.mark.parametrize("S", [211, 1000])
+def test_flash_attention_backward_at_every_head_dim(D, win, S):
+    """The wgmma backward at each head dimension, causal and windowed, at
+    S not a multiple of the streamed tile (16) nor of a CTA's rows (128),
+    GQA groups of 2: dq, dk, dv under the per-S limit, a second launch
+    the same bits, one backward launch."""
+    need_card()
+    B, H, Hkv = 2, 8, 4
+    q, k, v, dO = (_bshd(B, S, h, D, i + D, torch.float32)
+                   for i, h in enumerate((H, Hkv, Hkv, H)))
+    o, lse = fa_kern.flash_attention_lse(q, k, v, win)
+    ops.reset_launches()
+    got = fa_kern.flash_attention_bwd(q, k, v, o, lse, dO, win)
+    assert ops.launches()["flash_attention_bwd"] == 1
+    again = fa_kern.flash_attention_bwd(q, k, v, o, lse, dO, win)
+    want = ref.flash_attention_grads_ref(q, k, v, dO, win)
+    for g, w in zip(got, want):
+        close(g, w, flash_bwd_tol(S))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

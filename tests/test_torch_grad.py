@@ -273,7 +273,7 @@ def _extern_c_entries(src: str) -> dict:
 
 @pytest.mark.parametrize("lib", sorted(_build.SOURCES))
 def test_every_library_declares_its_c_entries_with_their_arity(lib):
-    entries = _extern_c_entries(_build.SOURCES[lib].read_text())
+    entries = _extern_c_entries(_build.expanded_source(lib))
     sig = _build.SIGNATURES[lib]
     assert set(entries) == set(sig)
     for name, args in sig.items():

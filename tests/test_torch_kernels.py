@@ -178,10 +178,24 @@ def test_wrappers_refuse_cpu_tensors_and_count_nothing():
 
 
 def test_supported_worker_counts_match_the_cuda_source():
+    """The tuned instances are brsgd_stats.cu's cases; every other m in
+    1..64 takes the bucket of its power of two in brsgd_bucket.cu."""
     src = _build.SOURCE.read_text()
     cases = tuple(int(c) for c in re.findall(r"case (\d+): \{ constexpr int M",
                                              src))
-    assert cases == kern.SUPPORTED_M
+    assert cases == kern.TUNED_M
+    bucket_src = _build.SOURCES["brsgd_bucket"].read_text()
+    buckets = tuple(int(c) for c in re.findall(r"BRSGD_BUCKET\((\d+), CALL\)",
+                                               bucket_src))
+    assert buckets == kern.BUCKETS
+    assert "(m) > 64" in bucket_src and kern.MAX_M == 64
+    for m in range(1, kern.MAX_M + 1):
+        rows = kern.instance_rows(m)
+        if m in kern.TUNED_M:
+            assert rows == m
+        else:
+            assert rows in kern.BUCKETS and (rows // 2 < m <= rows or m == 1)
+    assert kern.instance_rows(1) == 2
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

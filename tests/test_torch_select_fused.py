@@ -122,7 +122,7 @@ def check_against_jax(G, rule, r, agg_j, w_j, scores_j, stats_j):
     exact(r.agg, ref.masked_mean_det(torch.from_numpy(G), r.w))
 
 
-@pytest.mark.parametrize("m", kern.SUPPORTED_M)
+@pytest.mark.parametrize("m", kern.TUNED_M)
 @pytest.mark.parametrize("rule", RULES)
 def test_select_aggregate_matches_jax_path(m, rule):
     G, (agg_j, w_j, scores_j, stats_j) = jax_case(m, rule)
@@ -316,7 +316,7 @@ def test_plan_streams_the_hbm_shape_through_one_staging_slot(rule):
     assert plan.smem == 4 * (scratch + 20 * kern.GRAM_LD)
 
 
-@pytest.mark.parametrize("m", kern.SUPPORTED_M)
+@pytest.mark.parametrize("m", kern.TUNED_M)
 @pytest.mark.parametrize("rule", RULES)
 def test_plan_never_asks_more_shared_memory_than_a_block_has(m, rule):
     limit = kern.SMEM_BLOCK_LIMIT - kern.AGG_STATIC_SMEM
@@ -336,6 +336,31 @@ def test_plan_never_asks_more_shared_memory_than_a_block_has(m, rule):
             assert plan.smem == fixed + 4 * rows * kern.GRAM_LD * slots
 
 
+def test_gram_plans_fit_a_block_at_every_worker_count():
+    """Every m in 1..64 (tuned or bucket) and gram rule: a co-resident
+    grid within a block's shared memory; slots of m rows rounded up to
+    GRAM_RB after the rule's [m]-sized scratch and, for geomedian's
+    median at m > 32, the 64-row sort columns; m(m+1)/2 partial sums
+    (+ m for geomedian)."""
+    limit = kern.SMEM_BLOCK_LIMIT - kern.AGG_STATIC_SMEM
+    for m in range(1, kern.MAX_M + 1):
+        rows = -(-m // kern.GRAM_RB) * kern.GRAM_RB
+        for rule in RULES:
+            geo = rule == "geomedian"
+            assert kern.gram_pairs(m, rule) == m * (m + 1) // 2 + geo * m
+            scratch = (-(-(m * (m + 1) + 3 * m) // 4) * 4 if geo
+                       else 2 * m * (m + 1))
+            sort = 64 * kern.THREADS if geo and m > 32 else 0
+            for d in (61, 1003, 61706, 2_000_003):
+                plan = kern.aggregate_plan(m, d, h100_blocks, rule)
+                n_tiles = -(-d // kern.THREADS)
+                assert 1 <= plan.grid <= min(n_tiles, h100_blocks(plan.smem))
+                assert plan.smem <= limit
+                slots = -(-n_tiles // plan.grid) if plan.resident else 1
+                assert plan.smem == 4 * (sort + scratch
+                                         + slots * rows * kern.GRAM_LD)
+
+
 def test_brsgd_plan_is_unchanged_by_the_rule_argument():
     for d in (20, 61706, 2_000_003, 8_388_608):
         assert kern.aggregate_plan(20, d, h100_blocks) == \
@@ -344,7 +369,7 @@ def test_brsgd_plan_is_unchanged_by_the_rule_argument():
 
 
 def test_constants_match_the_cuda_source():
-    src = _build.SOURCE.read_text()
+    src = _build.expanded_source()
     assert re.search(r"constexpr int GRAM_RB = (\d+);", src).group(1) == \
         str(kern.GRAM_RB)
     assert "constexpr int GRAM_LD = THREADS + 4;" in src

@@ -7,9 +7,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 ``python3 chip_smoke.py --kernel-times SRC`` instead times the BrSGD
 kernels of the repro_torch package under SRC (device time by
-torch.profiler, and CUDA events) at the two timing shapes and checks
-nothing: run it on this tree's src and on a parent commit's, unpacked
-beside it, in turns, to compare kernels on one card.
+torch.profiler, and CUDA events) at the two timing shapes, and B7's
+backward at its three timing shapes, and checks nothing: run it on this
+tree's src and on a parent commit's, unpacked beside it, in turns, to
+compare kernels on one card.
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: name, count, versions, nvidia-smi name and power limit;
@@ -18,7 +19,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      register / shared-memory / spill summary (the column pass's
      instances at m = 20 on a line of their own); from the SASS, the
      HMMA count of B6 and B7, the HGMMA (wgmma) count of B6's backward,
-     which must hold some, and B3's load batching at m = 20;
+     which must hold some, the HMMA count of B7's backward, and B3's load
+     batching at m = 20;
   3. every kernel (B1-B5, and the median alone) against its plain
      PyTorch version on the card, at the LeNet main-path shape [20,
      61706], a ragged [7, 1003], [64, 4096], the robustness twin's
@@ -43,7 +45,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      scores within 1e-5 and weights exact (against the plain rule on the
      launch's own scores and against the plain composition), geomedian's
      weights within 1e-5, the aggregate bit-equal to masked_mean_det(G,
-     w); B3 bit-equal with 0/1, float and unit weights;
+     w); B3 bit-equal with 0/1, float and unit weights; two workers with
+     non-finite columns (NaN, +inf, -inf) that the rules leave out, at
+     [20, 61706] (resident), [20, 2000003] (not) and on the bucket
+     instances at m = 12 and 33: B1-B5 and the fused launches against
+     their plain versions, the aggregate NaN in the left-out worker's
+     non-finite columns (every combine sums every row, weight 0
+     included, as the reference's w @ g);
      B6 (flash attention) at the qwen3-0.6b prefill [B=4, H=16, Hkv=8,
      S=512, D=128] and the serve loop's batch-1 [1, 16, 8, 512 | 256,
      128], a ragged S = 200, window 64, D = 64 and 80, in
@@ -147,9 +155,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      3xTF32 tensor-core bounds; B7 per layer launch at [4, 512, 64, 64]
      and its one-chunk call; B6's backward at [2, 16, 8, 128, 128] and
      [1, 16, 8, 4096, 128] beside the backward of SDPA (its kernels'
-     registers, spills, shared memory and CTAs an SM first), B7's at [2,
-     128, 64, 64] and [1, 4096, 64, 64], each with the plain versions'
-     autograd backward; every BrSGD kernel's device time at m = 10, 12,
+     registers, spills, shared memory and CTAs an SM first), B7's (its
+     four kernels, each timed too, its CTAs an SM and shared memory
+     first) at [2, 128, 64, 64], [2, 128, 64, 32] and [1, 4096, 64, 64],
+     with the bytes its design moves beside the bound, each with the
+     plain versions' autograd backward; every BrSGD kernel's device time at m = 10, 12,
      16, 32, 33 and 64 (12 and 33 on bucket instances) at d = 61706 and
      8388608;
   9. the {"gradient": [...]}, {"phase_seconds": {...}} and
@@ -206,6 +216,9 @@ COLUMN_SUBSETS = (("scores",), ("l1",), ("d2med",), ("scores", "l1"),
                   ("scores", "l1", "d2med"), ("d2med", "gram"))
 # the fused brsgd launch: a shape whose G does not stay in shared memory
 NONRESIDENT_SHAPE = (20, 2_000_003)
+# non-finite workers left out by the rules: resident, not resident, and
+# two bucket instances (16 and 64 rows)
+NONFINITE_SHAPES = ((20, 61706), NONRESIDENT_SHAPE, (12, 61706), (33, 61706))
 # (beta, threshold / d): the paper's auto rule at two betas, C1 emptied
 # (the C2 fallback), and a given 𝔗 that keeps about half of N(0, 1) rows
 # (their l1 to the median is ~0.8 d)
@@ -287,6 +300,15 @@ WKV_BWD_CASES = ((2, 128, 64, 64, 1.0), (2, 128, 64, 64, 3.0),
                  (2, 65, 8, 64, 1.0), (2, 130, 8, 32, 1.0),
                  (2, 130, 8, 32, 3.0))
 WKV_BWD_TOL = 2e-5            # each gradient, relative to its largest |plain|
+# B7's backward kernels by a part of their names; a tree from before the
+# chunk-parallel design (a parent's, for --kernel-times) has one kernel
+WKV_BWD_PARTS = (("wkv6_bwd_carry",), ("wkv6_bwd_scan",),
+                 ("wkv6_bwd_chunk",), ("wkv6_bwd_du",))
+WKV_BWD_PARTS_BEFORE = (("wkv6_seq_bwd_kernel",),)
+# its timing rows (label, (B, S, H, K)), chunk 64: the launcher's train
+# shape at K 64 and 32, one train_4k sequence
+WKV_BWD_TIMING = (("train", (2, 128, 64, 64)), ("train_k32", (2, 128, 64, 32)),
+                  ("long", (1, 4096, 64, 64)))
 BWD_KERNELS = {
     "flash_attention_bwd": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -444,9 +466,9 @@ def _ptxas_entries(log: str) -> dict:
 
 
 def phase_sass(paths):
-    """B6 (forward and backward) and B7 run their products on the tensor
+    """B6 and B7 (forward and backward) run their products on the tensor
     cores: count the HMMA instructions in each library's SASS (cuobjdump
-    beside nvcc), and the backward's warpgroup HGMMA, which it must hold.
+    beside nvcc), and B6's backward's warpgroup HGMMA, which it must hold.
     Also B3's load batching at m = 20, read from its SASS."""
     from repro_torch.kernels import _build
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -454,7 +476,7 @@ def phase_sass(paths):
         fail(f"no cuobjdump beside nvcc ({tool}): the tensor-core check "
              f"of B6 and B7 cannot run")
     out, hgmma = {}, 0
-    for name in ("flash_attention", "flash_attention_bwd", "wkv6"):
+    for name in ("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd"):
         sass = subprocess.run([str(tool), "-sass", str(paths[name])],
                               capture_output=True, text=True, timeout=300)
         lines = sass.stdout.splitlines()
@@ -892,6 +914,56 @@ def _check_every_m(torch, kern, ref, subsets, worst):
                    "geomedian weights within 1e-5 of the largest)"})
 
 
+def _check_nonfinite(torch, kern, ref, subsets, worst):
+    """Workers with non-finite columns that the rules leave out: worker 1
+    NaN in every 9th column, worker 3 +inf, -inf and NaN in others (both
+    score NaN; krum keeps worker 1, the first).  Every combine sums every
+    row, weight 0 included, as the reference's w @ g does, so worker 3's
+    non-finite columns are NaN: B1-B5, the fused brsgd launch and the
+    fused select launches against their plain versions (aggregates
+    bit-equal to masked_mean_det, NaN included), resident at [20, 61706],
+    not resident at [20, 2000003], and on the bucket instances at m = 12
+    and 33."""
+    import numpy as np
+    for m, d in NONFINITE_SHAPES:
+        rng = np.random.default_rng(300 + m)
+        g = rng.normal(size=(m, d)).astype(np.float32)
+        g[m - m // 4:] *= -4.0
+        g[1, ::9] = np.nan
+        g[3, 2::9] = np.inf
+        g[3, 5::9] = -np.inf
+        g[3, 7::11] = np.nan
+        G = torch.as_tensor(g, device="cuda")
+        label = f"[{m},{d}] workers 1 and 3 non-finite"
+        _check_kernels(torch, kern, ref, G, label, rng, subsets, worst)
+        plan = _check_fused(torch, kern, ref, G, label, worst)
+        plans = _check_select(torch, kern, ref, G, label, worst)
+        left_out = {}
+        r = kern.brsgd_aggregate(G, 0.5, 0.0)
+        left_out["brsgd"] = (not bool(r.selected[3])
+                             and bool(r.agg[2::9].isnan().all()))
+        for rule, args in _select_cases(m):
+            if rule != "geomedian":
+                r = kern.select_aggregate(G, rule, **args)
+                left_out[rule] = (not bool(r.selected[3])
+                                  and bool(r.agg[5::9].isnan().all()))
+        w = torch.ones(m, device="cuda")
+        w[3] = 0.0
+        left_out["masked_mean"] = bool(kern.masked_mean(G, w)[2::9]
+                                       .isnan().all())
+        torch.cuda.synchronize()
+        if not all(left_out.values()):
+            fail(f"{label}: a left-out non-finite worker did not give NaN "
+                 f"in its columns: {left_out}")
+        if d > 1_000_000 and (plan.resident or any(
+                p.resident for p in plans.values())):
+            fail(f"{label}: expected G not resident")
+        emit({"check": "nonfinite_left_out", "input": label,
+              "resident": plan.resident, "nan_in_its_columns": left_out,
+              "aggregates": "bit-equal to masked_mean_det(G, w), NaN "
+                            "included"})
+
+
 def phase_kernels(torch, kern, ref):
     import itertools
     import numpy as np
@@ -928,6 +1000,7 @@ def phase_kernels(torch, kern, ref):
         _check_fused(torch, kern, ref, G, label, worst)
         _check_select(torch, kern, ref, G, label, worst)
     _check_every_m(torch, kern, ref, subsets, worst)
+    _check_nonfinite(torch, kern, ref, subsets, worst)
     # the fused launch where G does not fit in shared memory: pass 2
     # reads it again
     m, d = NONRESIDENT_SHAPE
@@ -1593,7 +1666,7 @@ def _device_ms(torch, fn):
         g = ("flash_attention" if "flash_kernel" in name else
              "flash_attention_bwd" if "flash_bwd_" in name else
              "wkv6_seq" if "wkv6_seq_kernel" in name else
-             "wkv6_seq_bwd" if "wkv6_seq_bwd_kernel" in name else
+             "wkv6_seq_bwd" if "wkv6_bwd_" in name else
              "gemm" if ("gemm" in name or "cutlass" in name
                         or "xmma" in name) else "other")
         groups[g] += us / 1e3
@@ -2908,17 +2981,18 @@ def phase_bwd_timing(torch, ref):
               "library_call": "backward of F.scaled_dot_product_attention("
                               "is_causal=True), float32, kv heads repeated"})
         del q, k, v, dO, o, lse, kx, vx, sdpa_ins, leaves, o_lib
-    for label, (B, S, H, K) in (("train", (2, 128, 64, 64)),
-                                ("long", (1, 4096, 64, 64))):
+    emit({"check": "wkv6_seq_bwd_resources",
+          **{f"K={K}": wkv_kern.bwd_resources(K) for K in (32, 64)},
+          "ptxas": ({fn: {k: r[k] for k in ("registers", "smem",
+                                            "spill_bytes")}
+                     for fn, r in _ptxas_entries(
+                         _build.BUILD_LOGS["wkv6_bwd"]).items()}
+                    if "wkv6_bwd" in _build.BUILD_LOGS
+                    else "not measured (library reused)")})
+    for label, (B, S, H, K) in WKV_BWD_TIMING:
         Q = 64
-        r, k, v, w, u, S0 = _wkv_inputs(torch, B, H, S, K, 1.0)
-        r, k, v, w = (x.transpose(1, 2).contiguous() for x in (r, k, v, w))
-        dy = torch.randn(B, S, H, K, device="cuda")
-        states = wkv_kern.chunk_states(r, Q)
-        wkv_kern.wkv6_seq(r, k, v, w, u, S0, Q, states)
-        reps = 50 if label == "train" else 10
-        kern = lambda: wkv_kern.wkv6_seq_bwd(  # noqa: E731
-            r, k, v, w, u, states, dy, None, Q)
+        ins, kern = _wkv_bwd_call(torch, wkv_kern, B, S, H, K, Q)
+        reps = 10 if label == "long" else 50
         C = -(-S // Q)
         nbytes = 4 * (9 * B * S * H * K + B * H * C * K * K
                       + B * H * K * K + H * K + B * H * K)
@@ -2928,20 +3002,58 @@ def phase_bwd_timing(torch, ref):
             tri = Qc * (Qc - 1) // 2
             ops += B * H * (5 * 2 * tri * K + 4 * 2 * Qc * K * K)
         bound_ms, bound_by = _tc_bound(nbytes, ops)
+        design = _wkv_bwd_design_bytes(B, S, H, K, Q)
+        records = {}
         res = {"shape": [B, S, H, K], "chunk": Q,
                "ms": _time_ms(torch, kern, reps),
                "device_ms": _kernel_device_ms(torch, kern, reps,
-                                              (("wkv6_seq_bwd_kernel",),), 1),
+                                              WKV_BWD_PARTS, 1, records),
+               "device_ms_by_kernel": {
+                   parts[0]: _kernel_device_ms(torch, kern, reps, (parts,), 1)
+                   for parts in WKV_BWD_PARTS},
+               "device_records": records, "reps": reps,
                "plain_ms": _backward_ms(
-                   torch, lambda *x: ref.wkv6_seq_plain(*x, Q),
-                   (r, k, v, w, u, S0), (dy, None), max(2, reps // 5)),
+                   torch, lambda *x: ref.wkv6_seq_plain(*x, Q), ins[:6],
+                   (ins[6], None), max(2, reps // 5)),
                "library_ms": None, "bound_ms": bound_ms,
                "bound_by": bound_by, "fp32_bound_ms": _bound(nbytes, ops)[0],
+               "design_mbytes": design / 1e6,
+               "design_bytes_ms": design / HBM_BYTES_PER_S * 1e3,
                "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
         out[f"wkv6_seq_bwd/{label}"] = res
         emit({"timing": "wkv6_seq_bwd", **res, "library_call": "none",
-              "per": "one layer launch"})
+              "per": "one layer call (four kernels)"})
+        del ins, kern
+        torch.cuda.empty_cache()
     return out
+
+
+def _wkv_bwd_call(torch, wkv_kern, B, S, H, K, Q):
+    """Inputs of one layer's B7 backward at [B, S, H, K] (w in (e^-1, 1),
+    chunk states from the training forward) and the wrapper call on them:
+    (r, k, v, w, u, S0, dy), fn."""
+    r, k, v, w, u, S0 = _wkv_inputs(torch, B, H, S, K, 1.0)
+    r, k, v, w = (x.transpose(1, 2).contiguous() for x in (r, k, v, w))
+    g = torch.Generator(device="cuda").manual_seed(S + K)
+    dy = torch.randn(B, S, H, K, generator=g, device="cuda")
+    states = wkv_kern.chunk_states(r, Q)
+    wkv_kern.wkv6_seq(r, k, v, w, u, S0, Q, states)
+    return (r, k, v, w, u, S0, dy), lambda: wkv_kern.wkv6_seq_bwd(
+        r, k, v, w, u, states, dy, None, Q)
+
+
+def _wkv_bwd_design_bytes(B, S, H, K, Q) -> int:
+    """Bytes B7's backward kernels move at [B, S, H, K]: the carry terms
+    (r, w, dy in; the scratch and e^{max(cl, -80)} out), the scan (the
+    scratch in and out, dS_in), the chunk pass (r, k, v, w, dy, the chunk
+    states and dS_out in; dr, dk, dv, dw and du's partials out; its re-reads
+    of r, k, w from L2 not counted) and du's sum."""
+    N, C = B * S * H * K, -(-S // Q)
+    P, E = B * H * C * K * K, B * H * C * K
+    carry = 3 * N + P + E
+    scan = 2 * P + E + B * H * K * K
+    chunk = 5 * N + 2 * P + 4 * N + E
+    return 4 * (carry + scan + chunk + E + H * K)
 
 
 def _raw_launchers(torch, G, sl, pr, w, k):
@@ -3097,7 +3209,8 @@ def kernel_times(torch, src: Path, shapes=()) -> int:
     package under SRC (this tree's src, or another tree's, such as a
     parent commit's unpacked beside it) timed through their wrappers at
     MAIN_SHAPE and HBM_SHAPE, or at the shapes given: device ms by
-    torch.profiler and CUDA-event ms over the same calls.  One JSON line
+    torch.profiler and CUDA-event ms over the same calls; without shapes,
+    B7's backward too at WKV_BWD_TIMING's shapes.  One JSON line
     per kernel and shape.  Run it for two trees in turns (parent, change,
     change, parent) to compare kernels on one card; it checks nothing and
     prints no kernels line."""
@@ -3109,7 +3222,22 @@ def kernel_times(torch, src: Path, shapes=()) -> int:
     from repro_torch.kernels import ref
     resolve_device("cuda")
     _build.build_all()
+    bwd = not shapes
     shapes = shapes or (MAIN_SHAPE, HBM_SHAPE)
+    if bwd:
+        from repro_torch.kernels import wkv6 as wkv_kern
+        text = (src / "repro_torch/kernels/csrc/wkv6_bwd.cu").read_text()
+        parts = (WKV_BWD_PARTS if "wkv6_bwd_chunk_kernel" in text
+                 else WKV_BWD_PARTS_BEFORE)
+        for label, (B, S, H, K) in WKV_BWD_TIMING:
+            reps = 10 if label == "long" else 50
+            _, fn = _wkv_bwd_call(torch, wkv_kern, B, S, H, K, 64)
+            emit({"kernel_times": "wkv6_seq_bwd", "src": str(src),
+                  "shape": [B, S, H, K], "chunk": 64,
+                  "device_ms": _kernel_device_ms(torch, fn, reps, parts),
+                  "events_ms": _time_ms(torch, fn, reps)})
+            del fn
+            torch.cuda.empty_cache()
     for m, d in shapes:
         reps = 200 if m * d <= MAIN_SHAPE[0] * MAIN_SHAPE[1] else 20
         G = torch.as_tensor(np.random.default_rng(7).standard_normal(
@@ -3283,7 +3411,14 @@ def main() -> int:
             "shape": lt["shape"], "train_shape": t["shape"],
             "train_ms": t["ms"], "train_device_ms": t["device_ms"],
             "train_plain_ms": t["plain_ms"], "train_bound_ms": t["bound_ms"],
-            "train_library_ms": t["library_ms"]})
+            "train_library_ms": t["library_ms"],
+            **({"design_mbytes": lt["design_mbytes"],
+                "design_bytes_ms": lt["design_bytes_ms"],
+                "device_ms_by_kernel": lt["device_ms_by_kernel"],
+                "train_k32": {k: bwd_t[f"{name}/train_k32"][k] for k in (
+                    "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "design_bytes_ms")}}
+               if name == "wkv6_seq_bwd" else {})})
     emit({"gradient": [{k: r[k] for k in (
         "arch", "batch", "seq", "remat", "host_ms", "peak_device_gb",
         "device_busy_ms", "device_ms_by_group", "launches")}

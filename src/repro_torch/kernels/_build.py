@@ -92,9 +92,13 @@ SIGNATURES = {
     },
     "wkv6_bwd": {
         # r, k, v, w, u, S_chunks, dy, dS_final (nullable), dr, dk, dv, dw,
-        # du_part, dS_in, B, H, S, Q, K, input, dy and gradient strides
-        # (batch, token, head), stream
-        "wkv6_seq_bwd": (_P,) * 14 + (_I,) * 5 + (_L,) * 9 + (_P,),
+        # du, dS_in, the scratch (carry terms, e^{max(cl, -80)}, du
+        # partials), B, H, S, Q, K, input, dy and gradient strides (batch,
+        # token, head), stream
+        "wkv6_seq_bwd": (_P,) * 17 + (_I,) * 5 + (_L,) * 9 + (_P,),
+        # K, int out[3]: chunk-kernel CTAs an SM, its shared memory, the
+        # carry kernel's
+        "wkv6_bwd_resources": (_I, _P),
     },
 }
 # the bucket instances (any other m <= 64) have the tuned library's entries

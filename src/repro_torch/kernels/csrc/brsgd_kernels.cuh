@@ -76,7 +76,8 @@
 //     and the below-mean side is !(g >= mean), as the plain ~above.
 //   * Column mean: row-order sum, IEEE division by m.  The combine sums
 //     rows in order 0..m-1 with __fmul_rn/__fadd_rn (no FMA contraction),
-//     skips weight-0 rows and divides by Σw summed in row order, which
+//     weight-0 rows included (0·NaN and 0·inf are NaN, as the reference's
+//     w @ g gives), and divides by Σw summed in row order, which
 //     reproduces ref.masked_mean_det bit for bit on any weights.
 //   * gram: the tile is staged in shared memory and each thread owns a
 //     4 x 4 block of (i, j) pairs over a slice of its columns, the sums in
@@ -485,7 +486,7 @@ fused_stats_kernel(const float* __restrict__ G, long long d, int needs,
 // B2: the C1∩C2 mask recomputed from sl [2, m] (scores; l1) and pr [2]
 // (kth score; 2·𝔗), falling back to C2 when the intersection is empty;
 // block 0 writes it to w_out [m]; then Σ_i w_i g_i / Σ_i w_i over the
-// columns.
+// columns, every row summed (weight 0 included, as the reference's w @ g).
 template <int M, bool BUCKET>
 __global__ void __launch_bounds__(THREADS)
 select_mean_kernel(const float* __restrict__ G, long long d,
@@ -520,7 +521,7 @@ select_mean_kernel(const float* __restrict__ G, long long d,
     float a = 0.f;
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      if (i < m && w[i] != 0.f) a = __fadd_rn(a, __fmul_rn(w[i], __ldg(G + i * d + col)));
+      if (i < m) a = __fadd_rn(a, __fmul_rn(w[i], __ldg(G + i * d + col)));
     }
     out[col] = __fdiv_rn(a, den);
   }
@@ -530,8 +531,8 @@ select_mean_kernel(const float* __restrict__ G, long long d,
 // 1 (an empty mask divides by 1); w_in == nullptr means unit weights
 // (the mean).  With `small`, block 0 writes w [m] floats, then w > 0 as
 // m bytes.  Replaces src/repro/kernels/brsgd_stats.py:masked_mean_kernel
-// (masked_mean_pallas).  Bound: bytes, the rows of nonzero weight read
-// once and out written.  One thread a column, a grid-stride walk; the
+// (masked_mean_pallas).  Bound: bytes, every row read once (weight 0
+// included, as the reference's w @ g) and out written.  One thread a column, a grid-stride walk; the
 // rows are compile-time indices, so their addresses are strength-reduced
 // and the compiler issues the predicated loads in batches (5-7 at once at
 // M = 20, as many as it has predicate registers).  A row list with every
@@ -566,7 +567,7 @@ masked_mean_kernel(const float* __restrict__ G, long long d, const float* __rest
     float a = 0.f;
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      if (i < m && w[i] != 0.f) a = __fadd_rn(a, __fmul_rn(w[i], __ldg(G + i * d + col)));
+      if (i < m) a = __fadd_rn(a, __fmul_rn(w[i], __ldg(G + i * d + col)));
     }
     out[col] = __fdiv_rn(a, den);
   }
@@ -1115,8 +1116,8 @@ column_stats_kernel(const float* __restrict__ G, long long d, int stages, int n_
 // then B3's combine with the rule's weights, all in one launch.
 //
 // What bounds it: bytes, G read once (m·d·4) plus out written (d·4); pass
-// 2 reads the rows of nonzero weight again unless G stayed resident in
-// shared memory.  At the paper's shape [20, 61706] (4.9 MB, in L2) the
+// 2 reads the rows it sums again unless G stayed resident in shared
+// memory.  At the paper's shape [20, 61706] (4.9 MB, in L2) the
 // eager compositions were 18-200 launches of a few microseconds each;
 // here they are one.
 //
@@ -1152,10 +1153,17 @@ column_stats_kernel(const float* __restrict__ G, long long d, int stages, int n_
 //     sums its n_close smallest in ascending order, so duplicated workers
 //     tie bit for bit.  geomedian: thread i owns row i of S·w; Σw and wᵀSw
 //     in row order.
-//   * Pass 2: combine_tiles over the rows of nonzero weight in ascending
-//     order with __fmul_rn/__fadd_rn, then __fdiv_rn by Σw (row order,
-//     guarded to 1), so the aggregate is bit-equal to
-//     ref.masked_mean_det(G, w).  It reads the resident tiles, else G, last
+//   * Pass 2: combine_tiles over the rows of nonzero weight, and the rows
+//     of weight 0 that hold NaN or ±inf, in ascending order with
+//     __fmul_rn/__fadd_rn, then __fdiv_rn by Σw (row order, guarded to 1),
+//     so the aggregate is bit-equal to ref.masked_mean_det(G, w), which
+//     sums every row as the reference's w @ g does: a finite row of
+//     weight 0 adds ±0 (the sum is never -0, so its bits stay), and a
+//     non-finite one makes its columns NaN (0·NaN, 0·inf).  Pass 1 already
+//     tells which rows those are, at no cost: a row's grid-wide statistic
+//     (the gram diagonal S_ii = Σ g_i², brsgd's l1 = Σ |g_i - med|) is
+//     NaN or ±inf when the row holds a non-finite value (an overflow, or
+//     a NaN median, only adds rows, which keeps the bits).  It reads the resident tiles, else G, last
 //     tile first (the tiles pass 1 read last are the ones still in L2),
 //     with the loads of four rows of four tiles in flight.
 //   * Block 0 writes the diagnostics to `small`.  brsgd: scores [M], l1
@@ -1178,14 +1186,15 @@ struct AggShared {
   float sc[M], l1[M];      // the grid-wide statistics (krum: scores)
   float cand[2][M];        // rank_select: x_i where it hits, else -inf
   float w[M];              // selection weights
-  int rows[M];             // the rows of nonzero weight, ascending
+  int rows[M];             // the rows pass 2 sums, ascending
+  int in[M];               // row i is one of them
   float kth, T, den;        // den: Σw (gram rules)
 };
 static_assert(sizeof(AggShared<64>) <= AGG_STATIC_SMEM, "static shared memory");
 
 // The weighted row combine over NT tiles of a block, from slot s0 down
-// (slot s is the block's tile b + s·grid): Σ over the n selected rows
-// (sh.rows[0..n), ascending, the rows of nonzero weight) of w_i g_i, in
+// (slot s is the block's tile b + s·grid): Σ over the n rows sh.rows[0..n)
+// (ascending: those of nonzero weight, and non-finite ones) of w_i g_i, in
 // row order with __fmul_rn/__fadd_rn, then __fdiv_rn by den — bit-equal
 // to ref.masked_mean_det on the same weights.  AGG_ROWS rows of every
 // tile are loaded before they are added.  load(slot, row, col) reads one
@@ -1662,13 +1671,16 @@ select_aggregate_kernel(const float* __restrict__ G, long long d, int ia, int ib
         small[3 * m + 1] = sh.T;
       }
     }
-    // Σw of 0/1 weights is the count, exact in float; the barrier also
-    // publishes sh.w
-    n_sel = __syncthreads_count(sel);
-    den = n_sel > 0 ? static_cast<float>(n_sel) : 1.f;
-    if (sel) {  // this row's place among the selected ones
+    // Σw of 0/1 weights is the count, exact in float; pass 2 also sums
+    // the rows whose l1 is not finite (weight 0: 0·NaN, 0·inf)
+    const bool in = sel || (tid < m && !isfinite(sh.l1[tid]));
+    if (tid < m) sh.in[tid] = in;
+    const int n_w = __syncthreads_count(sel);
+    den = n_w > 0 ? static_cast<float>(n_w) : 1.f;
+    n_sel = __syncthreads_count(in);
+    if (in) {  // this row's place among the summed ones
       int pos = 0;
-      for (int j = 0; j < tid; ++j) pos += sh.w[j] != 0.f;
+      for (int j = 0; j < tid; ++j) pos += sh.in[j];
       sh.rows[pos] = tid;
     }
   } else {
@@ -1680,15 +1692,23 @@ select_aggregate_kernel(const float* __restrict__ G, long long d, int ia, int ib
     if (b == 0)
       gram_rule_weights<M, RULE, BUCKET>(totals, scratch, small, den_out, sh, ia, ib, fa, m);
     all.sync();
-    if (tid < m) sh.w[tid] = __ldcg(small + tid);
+    // pass 2 sums the rows of nonzero weight and those whose gram
+    // diagonal is not finite (weight 0: 0·NaN, 0·inf); both loads in
+    // flight together
+    bool in = false;
+    if (tid < m) {
+      const float wt = __ldcg(small + tid);
+      const float sii = __ldcg(totals + gram_pair(tid, tid, m));
+      in = wt != 0.f || !isfinite(sii);
+      sh.w[tid] = wt;
+      sh.in[tid] = in;
+    }
     if (tid == 0) sh.den = __ldcg(den_out);
-    __syncthreads();
-    const bool nz = tid < m && sh.w[tid] != 0.f;
-    n_sel = __syncthreads_count(nz);
+    n_sel = __syncthreads_count(in);
     den = sh.den;
-    if (nz) {  // this row's place among the rows of nonzero weight
+    if (in) {  // this row's place among the summed ones
       int pos = 0;
-      for (int j = 0; j < tid; ++j) pos += sh.w[j] != 0.f;
+      for (int j = 0; j < tid; ++j) pos += sh.in[j];
       sh.rows[pos] = tid;
     }
   }

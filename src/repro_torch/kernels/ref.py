@@ -194,16 +194,20 @@ def masked_mean_ref(G, mask):
 
 def masked_mean_det(G, mask):
     """Weighted row mean with sequential accumulation in row order: a
-    full mask is bit-identical to :func:`column_mean_ref`.  Rows of
-    weight 0 are skipped with ``where``, never multiplied by 0, so a
-    non-finite dropped row cannot leak into the result.  Σw is summed in
-    row order too, so float weights give the same bits on every device
-    (the combine kernels sum it in the same order)."""
+    full mask is bit-identical to :func:`column_mean_ref`.  Every row is
+    summed, weight 0 included (``s + w_i·g_i``, as the JAX package's
+    ``masked_mean_det`` and its Pallas ``w @ g`` do), so a column where a
+    row of weight 0 holds NaN or ±inf comes out NaN (0·NaN and 0·inf are
+    NaN); on finite rows ``s + 0·g`` is ``s`` bit for bit (the sum is
+    never -0).  Callers that must keep a dropped row out zero it first
+    (the elastic path).  Σw is summed in row order too, so float weights
+    give the same bits on every device (the combine kernels sum it in
+    the same order)."""
     Gf = G.to(torch.float32)
     w = mask.to(torch.float32)
     s = torch.zeros_like(Gf[0])
     for i in range(Gf.shape[0]):
-        s = torch.where(w[i] != 0, s + w[i] * Gf[i], s)
+        s = s + w[i] * Gf[i]
     return s / _guarded(det_sum_rows(w))
 
 
@@ -682,3 +686,102 @@ def wkv6_seq_grads_plain(r, k, v, w, u, S_in, chunk: int, dy,
                (dy, dS_final))
     return tuple(torch.zeros_like(x) if d is None else d
                  for d, x in zip(g, (r, k, v, w, u, S_in)))
+
+
+def wkv6_seq_grads_chunked(r, k, v, w, u, S_in, chunk: int, dy,
+                           dS_final=None):
+    """(dr, dk, dv, dw, du, dS_in) of :func:`wkv6_seq_plain` by the three
+    passes of B7's backward kernels (``csrc/wkv6_bwd.cu``), written out
+    with their formulas; the tests hold it against autograd and against
+    JAX, nothing on the card's path calls it.
+
+    With per chunk c of Q tokens (the last one padded with w = 1 and
+    zeros, as the kernels zero-fill its rows): ce = c - log w, cl = c at
+    the chunk's end, mid = cl / 2, RD = r·e^{clip(ce - mid, ±40)}, KG =
+    k·e^{clip(mid - c, ±40)}, RS = r·e^{max(ce, -80)}, KE =
+    k·e^{max(cl - c, -80)}, ecl = e^{max(cl, -80)} and S_c the state the
+    chunk starts from:
+
+    1. chunk-local carry terms P_c = RS_cᵀ·dy_c;
+    2. the carry scan from the last chunk: dS_out_c is the running carry
+       (dS_final or 0 at the end), then carry <- ecl_c ⊙rows carry + P_c;
+       the last carry is dS_in;
+    3. every chunk from its own inputs, S_c and dS_out_c: A = RD·KGᵀ and
+       dA = dy·vᵀ on j < t; dv = Aᵀ·dy + KE·dS_out + diag·dy; dRD =
+       dA·KG, dKG = dAᵀ·RD, dRS = dy·S_cᵀ, dKE = v·dS_outᵀ; dr, dk; each
+       clamp passes its exponent's gradient where it does not bite
+       (torch.clamp's rule), mid's and cl's are summed over the chunk's
+       tokens, d(log w) is the suffix sum of dc minus dce, dw = d(log
+       w) / w; du summed over chunks, then over b."""
+    lc = WKV_LOG_CLAMP
+    B, S, H, K = r.shape
+    Q = min(int(chunk), S)
+    C = -(-S // Q)
+    states, state = [], S_in
+    for c0 in range(0, S, Q):               # the forward's chunk states
+        states.append(state)
+        part = [x[:, c0:c0 + Q].transpose(1, 2) for x in (r, k, v, w)]
+        _, state = wkv6_chunk_plain(*part, u, state)
+    Sc = torch.stack(states, dim=2)                       # [B,H,C,K,K]
+
+    def chunks(x, fill=0.0):                              # -> [B,H,C,Q,K]
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, C * Q - S),
+                                    value=fill)
+        return x.reshape(B, C, Q, H, K).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, dyc = (chunks(x) for x in (r, k, v, dy))
+    wc = chunks(w, 1.0)
+    lw = torch.log(wc)
+    c = torch.cumsum(lw, dim=3)
+    ce = c - lw
+    cl = c[..., -1:, :]
+    mid = 0.5 * cl
+    aRD, aKG, aKE = ce - mid, mid - c, cl - c
+    eRD = torch.exp(torch.clamp(aRD, -lc, lc))
+    eKG = torch.exp(torch.clamp(aKG, -lc, lc))
+    eRS = torch.exp(torch.clamp(ce, min=-2 * lc))
+    eKE = torch.exp(torch.clamp(aKE, min=-2 * lc))
+    RD, KG, RS, KE = rc * eRD, kc * eKG, rc * eRS, kc * eKE
+    ecl = torch.exp(torch.clamp(cl, min=-2 * lc))[..., 0, :]   # [B,H,C,K]
+    T = lambda x: x.transpose(-1, -2)                   # noqa: E731
+
+    P = T(RS) @ dyc                                     # pass 1
+    carry = (torch.zeros_like(P[:, :, 0]) if dS_final is None
+             else dS_final.to(torch.float32))
+    dS_out = torch.empty_like(P)
+    for ci in reversed(range(C)):                       # pass 2
+        dS_out[:, :, ci] = carry
+        carry = ecl[:, :, ci, :, None] * carry + P[:, :, ci]
+
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=r.device).tril(-1)
+    A = torch.where(tri, RD @ T(KG), 0.0)               # pass 3
+    dA = torch.where(tri, dyc @ T(vc), 0.0)
+    uu = u[None, :, None, None, :]
+    diag = (rc * uu * kc).sum(-1, keepdim=True)
+    ddiag = (dyc * vc).sum(-1, keepdim=True)
+    dv = T(A) @ dyc + KE @ dS_out + diag * dyc
+    dRD, dKG = dA @ KG, T(dA) @ RD
+    dRS, dKE = dyc @ T(Sc), vc @ T(dS_out)
+    decl = (Sc * dS_out).sum(-1)
+    dr = dRD * eRD + dRS * eRS + ddiag * uu * kc
+    dk = dKG * eKG + dKE * eKE + ddiag * rc * uu
+    xRD = torch.where((aRD >= -lc) & (aRD <= lc), dRD * RD, 0.0)
+    xKG = torch.where((aKG >= -lc) & (aKG <= lc), dKG * KG, 0.0)
+    xRS = torch.where(ce >= -2 * lc, dRS * RS, 0.0)
+    xKE = torch.where(aKE >= -2 * lc, dKE * KE, 0.0)
+    dce = xRD + xRS
+    dc = dce - xKG - xKE
+    dmid = (xKG - xRD).sum(3)
+    dcl = (xKE.sum(3) + torch.where(cl[..., 0, :] >= -2 * lc, decl * ecl,
+                                    0.0) + 0.5 * dmid)
+    run = torch.flip(torch.cumsum(torch.flip(dc, [3]), 3), [3])
+    dw = (run + dcl[..., None, :] - dce) / wc
+    du_b = (ddiag * rc * kc).sum(3).sum(2)              # over chunks
+    du = du_b[0]
+    for b in range(1, B):                               # then over b
+        du = du + du_b[b]
+
+    def unchunk(x):
+        return x.permute(0, 2, 3, 1, 4).reshape(B, C * Q, H, K)[:, :S]
+
+    return (unchunk(dr), unchunk(dk), unchunk(dv), unchunk(dw), du, carry)

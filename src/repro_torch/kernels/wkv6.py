@@ -19,11 +19,14 @@ is 16-byte aligned (the kernel copies rows in 16-byte pieces; see
 
 Training (:class:`WKV6SeqFn`): the forward also writes each chunk's
 incoming state ([B, H, C, K, K], C = ceil(S / Q)), and the backward is
-the hand-written ``csrc/wkv6_bwd.cu``: one launch per layer, one CTA per
-(b, h) walking the chunks in reverse, giving dr, dk, dv, dw, dS_in and
-du as per-(b, h) partials that :func:`wkv6_seq_bwd` sums over b in a
-fixed order.  The plain gradient is autograd's of ``ref.wkv6_seq_plain``
-(``ref.wkv6_seq_grads_plain``).
+the hand-written ``csrc/wkv6_bwd.cu``: one C call per layer that
+launches four kernels, the chunk-local carry terms (into a scratch
+[B, H, C, K, K] allocated here), the scan of the dS carry over chunks,
+the chunk-parallel gradients on a persistent grid, and du summed over
+chunks, then b, in order: dr, dk, dv, dw, du and dS_in.  The plain
+gradient is autograd's of ``ref.wkv6_seq_plain``
+(``ref.wkv6_seq_grads_plain``); ``ref.wkv6_seq_grads_chunked`` writes
+out the kernels' three passes.
 """
 from __future__ import annotations
 
@@ -140,7 +143,9 @@ def wkv6_seq_bwd(r, k, v, w, u, S_chunks, dy, dS_final, chunk: int):
     """The gradients of :func:`wkv6_seq` at (r, k, v, w, u, S_in) given
     the forward's chunk states, dy [B,S,H,K] and dS_final [B,H,K,K]
     (None: zeros) -> (dr, dk, dv, dw [B,S,H,K], du [H,K], dS_in
-    [B,H,K,K]): one launch, du summed over b in order."""
+    [B,H,K,K]): one C call (four kernels, counted as one launch) with a
+    float32 scratch of [B,H,C,K,K] + 2·[B,H,C,K], du summed over chunks,
+    then b, in order."""
     _check("wkv6_seq_bwd", r, k, v, w, u, S_chunks, "[B, S, H, K]")
     B, S, H, K = r.shape
     Q = min(int(chunk), S)
@@ -159,33 +164,50 @@ def wkv6_seq_bwd(r, k, v, w, u, S_chunks, dy, dS_final, chunk: int):
         raise ValueError(f"wkv6_seq_bwd: dy must be float32 "
                          f"{tuple(r.shape)}, got {tuple(dy.shape)} "
                          f"{dy.dtype}")
-    if dy.stride(-1) != 1:
+    if dy.stride(-1) != 1 or not aligned(dy):   # the kernels' 16-byte copies
         dy = dy.contiguous()
         COPIES["wkv6_seq_bwd.dy"] += 1
     if dS_final is not None:
         _check_state("wkv6_seq_bwd", u, dS_final, B, H, K)
-    grads = [torch.empty((B, S, H, K), dtype=torch.float32, device=r.device)
+    dev = r.device
+    grads = [torch.empty((B, S, H, K), dtype=torch.float32, device=dev)
              for _ in range(4)]
-    du_part = torch.empty((B, H, K), dtype=torch.float32, device=r.device)
-    dS_in = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
+    du = torch.empty((H, K), dtype=torch.float32, device=dev)
+    dS_in = torch.empty((B, H, K, K), dtype=torch.float32, device=dev)
+    C = S_chunks.shape[2]
+    carry = torch.empty((B, H, C, K, K), dtype=torch.float32, device=dev)
+    ecl = torch.empty((B, H, C, K), dtype=torch.float32, device=dev)
+    du_part = torch.empty((B, H, C, K), dtype=torch.float32, device=dev)
     lib = load("wkv6_bwd")
-    with torch.cuda.device(r.device):
+    with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         rc = lib.wkv6_seq_bwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), S_chunks.data_ptr(), dy.data_ptr(),
             None if dS_final is None else dS_final.data_ptr(),
-            *(g.data_ptr() for g in grads), du_part.data_ptr(),
-            dS_in.data_ptr(), B, H, S, Q, K, *r.stride()[:3],
-            *dy.stride()[:3], *grads[0].stride()[:3], stream)
+            *(g.data_ptr() for g in grads), du.data_ptr(), dS_in.data_ptr(),
+            carry.data_ptr(), ecl.data_ptr(), du_part.data_ptr(),
+            B, H, S, Q, K, *r.stride()[:3], *dy.stride()[:3],
+            *grads[0].stride()[:3], stream)
     if rc != 0:
         raise RuntimeError(f"wkv6_seq_bwd: kernel launch failed with CUDA "
                            f"error {rc} ({error_string('wkv6_bwd', rc)})")
     LAUNCHES["wkv6_seq_bwd"] += 1
-    du = du_part[0]
-    for b in range(1, B):           # a fixed order: the same bits each call
-        du = du + du_part[b]
     return (*grads, du, dS_in)
+
+
+def bwd_resources(K: int) -> dict:
+    """The backward's chunk kernel on this card at K: CTAs an SM holds
+    (its persistent grid is that times the SMs), its dynamic shared
+    memory and the carry kernel's, in bytes."""
+    out = (ctypes.c_int * 3)()
+    lib = load("wkv6_bwd")
+    rc = lib.wkv6_bwd_resources(int(K), out)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_bwd_resources: CUDA error {rc} "
+                           f"({error_string('wkv6_bwd', rc)})")
+    return {"chunk_ctas_per_sm": out[0], "chunk_smem_bytes": out[1],
+            "carry_smem_bytes": out[2]}
 
 
 class WKV6SeqFn(torch.autograd.Function):

@@ -101,8 +101,10 @@ def test_brsgd_aggregate_matches_jax_fast_path(m, beta, threshold):
 @pytest.mark.parametrize("where", ["row", "scattered"])
 def test_brsgd_aggregate_with_a_nan_worker(m, where):
     """A worker whose gradient holds NaN: scores and weights follow the
-    Pallas kernels; a dropped NaN row stays out of the aggregate
-    (``where``, never 0·NaN), so it is the JAX mean of the kept rows."""
+    Pallas kernels; the aggregate sums every row, weight 0 included, as
+    the JAX package's c + w·g and w @ g do, so a dropped NaN row makes
+    its columns NaN: it is the JAX row-order mean over all rows, with NaN
+    where the Pallas fast path has it."""
     G = attacked(m, seed=30 + m)
     if where == "row":
         G[2] = np.nan
@@ -121,9 +123,11 @@ def test_brsgd_aggregate_with_a_nan_worker(m, where):
         exact(got, want)
     if where == "row":              # every l1 is NaN: no rank hits, 𝔗 = -inf
         assert float(r.threshold) == -np.inf and not r.c1.any()
-    keep = r.w.numpy() > 0
-    exact(r.agg, jref.masked_mean_det(jnp.asarray(G[keep]),
-                                      jnp.ones(int(keep.sum()), bool)))
+    exact(r.agg, jref.masked_mean_det(jnp.asarray(G),
+                                      jnp.asarray(r.w.numpy())))
+    agg_j, _ = select_mean_pallas(jnp.asarray(G), sc_j, l1_j, 0.5, 0.0,
+                                  d_blk=64)
+    exact(np.isnan(r.agg.numpy()), np.isnan(np.asarray(agg_j)))
 
 
 def test_brsgd_aggregate_equals_the_two_pass_composition():

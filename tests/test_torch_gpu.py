@@ -552,6 +552,53 @@ def test_fused_select_kernel_not_resident(rule, m, d):
     check_select(G, rule, select_args(rule, m))
 
 
+def nonfinite_workers(m, d, seed):
+    """Outlying workers and two workers with non-finite columns: worker 1
+    NaN in every 9th column, worker 3 +inf, -inf and NaN in others.  Both
+    score NaN: krum keeps worker 1 (the first NaN), so worker 3 is left
+    out by every select rule but the mean."""
+    G = mat(m, d, seed=seed)
+    G[m - m // 4:] *= -4.0
+    G[1, ::9] = float("nan")
+    G[3, 2::9] = float("inf")
+    G[3, 5::9] = float("-inf")
+    G[3, 7::11] = float("nan")
+    return G
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(20, 61706), (20, 2_000_003), (12, 61706),
+                                 (33, 61706)])
+def test_combines_with_an_unselected_nonfinite_worker(m, d):
+    """The combines sum every row, weight 0 included, as the reference's
+    w @ g does (0·NaN and 0·inf are NaN): B2, B3, the fused brsgd launch
+    and the fused select launch of every gram rule bit-equal to
+    masked_mean_det of their own weights, NaN in the same places, where
+    the rules leave a non-finite worker out; G resident in shared memory
+    at d = 61706 (m = 20), not at 2000003, and on the bucket instances at
+    m = 12 and 33."""
+    need_card()
+    G = nonfinite_workers(m, d, seed=m + 90)
+    if d > 1_000_000:
+        assert not kern.launch_plan(G, "krum").resident
+    elif m == 20:
+        assert kern.launch_plan(G, "krum").resident
+    check_pass2_and_columns(G)
+    r = check_fused(G, 0.5, 0.0)
+    assert not bool(r.selected[3])
+    assert bool(r.agg[2::9].isnan().all())
+    for rule in SELECT_RULES:
+        r = check_select(G, rule, select_args(rule, m))
+        if rule != "geomedian":
+            assert not bool(r.selected[3])
+            assert bool(r.agg[5::9].isnan().all())
+    w = torch.ones(m, device="cuda")
+    w[3] = 0.0
+    got = kern.masked_mean(G, w)
+    exact(got, ref.masked_mean_det(G, w))
+    assert bool(got[2::9].isnan().all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("agg", ["mean", "krum", "multi_krum", "geomedian",
                                  "brsgd"])
@@ -623,7 +670,7 @@ def test_median_aggregate_local_is_one_device_kernel():
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,d", SHAPES + [(20, 8_388_608)])
 def test_rebuilt_masked_mean_is_bit_equal_with_any_weights(m, d):
-    """B3 sums the rows of nonzero weight and Σw in row order, so it
+    """B3 sums every row (weight 0 included) and Σw in row order, so it
     equals masked_mean_det bit for bit with 0/1 masks, float weights,
     unit weights (the mean, which also writes w and w > 0) and an empty
     mask."""

@@ -147,17 +147,14 @@ def test_nan_worker_matches_pallas(where):
         jnp.asarray(G), jnp.asarray(sc.numpy()), jnp.asarray(l1.numpy()),
         0.5, 0.0, d_blk=64)
     exact(w, want_w)
-    # a dropped NaN row stays out (``where``, never 0·NaN, which the
-    # Pallas matvec lets through): the aggregate is the JAX mean of the
-    # kept rows alone
-    keep = w.numpy() > 0
-    exact(agg, jref.masked_mean_det(jnp.asarray(G[keep]),
-                                    jnp.ones(int(keep.sum()), bool)))
+    # every row is summed, weight 0 included, as the Pallas matvec and
+    # the JAX c + w·g do: a dropped NaN row makes its columns NaN
+    exact(agg, jref.masked_mean_det(jnp.asarray(G), jnp.asarray(w.numpy())))
+    exact(np.isnan(agg.numpy()), np.isnan(np.asarray(want_agg)))
     mask = np.arange(7) != 3
     got = ops.masked_mean(Gt, torch.from_numpy(mask))
-    exact(got, jref.masked_mean_det(jnp.asarray(G[mask]),
-                                    jnp.ones(6, bool)))
-    assert np.isfinite(got.numpy()).all()
+    exact(got, jref.masked_mean_det(jnp.asarray(G), jnp.asarray(mask)))
+    exact(np.isnan(got.numpy()), np.isnan(G[3]))
 
 
 def test_wrappers_refuse_cpu_tensors_and_count_nothing():

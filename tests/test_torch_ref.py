@@ -142,12 +142,18 @@ def test_masked_means_match_jax(kind):
 
 
 def test_masked_mean_det_skips_nonfinite_dropped_rows():
+    """A dropped row is not skipped: every row is summed, weight 0
+    included (0·inf is NaN), as the JAX c + w·g does; finite dropped rows
+    leave the bits of the kept rows' mean."""
     G = mat(4, 6, seed=7)
-    G[1] = np.inf
-    got = tref.masked_mean_det(torch.from_numpy(G),
-                               torch.tensor([1.0, 0.0, 1.0, 1.0]))
-    exact(got, jref.masked_mean_det(jnp.asarray(G[[0, 2, 3]]),
-                                    jnp.ones(3, bool)))
+    w = np.array([1.0, 0.0, 1.0, 1.0], np.float32)
+    exact(tref.masked_mean_det(torch.from_numpy(G), torch.from_numpy(w)),
+          jref.masked_mean_det(jnp.asarray(G[[0, 2, 3]]), jnp.ones(3, bool)))
+    G[1, ::2] = np.inf
+    G[1, 1] = np.nan
+    got = tref.masked_mean_det(torch.from_numpy(G), torch.from_numpy(w))
+    exact(got, jref.masked_mean_det(jnp.asarray(G), jnp.asarray(w)))
+    exact(np.isnan(got.numpy()), ~np.isfinite(G[1]))
 
 
 def test_rank_select_and_quantile_index():

@@ -183,8 +183,9 @@ def test_select_aggregate_with_a_nan_worker(m, where, rule):
     krum: its score is NaN and argmin returns the first NaN, so it is the
     one selected (as jnp.argmin); multi_krum ranks it last; geomedian's
     d2med (every column with a NaN has a NaN median) makes every weight
-    NaN.  The aggregate skips weight-0 rows (``where``, never 0·NaN), so
-    it is the JAX row-order mean of the kept rows."""
+    NaN.  The aggregate sums every row, weight 0 included (the JAX
+    package's c + w·g and w @ g), so it is the JAX row-order mean over all
+    rows: NaN wherever the NaN worker's row is, selected or not."""
     G = workers(m, seed=50 + m)
     if where == "row":
         G[2] = np.nan
@@ -203,9 +204,9 @@ def test_select_aggregate_with_a_nan_worker(m, where, rule):
     close(r.scores, scores_j)
     assert np.isnan(np.asarray(r.scores)[2])
     assert bool(r.selected[2]) == (rule == "krum")
-    keep = np.asarray(r.w) > 0
-    exact(r.agg, jref.masked_mean_det(jnp.asarray(G[keep]),
-                                      jnp.ones(int(keep.sum()), bool)))
+    exact(r.agg, jref.masked_mean_det(jnp.asarray(G),
+                                      jnp.asarray(np.asarray(r.w))))
+    exact(np.isnan(np.asarray(r.agg)), np.isnan(G[2]))
 
 
 @pytest.mark.parametrize("m", [8, 20])

@@ -33,7 +33,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      rule through aggregate_local, fixed and elastic, against the CPU
      (one line of checks per instance and the worst errors; m = 65 must
      raise);
-     B5 at trim fractions 0.1, 0.25, 0.49 and 0.5;
+     B5 at trim fractions 0.1, 0.25, 0.49 and 0.5 (a second launch the
+     same bits), at every m also with NaN and ±inf in trimmed and kept
+     slots at d = 1003 and 61, on G and on a view whose rows start 4
+     bytes past 16;
      the fused brsgd launch (B1's brsgd call + B2, one cooperative
      kernel) at the same inputs with G resident in shared memory, and at
      [20, 2000003], where it is not, with and without a NaN worker:
@@ -85,6 +88,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      geomedian) and of the median: device kernels per call
      (torch.profiler, must be 1) and host ms, the eager composition (the
      median's: B4 and its two sums) and the one launch in turns; the
+     trimmed mean's device kernels per call (B5's one launch); the
      paper step of each select rule, both ways in turns;
   5. the main path: paper.train_lenet at LeNet width, m = 20, 60 steps
      (brsgd under scale and gaussian, the mean baseline, median, krum,
@@ -160,8 +164,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      first) at [2, 128, 64, 64], [2, 128, 64, 32] and [1, 4096, 64, 64],
      with the bytes its design moves beside the bound, each with the
      plain versions' autograd backward; every BrSGD kernel's device time at m = 10, 12,
-     16, 32, 33 and 64 (12 and 33 on bucket instances) at d = 61706 and
-     8388608;
+     16, 32, 33, 63 and 64 (12, 33 and 63 on bucket instances) at d =
+     61706 and 8388608;
   9. the {"gradient": [...]}, {"phase_seconds": {...}} and
      {"kernels": [...]} lines, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
@@ -629,18 +633,45 @@ def _check_kernels(torch, kern, ref, G, label, rng, subsets, worst):
     emit({"check": "masked_mean", "input": label,
           "weights": list(weights) + ["unit"],
           "bit_equal_to_masked_mean_det": True})
-    # B5: trimmed mean, exact (NaN where the plain version has NaN)
+    _check_trimmed(torch, kern, ref, G, label, worst)
+
+
+def _check_trimmed(torch, kern, ref, G, label, worst):
+    """B5 on G at every trim fraction: bit-equal to its plain version
+    (NaN where it has NaN), and a second launch gives the same bits."""
+    m = G.shape[0]
     for tf in TRIM_FRACS:
         got = kern.trimmed_mean(G, tf)
+        again = kern.trimmed_mean(G, tf)
         want = ref.trimmed_mean_ref(G, tf)
         torch.cuda.synchronize()
         worst["trimmed_mean"] = max(worst["trimmed_mean"], _err(got, want))
         if not _exact(got, want):
             fail(f"trimmed_mean {label} trim_frac={tf}: err "
                  f"{_err(got, want)}, NaN equal {_same_nan(got, want)}")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            fail(f"trimmed_mean {label} trim_frac={tf}: a second launch "
+                 f"gave other bits")
     emit({"check": "trimmed_mean", "input": label, "trim_fracs": TRIM_FRACS,
           "k": [ref.trim_k(tf, m) for tf in TRIM_FRACS], "exact": True,
-          "nan_columns": int(want.isnan().sum())})
+          "repeat_same_bits": True, "nan_columns": int(want.isnan().sum()),
+          "inf_columns": int(want.isinf().sum())})
+
+
+def _trimmed_nonfinite(np, m, d, seed):
+    """[m, d] normals with non-finite entries in trimmed and kept slots:
+    worker 0 +inf and the last worker -inf in every 5th column (both
+    trimmed once k > 0, else NaN), worker m // 2 +inf in every 7th
+    (trimmed once k > 0, else kept), worker (m - 1) // 3 NaN in every
+    third, column 3 all +inf (kept) and column 4 all -inf."""
+    g = np.random.default_rng(seed).normal(size=(m, d)).astype(np.float32)
+    g[0, ::5] = np.inf
+    g[m - 1, ::5] = -np.inf
+    g[m // 2, 1::7] = np.inf
+    g[(m - 1) // 3, 2::3] = np.nan
+    g[:, 3] = np.inf
+    g[:, 4] = -np.inf
+    return g
 
 
 def _check_fused(torch, kern, ref, G, label, worst):
@@ -855,7 +886,9 @@ def _check_every_m(torch, kern, ref, subsets, worst):
     instance: the column pass (B1 at every needs subset, B4, the median
     alone) at d = 1003 and d = 61 (rows off 16 bytes; one ragged tile)
     with a NaN worker row, then with NaN entries scattered over the
-    columns and one column all NaN; at [m, 1003] with one worker's row NaN
+    columns and one column all NaN; B5 at every trim fraction on NaN and
+    ±inf in trimmed and kept slots at both widths, on G and on a view
+    whose rows start 4 bytes past 16; at [m, 1003] with one worker's row NaN
     in every third column, B1-B5 (_check_kernels), the fused brsgd launch
     (_check_fused), the fused select launch of each gram rule
     (_check_select) and every rule through aggregate_local, fixed and
@@ -884,7 +917,16 @@ def _check_every_m(torch, kern, ref, subsets, worst):
                 _check_column_pass(torch, kern, ref, torch.as_tensor(
                     g, device="cuda"), f"[{m},{d}] NaN columns", subsets,
                     worst)
-                n += 2
+                # B5 on ±inf and NaN in trimmed and kept slots, on G and
+                # on a view whose rows start 4 bytes past 16
+                g = _trimmed_nonfinite(np, m, d, 900 + m)
+                base = torch.empty(m * d + 1, device="cuda")
+                base[1:] = torch.as_tensor(g.reshape(-1), device="cuda")
+                for G, where in ((torch.as_tensor(g, device="cuda"), ""),
+                                 (base[1:].view(m, d), " off 16 bytes")):
+                    _check_trimmed(torch, kern, ref, G,
+                                   f"[{m},{d}] non-finite{where}", worst)
+                n += 4
             rng = np.random.default_rng(500 + m)
             g = rng.normal(size=(m, EVERY_M_D)).astype(np.float32)
             g[: m // 4] *= -4.0
@@ -1474,6 +1516,17 @@ def phase_aggregation(torch, kern, ref):
             fail(f"a {rule} aggregate_local issued {kernels['fused']} "
                  f"device kernels, expected one launch")
         out[rule] = res
+    # the trimmed mean's aggregate_local: B5's launch and nothing else
+    # (it never had another composition)
+    cfg = ByzantineConfig(aggregator="trimmed_mean", alpha=0.1)
+    kernels = _device_kernels(torch, lambda: engine.aggregate_local(
+        G, cfg, return_state=True))
+    emit({"timing": "trimmed_mean_aggregate_local", "shape": list(MAIN_SHAPE),
+          "device_kernels_per_call": kernels})
+    if kernels["per_call"] != 1:
+        fail(f"a trimmed_mean aggregate_local issued {kernels} device "
+             f"kernels, expected B5's one launch")
+    out["trimmed_mean"] = {"device_kernels_per_call": {"fused": kernels}}
     return out
 
 
@@ -2541,17 +2594,27 @@ def _time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-# the device kernel each timed row launches, by a part of its name (the
-# parent tree's combine_rows_kernel served both B2 and B3, and its
-# fused_stats_kernel B1's every call and B4, the median included)
+def _column_instance(*variants) -> str:
+    """A pattern of the column pass's instances of these variants: the
+    template arguments <M, VARIANT, BUCKET> in the profiler's demangled
+    name, or in the mangled one."""
+    v = "|".join(str(x) for x in variants)
+    return rf"column_stats_kernel(<\d+, ({v}), |ILi\d+ELi({v})E)"
+
+
+# the device kernel each timed row launches, by a pattern its name
+# matches (the parent tree's combine_rows_kernel served both B2 and B3,
+# its fused_stats_kernel B1's every call and B4, the median included, and
+# its trimmed_mean_kernel B5); the column pass's rows name their variants,
+# so that none counts another's launches
 KERNEL_NAMES = {
-    "fused_stats": ("column_stats_kernel", "fused_stats_kernel"),
+    "fused_stats": (_column_instance(*range(1, 8)), "fused_stats_kernel"),
     "fused_stats[gram]": ("fused_stats_kernel",),
     "select_mean": ("select_mean_kernel", "combine_rows_kernel"),
     "masked_mean": ("masked_mean_kernel", "combine_rows_kernel"),
-    "brsgd_stats": ("column_stats_kernel", "fused_stats_kernel"),
-    "cwise_median": ("column_stats_kernel", "fused_stats_kernel"),
-    "trimmed_mean": ("trimmed_mean_kernel",),
+    "brsgd_stats": (_column_instance(19), "fused_stats_kernel"),
+    "cwise_median": (_column_instance(16), "fused_stats_kernel"),
+    "trimmed_mean": (_column_instance(32), "trimmed_mean_kernel"),
     "brsgd_aggregate": ("brsgd_aggregate_kernel", "select_aggregate_kernel"),
     **{f"select_aggregate[{r}]": ("select_aggregate_kernel",)
        for r in GRAM_RULES},
@@ -2563,12 +2626,13 @@ def _kernel_device_ms(torch, fn, reps: int, kernels, warmup: int = 3,
     """Device time of the kernels one call of fn launches, by
     torch.profiler over reps calls.  ``kernels`` has one entry per kernel
     a call launches (one for the aggregation kernels, three for B6's
-    backward), each a tuple of name parts of which the kernel's name
-    holds one; each is taken at its mean over the records the trace kept
-    (a trace can lose records), and the means are summed.  A trace that
-    lost every record of one of them is taken again; after three such
-    traces the result is None, as a sum that leaves a kernel out would
-    read low.  ``records``, when given, receives the number of records
+    backward), each a tuple of name patterns (regular expressions) of
+    which the kernel's name matches one; each is taken at its mean over
+    the records the trace kept (a trace can lose records), and the means
+    are summed.  A trace that lost every record of one of them is taken
+    again; after three such traces the result is None, as a sum that
+    leaves a kernel out would read low.  ``records``, when given,
+    receives the number of records
     of each kernel in the trace read.  Unlike CUDA events around
     back-to-back launches it leaves out the idle gaps when the host
     launches slower than the kernel runs (the L2 shape's few-microsecond
@@ -2587,7 +2651,7 @@ def _kernel_device_ms(torch, fn, reps: int, kernels, warmup: int = 3,
                if e.device_type == DeviceType.CUDA and e.count]
         us, counts = 0.0, {}
         for parts in kernels:
-            hit = [e for e in evs if any(k in e.key for k in parts)]
+            hit = [e for e in evs if any(re.search(k, e.key) for k in parts)]
             n = counts[parts[0]] = sum(e.count for e in hit)
             for e in hit:
                 t = getattr(e, "self_device_time_total", None)
@@ -2656,11 +2720,13 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps, worst):
             plain=lambda: ref.fused_stats_ref(G, ("gram",)),
             library=lambda: G @ G.T, nbytes=gb + m * m * 4,
             ops=2 * m * m * d),
+        # every row read, weight 0 included (the reference's w @ g), and
+        # summed; out and w written
         "select_mean": dict(
             fn=lambda: kern.select_mean(G, st["scores"], st["l1"], kth, T),
             plain=lambda: ops_select_plain(ref, G, st, kth, T),
             library=lambda: lib_combine(w_sel),
-            nbytes=n_sel * d * 4 + d * 4 + m * 4, ops=2 * n_sel * d + d),
+            nbytes=gb + d * 4 + m * 4, ops=2 * m * d + d),
         "masked_mean": dict(
             fn=lambda: kern.masked_mean(G, mask),
             plain=lambda: ref.masked_mean_det(G, mask),
@@ -2714,7 +2780,8 @@ def phase_timing(torch, kern, ref, shape, reps, plain_reps, worst):
                    "smem_bytes": plan.smem, "nonzero_weights": n_w,
                    "args": args})
     for name, variant in (("fused_stats", 3), ("brsgd_stats", kern.B4_VARIANT),
-                          ("cwise_median", kern.COLUMN_OUT)):
+                          ("cwise_median", kern.COLUMN_OUT),
+                          ("trimmed_mean", kern.TRIM_OUT)):
         plan = kern.column_launch_plan(G, variant)
         rows[name]["extra"] = {"grid": plan.grid, "stages": plan.stages,
                                "smem_bytes": plan.smem}
@@ -3069,7 +3136,8 @@ def _raw_launchers(torch, G, sl, pr, w, k):
     nb = max(1, min(-(-d // lib.brsgd_threads()), lib.brsgd_max_blocks()))
     col = {"fused_stats": kern.column_launch_plan(G, 3),
            "brsgd_stats": kern.column_launch_plan(G, kern.B4_VARIANT),
-           "cwise_median": kern.column_launch_plan(G, kern.COLUMN_OUT)}
+           "cwise_median": kern.column_launch_plan(G, kern.COLUMN_OUT),
+           "trimmed_mean": kern.column_launch_plan(G, kern.TRIM_OUT)}
     f32 = {"dtype": torch.float32, "device": G.device}
     sc, l1 = (torch.empty((max(nb, col["fused_stats"].grid,
                                 col["brsgd_stats"].grid), m), **f32)
@@ -3135,7 +3203,8 @@ def _raw_launchers(torch, G, sl, pr, w, k):
             P(G), m, d, P(med), col["cwise_median"].grid,
             col["cwise_median"].stages, stream)),
         "trimmed_mean": lambda: check(lib.brsgd_trimmed_mean(
-            P(G), m, d, k, P(out), nb, stream)),
+            P(G), m, d, k, P(out), col["trimmed_mean"].grid,
+            col["trimmed_mean"].stages, stream)),
         "brsgd_aggregate": fused_at(plan.grid, plan.resident),
         "brsgd_aggregate@": fused_at,
         **{f"select_aggregate[{rule}]": select_at(rule)
@@ -3173,14 +3242,14 @@ def _kernel_fns(torch, kern, ref, G) -> dict:
     return fns
 
 
-# two bucket instances beside their tuned neighbours, at the two timing
+# three bucket instances beside their tuned neighbours, at the two timing
 # widths
-BUCKET_TIMING_M = (10, 12, 16, 32, 33, 64)
+BUCKET_TIMING_M = (10, 12, 16, 32, 33, 63, 64)
 
 
 def phase_bucket_timing(torch, kern, ref) -> dict:
     """Each BrSGD kernel's device time (torch.profiler) on the bucket
-    instances of m = 12 and 33 and on the tuned m = 10, 16, 32 and 64, at
+    instances of m = 12, 33 and 63 and on the tuned m = 10, 16, 32 and 64, at
     d = 61706 and 8388608; one line per shape.  Returns {kernel row:
     {"m,d": ms}}."""
     import numpy as np
@@ -3352,6 +3421,12 @@ def main() -> int:
                        device_kernels_per_median_aggregate_local={
                            k: v["per_call"] for k, v in
                            agg_t["median"]["device_kernels_per_call"].items()})
+        if name == "trimmed_mean":
+            row.update(grid=t["grid"], stages=t["stages"],
+                       hbm_grid=h["grid"], hbm_stages=h["stages"],
+                       device_kernels_per_trimmed_mean_aggregate_local=agg_t[
+                           "trimmed_mean"]["device_kernels_per_call"]["fused"]
+                       ["per_call"])
         if name == "masked_mean":
             row.update(device_kernels_per_mean_aggregate_local={
                 k: v["per_call"] for k, v in

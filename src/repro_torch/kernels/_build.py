@@ -62,7 +62,8 @@ SIGNATURES = {
         # G, m, d, w (null: unit weights), out, small_out (nullable),
         # n_blocks, stream
         "brsgd_masked_mean": (_P, _I, _L, _P, _P, _P, _I, _P),
-        "brsgd_trimmed_mean": (_P, _I, _L, _I, _P, _I, _P),
+        # G, m, d, k, out, grid, stages, stream
+        "brsgd_trimmed_mean": (_P, _I, _L, _I, _P, _I, _I, _P),
         # G, m, d, rule, ia, ib, fa, resident, partials, small_out, out,
         # grid, stream (brsgd: ia, ib, fa = k_idx, q_idx, threshold)
         "brsgd_select_aggregate": (_P, _I, _L, _I, _I, _I, _F, _I, _P, _P,

@@ -34,7 +34,8 @@ brsgd_stats         brsgd_stats_pallas (B4): the column pass writing
                     median and mean [d], scores and l1 partials
 cwise_median        cwise_median_pallas: the column pass writing the
                     median [d] alone (one launch, nothing to sum)
-trimmed_mean        trimmed_mean_pallas (B5)
+trimmed_mean        trimmed_mean_pallas (B5): the column pass writing
+                    the trimmed mean [d] alone (k at run time)
 ==================  ====================================================
 """
 from __future__ import annotations
@@ -72,15 +73,18 @@ GRAM_LD = THREADS + 4
 # the cooperative kernel's rule instances (csrc RULE_*): krum and
 # multi_krum share one
 RULE_IDS = {"brsgd": 0, "krum": 1, "multi_krum": 1, "geomedian": 2}
-# the column pass (csrc COLUMN_OUT, RING_LD, MAX_STAGES, COUNT_PLANES): an
-# instance is B1's needs bits without gram, B4 (COLUMN_OUT | scores | l1)
-# or the median alone (COLUMN_OUT); a ring stage holds [m, RING_LD] floats
+# the column pass (csrc COLUMN_OUT, TRIM_OUT, RING_LD, MAX_STAGES,
+# COUNT_PLANES): an instance is B1's needs bits without gram, B4
+# (COLUMN_OUT | scores | l1), the median alone (COLUMN_OUT) or the
+# trimmed mean (TRIM_OUT); a ring stage holds [m, RING_LD] floats
 COLUMN_OUT = 16
+TRIM_OUT = 32
 B4_VARIANT = COLUMN_OUT | NEED_BITS["scores"] | NEED_BITS["l1"]
 RING_LD = THREADS + 4
 MAX_STAGES = 4
 COUNT_PLANES = 16           # a block's tiles stay below 2^COUNT_PLANES
 IN_FLIGHT_BYTES = 32768     # ring bytes a block keeps in flight, at least
+TRIM_STAGES = 1             # the trimmed mean's ring (see column_stages)
 
 
 def reset_launches() -> None:
@@ -162,10 +166,16 @@ class ColumnPlan(NamedTuple):
     smem: int
 
 
-def column_stages(m: int) -> int:
+def column_stages(m: int, variant: int) -> int:
     """Ring stages of the column pass at m workers: enough that the
     stages in flight while one is read hold IN_FLIGHT_BYTES, within 2 ..
-    MAX_STAGES (a stage is [m, RING_LD] floats: 10.6 KB at m = 20)."""
+    MAX_STAGES (a stage is [m, RING_LD] floats: 10.6 KB at m = 20).  The
+    trimmed mean takes TRIM_STAGES: it refills a stage as soon as its
+    column is in registers, so that stage is in flight while the column
+    sorts, and its heavier network (every slot kept) gains more from the
+    blocks an SM a small ring leaves room for than from bytes in flight."""
+    if variant == TRIM_OUT:
+        return TRIM_STAGES
     stage = 4 * m * RING_LD
     return min(MAX_STAGES, max(2, 1 + -(-IN_FLIGHT_BYTES // stage)))
 
@@ -173,7 +183,8 @@ def column_stages(m: int) -> int:
 def column_smem(m: int, variant: int, stages: int) -> int:
     """Dynamic shared memory of a column-pass instance at m workers (csrc
     ``column_smem``): the sort columns where it takes a median and its
-    instance has SMEM_SORT_M rows or more, then the ring."""
+    instance has SMEM_SORT_M rows or more (the trimmed mean sorts in
+    registers at every m), then the ring."""
     median = variant & (COLUMN_OUT | NEED_BITS["l1"] | NEED_BITS["d2med"])
     sort = ref.padded_workers(m) * THREADS \
         if median and instance_rows(m) >= SMEM_SORT_M else 0
@@ -185,7 +196,7 @@ def column_plan(m: int, d: int, variant: int, coresident) -> ColumnPlan:
     stages and a persistent grid, the blocks the card holds at once
     (``coresident(smem)``), at most one a tile, and enough that no block
     takes 2^COUNT_PLANES tiles (its score counts' bits)."""
-    stages = column_stages(m)
+    stages = column_stages(m, variant)
     smem = column_smem(m, variant, stages)
     n = coresident(smem)
     if n < 1:
@@ -491,11 +502,12 @@ def cwise_median(G):
 
 def trimmed_mean(G, trim_frac: float):
     """Coordinate-wise trimmed mean [d]: per column, the mean of the
-    sorted rows k..m-k-1 with k = ``ref.trim_k(trim_frac, m)``."""
-    m, d = _check_matrix(G, "trimmed_mean")
-    k = ref.trim_k(trim_frac, m)
-    out = torch.empty((d,), dtype=torch.float32, device=G.device)
+    sorted rows k..m-k-1 with k = ``ref.trim_k(trim_frac, m)``, in one
+    column-pass launch that writes nothing else."""
+    plan = column_launch_plan(G, TRIM_OUT)         # checks G
+    m, d = G.shape
     lib = _lib(m)
+    out = torch.empty((d,), dtype=torch.float32, device=G.device)
     _launch(lib, "trimmed_mean", lib.brsgd_trimmed_mean, G, _ptr(G), m, d,
-            k, _ptr(out), _n_blocks(lib, d))
+            ref.trim_k(trim_frac, m), _ptr(out), plan.grid, plan.stages)
     return out

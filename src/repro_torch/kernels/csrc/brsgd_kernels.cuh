@@ -13,7 +13,10 @@
 //                                    (_stats_kernel, V = COLUMN_OUT | scores
 //                                    | l1): also median [d] and mean [d];
 //                                    cwise_median_pallas (V = COLUMN_OUT):
-//                                    median [d] and nothing else.
+//                                    median [d] and nothing else;
+//                                    trimmed_mean_pallas (_trimmed_mean_kernel,
+//                                    V = TRIM_OUT): per column, the mean of
+//                                    the sorted rows k..m-k-1 ([d] out).
 //   fused_stats_kernel<M>         <- fused_stats_pallas with gram [m, m]
 //                                    (and any other statistic beside it).
 //   select_mean_kernel<M>         <- select_mean_pallas (_select_mean_kernel):
@@ -22,9 +25,6 @@
 //   masked_mean_kernel<M>         <- masked_mean_pallas (masked_mean_kernel):
 //                                    Σ w_i g_i / Σ w_i, empty mask divides by
 //                                    1; unit weights when none are given.
-//   trimmed_mean_kernel<M>        <- trimmed_mean_pallas (_trimmed_mean_kernel):
-//                                    per column, the mean of the sorted rows
-//                                    k..m-k-1 ([d] out, no partials).
 //   select_aggregate_kernel<M, R> <- the engine's local composition of a
 //                                    select rule in ONE cooperative launch:
 //                                    pass 1 (B1's call), the partials summed
@@ -70,7 +70,8 @@
 //     cooperative launches track the +inf pad slots at compile time
 //     (padfree_stages: 134 of 240 compare-exchanges at m = 20), the
 //     column pass also drops those the middle slots do not need.  At m =
-//     64 the sorted copy goes to shared memory (registers spilled).
+//     64 the median's sorted copy goes to shared memory (registers
+//     spilled); the trimmed mean keeps its column in registers.
 //   * NaN in G propagates as in the plain versions: a column holding a
 //     NaN has a NaN median (as the NaN-propagating sort of ref gives),
 //     and the below-mean side is !(g >= mean), as the plain ~above.
@@ -194,21 +195,6 @@ __device__ __forceinline__ float sorted_median(const float (&g)[M], int m, At at
   return middle_of<pow2_at_least(M)>(at, m);
 }
 
-// Mean of the sorted rows k..m-k-1, summed in row order from at(k) and
-// IEEE-divided by m - 2k (ref.trimmed_mean_ref).  k is a runtime value:
-// the loop runs over every row under a predicate instead of indexing
-// with k, so below SMEM_SORT_M the column stays in registers.
-template <int M, typename At>
-__device__ __forceinline__ float sorted_trimmed_mean(const float (&g)[M], int m, int k, At at) {
-  if (sort_column<M>(g, m, at)) return NAN;
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    if (k <= i && i < m - k) acc = i == k ? at(i) : __fadd_rn(acc, at(i));
-  }
-  return __fdiv_rn(acc, static_cast<float>(m - 2 * k));
-}
-
 // The sort slots of this thread: registers below SMEM_SORT_M; from there
 // on its strided column of scratch, which holds THREADS columns of
 // pow2_at_least(M) floats.
@@ -220,18 +206,6 @@ __device__ __forceinline__ float column_median(const float (&g)[M], int m, float
   } else {
     float s[pow2_at_least(M)];
     return sorted_median<M>(g, m, [&s](int i) -> float& { return s[i]; });
-  }
-}
-
-template <int M>
-__device__ __forceinline__ float column_trimmed_mean(const float (&g)[M], int m, int k,
-                                                     float* scratch) {
-  if constexpr (M >= SMEM_SORT_M) {
-    float* col = scratch + threadIdx.x;
-    return sorted_trimmed_mean<M>(g, m, k, [col](int i) -> float& { return col[i * THREADS]; });
-  } else {
-    float s[pow2_at_least(M)];
-    return sorted_trimmed_mean<M>(g, m, k, [&s](int i) -> float& { return s[i]; });
   }
 }
 
@@ -573,28 +547,6 @@ masked_mean_kernel(const float* __restrict__ G, long long d, const float* __rest
   }
 }
 
-// B5: coordinate-wise trimmed mean out [d] with k rows trimmed per side
-// (0 <= 2k < m, checked by the launch).  Replaces
-// src/repro/kernels/brsgd_stats.py:_trimmed_mean_kernel (trimmed_mean_pallas).
-// Bound: bytes, G read once plus out written, (M+1)·d·4 B; the sort costs
-// the same compare-exchanges per column as B1/B4 (240 at M = 20).  One
-// thread per column, a grid-stride walk over the columns, the ragged
-// last block masked by the column test; no partials, no reduction.
-template <int M, bool BUCKET>
-__global__ void __launch_bounds__(THREADS)
-trimmed_mean_kernel(const float* __restrict__ G, long long d, int k,
-                    float* __restrict__ out, int m_arg) {
-  const int m = BUCKET ? m_arg : M;
-  extern __shared__ float sort_scratch[];  // used from SMEM_SORT_M on
-  for (long long col = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-       col < d; col += static_cast<long long>(gridDim.x) * THREADS) {
-    float g[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) g[i] = i < m ? __ldg(G + i * d + col) : 0.f;
-    out[col] = column_trimmed_mean<M>(g, m, k, sort_scratch);
-  }
-}
-
 // The median of the fused kernel below SMEM_SORT_M: the network of
 // bitonic_sort<MP> with the +inf pad slots tracked at compile time.  A
 // compare-exchange of two real slots runs as there; one with a pad slot
@@ -762,16 +714,17 @@ __device__ __forceinline__ float padfree_median(const float (&g)[M], int m) {
 
 // ---- the column pass: column_stats_kernel<M, VARIANT>, B1's scores /
 // l1 / d2med calls (VARIANT = the NEED_* bits), B4 (COLUMN_OUT | scores
-// | l1: median and mean [d], scores and l1 partials) and the median alone
-// (COLUMN_OUT: median [d], nothing else).  Replaces
+// | l1: median and mean [d], scores and l1 partials), the median alone
+// (COLUMN_OUT: median [d], nothing else) and B5 (TRIM_OUT: the trimmed
+// mean [d], nothing else, k at run time).  Replaces
 // src/repro/kernels/brsgd_stats.py: fused_stats_pallas without gram,
-// brsgd_stats_pallas and cwise_median_pallas.
+// brsgd_stats_pallas, cwise_median_pallas and trimmed_mean_pallas.
 //
 // What bounds it: bytes, G read once (m·d·4) and the [d] outputs written.
-// At m = 20 a column's work (the median network's min / max on the
-// half-rate ALU pipe, the mean, the score counts, the l1 sums) takes about
-// as long as its bytes, so the sort has to run while the next tiles'
-// loads are in flight, or the card waits on one and then the other.
+// At m = 20 a column's work (the network's min / max on the half-rate
+// ALU pipe, the mean, the score counts, the l1 sums) takes about as long
+// as its bytes, so the sort has to run while the next tiles' loads are
+// in flight, or the card waits on one and then the other.
 //
 // Design:
 //   * A persistent grid (the occupancy calculator's count, at most one
@@ -791,6 +744,14 @@ __device__ __forceinline__ float padfree_median(const float (&g)[M], int m) {
 //     (one for odd M), registers below SMEM_SORT_M, else the thread's
 //     column of shared memory, with NaN-propagating min / max: a NaN
 //     anywhere in a column gives NaN without a test.
+//   * The trimmed mean (trimmed_column): the same network keeping every
+//     slot (k is a run-time value), in registers at every M, then the
+//     slots k..m-k-1 summed in row order, the first slot picked by a
+//     chain of tests on the grid-uniform k (kept_sum; a predicate a slot
+//     measured slower).  Its ring refills a stage as soon as the column
+//     is in registers (EARLY below), so one stage keeps a tile in flight
+//     while a column sorts and leaves room for more blocks an SM, which
+//     this heavier network wants more than bytes in flight.
 //   * Scores: a bit per row at or above the mean, its popcount for the
 //     majority side, and the majority rows' bits added to bit-sliced
 //     counters (COUNT_PLANES words, bit i of word k = bit k of row i's
@@ -806,6 +767,7 @@ __device__ __forceinline__ float padfree_median(const float (&g)[M], int m) {
 //     partials [grid, M] in a fixed order, no atomics: every run gives the
 //     same bits.
 constexpr int COLUMN_OUT = 16;            // variant bit: write median [d]
+constexpr int TRIM_OUT = 32;              // variant: write the trimmed mean [d]
 constexpr int RING_LD = THREADS + 4;      // a staged row: 33 chunks of 16 bytes
 constexpr int MAX_STAGES = 4;             // ring stages a launch may ask for
 constexpr int COUNT_PLANES = 16;          // bits of a thread's score counts
@@ -821,14 +783,16 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// waits until at most `pending` (0 .. MAX_STAGES - 2) groups are in flight
+// waits until at most `pending` (0 .. MAX_STAGES - 1) groups are in flight
 __device__ __forceinline__ void cp_async_wait(int pending) {
   if (pending <= 0) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   } else if (pending == 1) {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  } else {
+  } else if (pending == 2) {
     asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
   }
 }
 
@@ -837,12 +801,31 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
 // element e of G is Ga[head + e]; `total` = head + m·d (the bytes of a
 // chunk past G's end are zero-filled).  Warp w copies rows w, w + WARPS,
 // ...: lane k chunk k, lane 0 also chunk 32 when the row's first column
-// is not on 16 bytes.
+// is not on 16 bytes.  A tile whose chunks all lie inside G (every tile
+// but the last one or two) takes a short path: whole chunks, and a row's
+// start stepped by WARPS·d from the warp's previous row (about 10
+// instructions a row instead of 25, which a column's sort would wait on).
 template <int M>
 __device__ __forceinline__ void stage_tile(float* stage, const float* Ga, long long d,
                                            long long total, int head, long long t, int m) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long c0 = t * THREADS;
+  if (c0 + RING_LD <= d) {  // row m - 1's chunk 32 ends inside G
+    long long e = head + warp * d + c0;  // row i's first element, i = warp + r·WARPS
+    const float* src = Ga + 4 * lane;
+    float* dst = stage + warp * RING_LD + 4 * lane;
+#pragma unroll
+    for (int r = 0; r < (M + WARPS - 1) / WARPS; ++r) {
+      if (r * WARPS + warp < m) {
+        const long long e0 = e & ~3ll;
+        cp_async16(dst + r * WARPS * RING_LD, src + e0, 16);
+        if (lane == 0 && e != e0)
+          cp_async16(dst + r * WARPS * RING_LD + THREADS, src + e0 + THREADS, 16);
+      }
+      e += WARPS * d;
+    }
+    return;
+  }
 #pragma unroll
   for (int r = 0; r < (M + WARPS - 1) / WARPS; ++r) {
     const int i = r * WARPS + warp;
@@ -885,12 +868,51 @@ __device__ __forceinline__ float middle_median(const float (&g)[M], int m, float
   }
 }
 
+// The sorted slots k..m-k-1 summed in row order from slot k.  k is the
+// same for every thread of the grid, so the chain of tests on it never
+// diverges, and each sum starts at a constant slot: no register array is
+// indexed at run time, and only a bucket instance (m at run time) tests
+// the last slot.
+template <int M, int K = 0, typename At>
+__device__ __forceinline__ float kept_sum(At at, int m, int k) {
+  if constexpr (2 * K < M) {
+    if (k != K) return kept_sum<M, K + 1>(at, m, k);
+    float acc = at(K);
+#pragma unroll
+    for (int i = K + 1; i < M - K; ++i)
+      if (i < m - K) acc = __fadd_rn(acc, at(i));
+    return acc;
+  } else {
+    return NAN;  // 2k >= m, which the launch refuses
+  }
+}
+
+// The trimmed mean of g[0..m) (ref.trimmed_mean_ref): the pad-free
+// network keeping every slot (k is a run-time value) with
+// NaN-propagating min / max (FMNMX.NAN, one instruction: a NaN column
+// gives NaN without a test), then the sorted slots k..m-k-1 summed in
+// row order from slot k and IEEE-divided by m - 2k.  The column stays in
+// registers at every M, 64 included (nothing else lives through the
+// sort; the median's sort columns in shared memory would cost the ring
+// blocks an SM).  A bucket instance fills slots m.. with +inf.
+template <int M>
+__device__ __forceinline__ float trimmed_column(const float (&g)[M], int m, int k) {
+  constexpr int MP = pow2_at_least(M);
+  float s[MP];
+  const auto at = [&s](int i) -> float& { return s[i]; };
+#pragma unroll
+  for (int i = 0; i < M; ++i) at(i) = i < m ? g[i] : INFINITY;
+  padfree_stages<MP, M, 2, 1, 0, ~0ull, true>(at);
+  return __fdiv_rn(kept_sum<M>(at, m, k), static_cast<float>(m - 2 * k));
+}
+
 // Dynamic shared memory of column_stats_kernel<M, VARIANT, BUCKET> in
 // floats: the sort columns where it takes a median at M >= SMEM_SORT_M,
 // then the ring, stages of [m][RING_LD].
 template <int M, int VARIANT>
 struct ColumnLayout {
   static constexpr bool MEDIAN = VARIANT & (COLUMN_OUT | NEED_L1 | NEED_D2MED);
+  static constexpr bool TRIM = VARIANT & TRIM_OUT;
   static constexpr int SORT = (MEDIAN && M >= SMEM_SORT_M) ? pow2_at_least(M) * THREADS : 0;
 };
 
@@ -912,8 +934,8 @@ __device__ __forceinline__ int popc(unsigned long long x) { return __popcll(x); 
 template <int M, int VARIANT, bool BUCKET>
 __global__ void __launch_bounds__(THREADS)
 column_stats_kernel(const float* __restrict__ G, long long d, int stages, int n_planes,
-                    float* __restrict__ scores_p, float* __restrict__ l1_p,
-                    float* __restrict__ d2_p, float* __restrict__ med_out,
+                    int trim_k, float* __restrict__ scores_p, float* __restrict__ l1_p,
+                    float* __restrict__ d2_p, float* __restrict__ col_out,
                     float* __restrict__ mean_out, int m_arg) {
   using L = ColumnLayout<M, VARIANT>;
   const int m = BUCKET ? m_arg : M;
@@ -955,15 +977,17 @@ column_stats_kernel(const float* __restrict__ G, long long d, int stages, int n_
     for (int i = tid; i < 3 * WARPS * M; i += THREADS) (&red[0][0][0])[i] = 0.f;
   }
 
-  // One column of a tile from its stage.  RAGGED: the last tile, whose
-  // columns past d add exact zeros to every sum, neither vote nor write;
-  // every other tile runs without a test.
-  const auto column = [&](auto ragged, const float* st, long long col) {
-    constexpr bool RAGGED = decltype(ragged)::value;
-    const bool valid = !RAGGED || col < d;
-    float g[M];
+  // This thread's column of a tile, from its stage st, to registers.
+  const auto load = [&](float (&g)[M], const float* st) {
 #pragma unroll
     for (int i = 0; i < M; ++i) g[i] = i < m ? st[i * RING_LD + sh[i & 3]] : 0.f;
+  };
+  // One column g of a tile (st: its stage).  RAGGED: the last tile, whose
+  // columns past d add exact zeros to every sum, neither vote nor write;
+  // every other tile runs without a test.
+  const auto column = [&](auto ragged, const float (&g)[M], const float* st, long long col) {
+    constexpr bool RAGGED = decltype(ragged)::value;
+    const bool valid = !RAGGED || col < d;
     float mean = 0.f;
     if constexpr (SCORES) {
       mean = column_mean<M>(g, m);
@@ -983,11 +1007,15 @@ column_stats_kernel(const float* __restrict__ G, long long d, int stages, int n_
         c = carry;
       }
     }
+    if constexpr (L::TRIM) {
+      const float v = trimmed_column<M>(g, m, trim_k);
+      if (valid) col_out[col] = v;
+    }
     if constexpr (L::MEDIAN) {
       const float med = middle_median<M, BUCKET>(g, m, dyn);
       if constexpr (COLS) {
         if (valid) {
-          med_out[col] = med;
+          col_out[col] = med;
           if constexpr (SCORES) mean_out[col] = mean;
         }
       }
@@ -1019,28 +1047,42 @@ column_stats_kernel(const float* __restrict__ G, long long d, int stages, int n_
     }
   };
 
-  // the ring: tiles b, b + grid, ... into stages 0, 1, ..., stages - 1
+  // the ring: tiles b, b + grid, ... into stages 0, 1, ..., stages - 1.
+  // EARLY: the variant reads nothing of a stage after copying its column
+  // to registers, so the stage is refilled right then, behind a second
+  // barrier: `stages` tiles stay in flight while a column sorts, not
+  // stages - 1, and one stage is a ring.
+  constexpr bool EARLY = L::TRIM;
+  const int ahead = EARLY ? stages : stages - 1;  // tiles issued before tile t is read
   long long t_next = blockIdx.x;
-  for (int s = 0; s < stages - 1; ++s, t_next += grid) {
+  for (int s = 0; s < ahead; ++s, t_next += grid) {
     if (t_next < n_tiles) stage_tile<M>(ring + s * stage_floats, Ga, d, total, head, t_next, m);
     cp_async_commit();
   }
-  int s_read = 0, s_write = stages - 1;
+  int s_read = 0, s_write = EARLY ? 0 : stages - 1;
   for (long long t = blockIdx.x; t < n_tiles; t += grid) {
-    cp_async_wait(stages - 2);  // tile t has landed (this thread's copies)
-    __syncthreads();            // every thread's copies; stage s_write read
+    cp_async_wait(ahead - 1);  // tile t has landed (this thread's copies)
+    __syncthreads();           // every thread's copies; stage s_write read
+    const float* st = ring + s_read * stage_floats + tid;
+    float g[M];
+    if constexpr (EARLY) {
+      load(g, st);
+      // the stage is refilled below: every thread's column read first (a
+      // block-wide condition; a block's last tile skips the barrier)
+      if (t_next < n_tiles) __syncthreads();
+    }
     if (t_next < n_tiles)
       stage_tile<M>(ring + s_write * stage_floats, Ga, d, total, head, t_next, m);
     cp_async_commit();
     t_next += grid;
+    if constexpr (!EARLY) load(g, st);
     s_write = s_write + 1 == stages ? 0 : s_write + 1;
-    const float* st = ring + s_read * stage_floats + tid;
     s_read = s_read + 1 == stages ? 0 : s_read + 1;
     const long long col = t * THREADS + tid;
-    if ((t + 1) * THREADS <= d) {
-      column(std::false_type{}, st, col);
-    } else {
-      column(std::true_type{}, st, col);
+    if (!L::TRIM && (t + 1) * THREADS <= d) {
+      column(std::false_type{}, g, st, col);
+    } else {  // the trimmed mean's only test is its store's: one copy of its code
+      column(std::true_type{}, g, st, col);
     }
   }
 
@@ -1788,11 +1830,17 @@ size_t column_smem(int m, int stages) {
 }
 
 template <int M, int VARIANT, bool BUCKET>
-int launch_column(const float* G, int m, long long d, int stages, float* sc, float* l1,
-                  float* d2, float* med, float* mean, int grid, cudaStream_t stream) {
+int launch_column(const float* G, int m, long long d, int stages, int trim_k, float* sc,
+                  float* l1, float* d2, float* col, float* mean, int grid,
+                  cudaStream_t stream) {
   const long long n_tiles = (d + THREADS - 1) / THREADS;
   const long long per_block = (n_tiles + grid - 1) / grid;  // a block's score counts
-  if (grid < 1 || stages < 2 || stages > MAX_STAGES || per_block >= (1ll << COUNT_PLANES))
+  // the trimmed mean refills a stage as soon as it is read: one may do
+  const int least_stages = (VARIANT & TRIM_OUT) ? 1 : 2;
+  if (grid < 1 || stages < least_stages || stages > MAX_STAGES ||
+      per_block >= (1ll << COUNT_PLANES))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((VARIANT & TRIM_OUT) && (trim_k < 0 || 2 * trim_k >= m))
     return static_cast<int>(cudaErrorInvalidValue);
   int n_planes = 0;
   while ((1ll << n_planes) <= per_block) ++n_planes;
@@ -1801,12 +1849,12 @@ int launch_column(const float* G, int m, long long d, int stages, float* sc, flo
   const cudaError_t e = column_prepare<M, VARIANT, BUCKET>();
   if (e != cudaSuccess) return static_cast<int>(e);
   column_stats_kernel<M, VARIANT, BUCKET><<<grid, THREADS, smem, stream>>>(
-      G, d, stages, n_planes, sc, l1, d2, med, mean, m);
+      G, d, stages, n_planes, trim_k, sc, l1, d2, col, mean, m);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the column-pass variant a C entry names, to its instance: B1's seven
-// non-gram needs, B4, the median alone
+// non-gram needs, B4, the median alone, the trimmed mean
 #define COLUMN_DISPATCH(variant, CALL)                                          \
   switch (variant) {                                                            \
     case 1: { constexpr int V = 1; return CALL; }                               \
@@ -1819,6 +1867,7 @@ int launch_column(const float* G, int m, long long d, int stages, float* sc, flo
     case COLUMN_OUT | NEED_SCORES | NEED_L1: {                                  \
       constexpr int V = COLUMN_OUT | NEED_SCORES | NEED_L1; return CALL; }      \
     case COLUMN_OUT: { constexpr int V = COLUMN_OUT; return CALL; }             \
+    case TRIM_OUT: { constexpr int V = TRIM_OUT; return CALL; }                 \
     default: return static_cast<int>(cudaErrorInvalidValue);                    \
   }
 
@@ -1829,7 +1878,7 @@ int launch_stats(const float* G, int m, long long d, int needs, float* sc, float
     return launch_gram_stats<M, BUCKET>(G, m, d, needs, sc, l1, d2, gram, grid, stream);
   if (needs < 1 || needs > (NEED_SCORES | NEED_L1 | NEED_D2MED))
     return static_cast<int>(cudaErrorInvalidValue);
-  COLUMN_DISPATCH(needs, (launch_column<M, V, BUCKET>(G, m, d, stages, sc, l1, d2, nullptr,
+  COLUMN_DISPATCH(needs, (launch_column<M, V, BUCKET>(G, m, d, stages, 0, sc, l1, d2, nullptr,
                                                       nullptr, grid, stream)))
 }
 
@@ -1850,15 +1899,6 @@ template <int M, bool BUCKET>
 int launch_masked_mean(const float* G, int m, long long d, const float* w, float* out,
                        float* small, int n_blocks, cudaStream_t stream) {
   masked_mean_kernel<M, BUCKET><<<n_blocks, THREADS, 0, stream>>>(G, d, w, out, small, m);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int M, bool BUCKET>
-int launch_trimmed_mean(const float* G, int m, long long d, int k, float* out, int n_blocks,
-                        cudaStream_t stream) {
-  if (k < 0 || 2 * k >= m) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = M >= SMEM_SORT_M ? sizeof(float) * pow2_at_least(M) * THREADS : 0;
-  trimmed_mean_kernel<M, BUCKET><<<n_blocks, THREADS, smem, stream>>>(G, d, k, out, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1959,7 +1999,7 @@ int brsgd_fused_stats(const void* G, int m, long long d, int needs, void* scores
 int brsgd_column_stats(const void* G, int m, long long d, void* med, void* mean,
                        void* scores_p, void* l1_p, int grid, int stages, void* stream) {
   BRSGD_DISPATCH(m, (launch_column<M, COLUMN_OUT | NEED_SCORES | NEED_L1, BUCKET>(
-      static_cast<const float*>(G), m, d, stages, static_cast<float*>(scores_p),
+      static_cast<const float*>(G), m, d, stages, 0, static_cast<float*>(scores_p),
       static_cast<float*>(l1_p), nullptr, static_cast<float*>(med),
       static_cast<float*>(mean), grid, static_cast<cudaStream_t>(stream))))
 }
@@ -1968,13 +2008,23 @@ int brsgd_column_stats(const void* G, int m, long long d, void* med, void* mean,
 int brsgd_cwise_median(const void* G, int m, long long d, void* med, int grid, int stages,
                        void* stream) {
   BRSGD_DISPATCH(m, (launch_column<M, COLUMN_OUT, BUCKET>(
-      static_cast<const float*>(G), m, d, stages, nullptr, nullptr, nullptr,
+      static_cast<const float*>(G), m, d, stages, 0, nullptr, nullptr, nullptr,
       static_cast<float*>(med), nullptr, grid, static_cast<cudaStream_t>(stream))))
 }
 
+// B5: the trimmed mean [d] alone, k rows dropped from each side of every
+// column (0 <= 2k < m)
+int brsgd_trimmed_mean(const void* G, int m, long long d, int k, void* out, int grid,
+                       int stages, void* stream) {
+  BRSGD_DISPATCH(m, (launch_column<M, TRIM_OUT, BUCKET>(
+      static_cast<const float*>(G), m, d, stages, k, nullptr, nullptr, nullptr,
+      static_cast<float*>(out), nullptr, grid, static_cast<cudaStream_t>(stream))))
+}
+
 // *count = the blocks of a column-pass instance (variant: B1's needs
-// without gram, 16 | 3 for B4, 16 for the median) the current card holds
-// at once with `smem` bytes of dynamic shared memory each
+// without gram, 16 | 3 for B4, 16 for the median, 32 for the trimmed
+// mean) the current card holds at once with `smem` bytes of dynamic
+// shared memory each
 int brsgd_column_coresident(int m, int variant, long long smem, void* count) {
   BRSGD_DISPATCH(m, (column_coresident<M, BUCKET>(variant, smem, static_cast<int*>(count))))
 }
@@ -1995,14 +2045,6 @@ int brsgd_masked_mean(const void* G, int m, long long d, const void* w, void* ou
   BRSGD_DISPATCH(m, (launch_masked_mean<M, BUCKET>(
       static_cast<const float*>(G), m, d, static_cast<const float*>(w),
       static_cast<float*>(out), static_cast<float*>(small_out), n_blocks,
-      static_cast<cudaStream_t>(stream))))
-}
-
-// B5: trimmed mean [d], k rows dropped from each side of every column
-int brsgd_trimmed_mean(const void* G, int m, long long d, int k, void* out,
-                       int n_blocks, void* stream) {
-  BRSGD_DISPATCH(m, (launch_trimmed_mean<M, BUCKET>(
-      static_cast<const float*>(G), m, d, k, static_cast<float*>(out), n_blocks,
       static_cast<cudaStream_t>(stream))))
 }
 

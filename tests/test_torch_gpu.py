@@ -116,6 +116,56 @@ def test_trimmed_mean_kernel_matches_plain_version(m, d, trim_frac):
     exact(kern.trimmed_mean(G, trim_frac), ref.trimmed_mean_ref(G, trim_frac))
 
 
+TRIM_FRACS = (0.1, 0.25, 0.49, 0.5)
+
+
+def check_trimmed(G):
+    """B5 on G at every trim fraction: bit-equal to its plain version, a
+    second launch the same bits, one launch a call."""
+    for trim_frac in TRIM_FRACS:
+        kern.reset_launches()
+        got = kern.trimmed_mean(G, trim_frac)
+        again = kern.trimmed_mean(G, trim_frac)
+        torch.cuda.synchronize()
+        assert kern.LAUNCHES["trimmed_mean"] == 2
+        assert sum(kern.LAUNCHES.values()) == 2
+        exact(got, ref.trimmed_mean_ref(G, trim_frac))
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def trimmed_nonfinite(m, d, seed):
+    """[m, d] normals with ±inf and NaN in trimmed and kept slots: worker
+    0 +inf and the last worker -inf in every 5th column, worker m // 2
+    +inf in every 7th, worker (m - 1) // 3 NaN in every third, column 3
+    all +inf and column 4 all -inf."""
+    G = mat(m, d, seed=seed)
+    G[0, ::5] = float("inf")
+    G[m - 1, ::5] = -float("inf")
+    G[m // 2, 1::7] = float("inf")
+    G[(m - 1) // 3, 2::3] = float("nan")
+    G[:, 3] = float("inf")
+    G[:, 4] = -float("inf")
+    return G
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", range(1, kern.MAX_M + 1))
+def test_trimmed_mean_on_nonfinite_columns_and_views(m):
+    """B5 at every m (its tuned or bucket instance) on NaN and ±inf in
+    trimmed and kept slots, at a d that is a multiple of neither 4 nor
+    128 and at one ragged tile, and on a view whose rows start 4 bytes
+    past 16 (the column pass copies each row from the boundary before)."""
+    need_card()
+    for d in (1003, 61):
+        G = trimmed_nonfinite(m, d, seed=m + 900)
+        check_trimmed(G)
+        base = torch.empty(m * d + 1, device="cuda")
+        base[1:] = G.reshape(-1)
+        view = base[1:].view(m, d)
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        check_trimmed(view)
+
+
 @pytest.mark.gpu
 def test_stream_equals_bulk_on_the_card():
     """The streaming fold equals the bulk masked pass bit for bit on the
@@ -232,7 +282,7 @@ def test_column_pass_score_counts_fill_their_planes():
         rc = lib.brsgd_fused_stats(
             ctypes.c_void_p(G.data_ptr()), m, d, kern.NEED_BITS["scores"],
             ctypes.c_void_p(sc.data_ptr()), None, None, None, 1,
-            kern.column_stages(m), stream)
+            kern.column_stages(m, kern.NEED_BITS["scores"]), stream)
         assert rc == rc_want                  # 1: cudaErrorInvalidValue
         if rc == 0:
             exact(sc[0], ref.fused_stats_ref(G, ("scores",))["scores"])
@@ -515,9 +565,7 @@ def test_every_wrapper_at_every_worker_count(m):
     G[(m - 1) // 2, ::3] = float("nan")
     check_column_pass(G)
     check_pass2_and_columns(G)
-    for trim_frac in (0.1, 0.25, 0.49, 0.5):
-        exact(kern.trimmed_mean(G, trim_frac),
-              ref.trimmed_mean_ref(G, trim_frac))
+    check_trimmed(G)
     check_fused(G, 0.5, 0.0)
     for rule in SELECT_RULES:
         check_select(G, rule, select_args(rule, m))

@@ -147,6 +147,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      card against the host CPU at full width cut to 2 layers (batch 1 x
      80): the loss within 1e-5, each leaf's gradient within 1e-4 of its
      largest |g|;
+  7d. the BrSGD train step (training/step.py) at qwen3-0.6b's full
+     width through its entry point, launch.train.main (m = 20 workers
+     of 2 x 128 tokens, brsgd under sign_flip at 0.25, adamw, a
+     checkpoint and telemetry rows into a temporary directory under
+     build/, removed after), B6's and B7's plain versions refusing the
+     card: a warm-up and 3 timed steps, each exactly 1 brsgd launch, 560
+     B6 launches and 560 B6-bwd calls and nothing else, no gradient input
+     copied; host ms (median of 3), its split by CUDA events (gradients,
+     attack, aggregate, norm and update) and the peak memory, below the
+     card's; on the last step's G the launch's scores (exact) and l1
+     (1e-5) against plain statistics summed over column blocks of 2^22,
+     its selection and 𝔗 against the plain rule on its own statistics,
+     its aggregate bit-equal to masked_mean_det on sampled blocks; then
+     two guarded steps under the supervisor (quorum 20, a nan_burst on
+     worker 7): the first held with params the input's bits and worker 7
+     evicted, the second ok on 19 workers (a quorum shrink); then card =
+     CPU for qwen3-0.6b cut to 2 layers and rwkv6-7b reduced at 4
+     workers (per-worker gradient rows 1e-4 of each leaf's largest |g|,
+     scores and masks of one G on both exact, the loss 1e-5, params 1e-4
+     of the largest |Δp| at lr 1; the card's step with the plain versions
+     refusing the card, 1 brsgd launch and one B6 or B7 forward and
+     backward launch a layer a worker);
   8. timing with CUDA events (bare kernel launch, wrapper call, plain
      version, one library call) and each bare kernel's device time
      (torch.profiler) at [20, 61706] and [20, 8388608] (the fused select
@@ -166,7 +188,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      plain versions' autograd backward; every BrSGD kernel's device time at m = 10, 12,
      16, 32, 33, 63 and 64 (12, 33 and 63 on bucket instances) at d =
      61706 and 8388608;
-  9. the {"gradient": [...]}, {"phase_seconds": {...}} and
+  9. the {"gradient": [...]}, {"train": {...}}, {"phase_seconds": {...}} and
      {"kernels": [...]} lines, the nvidia-smi line, and last the
      {"ok": true, "device": {...}} line.
 """
@@ -336,6 +358,27 @@ GRAD_KERNELS = {"dense": ("flash_attention", "flash_attention_bwd"),
 # its largest |g|
 GRAD_CPU_LAYERS, GRAD_CPU_SEQ = 2, 80
 GRAD_CPU_TOL = (1e-5, 1e-4)
+# the train step at full width (phase 7d): qwen3-0.6b, m = 20 (the paper's
+# m) workers of the JAX launcher's 2 x 128 tokens, brsgd under sign_flip
+# at 0.25 (workers 0-4 byzantine), adamw; TRAIN_STEPS timed steps after a
+# warm-up
+TRAIN_ARCH, TRAIN_M, TRAIN_B, TRAIN_S = "qwen3-0.6b", 20, 2, 128
+TRAIN_STEPS = 3
+TRAIN_ATTACK = {"attack": "sign_flip", "alpha": 0.25}
+# the launch held on the step's G: plain statistics over blocks of this
+# many columns ([20, 4194304] floats, 336 MB, a few such temporaries for
+# the sorting network), the aggregate on sampled blocks of
+# TRAIN_SAMPLE_COLUMNS (the first, the last, and random ones)
+TRAIN_CHECK_BLOCK = 1 << 22
+TRAIN_SAMPLE_BLOCKS, TRAIN_SAMPLE_COLUMNS = 4, 1 << 16
+TRAIN_FAULT_WORKER = 7        # an honest worker's NaN burst (supervisor)
+# card = CPU: qwen3-0.6b at full width cut to 2 layers (D = 187 M); rwkv6-7b
+# in its reduced form (2 layers, d 256): cut to 2 layers at full width its
+# D is 0.98 B, and the CPU's plain sorting network over [m, D] would take
+# tens of GB of host memory
+TRAIN_CPU_CASES = (("qwen3-0.6b", 2), ("rwkv6-7b", None))
+TRAIN_CPU_M = 4
+TRAIN_CPU_PARAM_TOL = 1e-4    # params, relative to the largest |Δp| (lr 1)
 SERVE_ARCHS = ("qwen3-0.6b", "rwkv6-7b")
 SERVE_ARGS = ("--batch", "4", "--prompt-len", "512", "--gen", "16",
               "--repeat", "3")
@@ -2577,6 +2620,457 @@ def phase_grad(torch):
 
 
 # ---------------------------------------------------------------------------
+# 7d. the BrSGD train step at full width
+# ---------------------------------------------------------------------------
+
+def _sample_starts(torch, d: int) -> list:
+    """The first columns of the sampled aggregate blocks: the first, the
+    last and TRAIN_SAMPLE_BLOCKS - 2 drawn from a fixed seed."""
+    n = TRAIN_SAMPLE_COLUMNS
+    drawn = torch.randint(0, d - n, (TRAIN_SAMPLE_BLOCKS - 2,),
+                          generator=torch.Generator().manual_seed(0))
+    return sorted({0, d - n, *(int(x) for x in drawn)})
+
+
+@contextlib.contextmanager
+def _step_probe(torch, threat, engine):
+    """Wraps the step's attack and aggregation: CUDA events at their
+    edges (the step's split into gradients / attack / aggregate / the
+    rest), the G and the state the aggregation saw, and copies of the
+    aggregate's sampled blocks (the update then scales the aggregate in
+    place)."""
+    seen = {"events": []}
+    saved = threat.apply_dense_, engine.aggregate_local
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        seen["events"].append(ev)
+
+    def attack(G, *args, **kw):
+        mark()
+        out = saved[0](G, *args, **kw)
+        mark()
+        return out
+
+    def aggregate(G, *args, **kw):
+        out = saved[1](G, *args, **kw)
+        mark()
+        agg = out[0] if isinstance(out, tuple) else out
+        seen["G"], seen["result"] = G, out
+        seen["agg_blocks"] = {
+            a: agg[a:a + TRAIN_SAMPLE_COLUMNS].clone()
+            for a in _sample_starts(torch, agg.numel())
+        } if agg.numel() > TRAIN_SAMPLE_COLUMNS else {0: agg.clone()}
+        return out
+    threat.apply_dense_, engine.aggregate_local = attack, aggregate
+    try:
+        yield seen
+    finally:
+        threat.apply_dense_, engine.aggregate_local = saved
+
+
+def _train_step_timed(torch, ops, step, args, seen):
+    """One step: launches and copies, host ms ending in a synchronize,
+    and its split by CUDA events (gradients, attack, aggregate, the norm
+    and update with the metrics' reads)."""
+    seen["events"].clear()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out = step(*args)
+    end.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    e = [start] + seen["events"][-3:] + [end]
+    split = {k: e[i].elapsed_time(e[i + 1]) for i, k in enumerate(
+        ("gradients", "attack", "aggregate", "norm_and_update"))}
+    return out, host, split, ops.launches(), ops.copies()
+
+
+def _check_step_launches(label, got, copies, want):
+    others = {k: n for k, n in got.items() if n and k not in want}
+    if {k: got[k] for k in want} != want or others or any(copies.values()):
+        fail(f"train step {label}: launches {got}, copies {copies}; "
+             f"expected {want} and nothing else, no gradient input copied")
+
+
+def _selection_margins(torch, scores, l1, beta, T) -> dict:
+    """How far a brsgd selection lies from a tie: the gap below the kth
+    score and the smallest |l1 - 2T| relative to 2T."""
+    from repro_torch.kernels import ref
+    sc = torch.sort(scores.double().cpu()).values
+    k_idx, _ = ref.brsgd_rank_indices(scores.numel(), beta)
+    below = sc[sc < sc[k_idx]]
+    two_t = 2.0 * float(T)
+    return {"kth_score": float(sc[k_idx]),
+            "kth_gap": float(sc[k_idx] - below.max()) if below.numel()
+            else None,
+            "l1_margin": float((l1.double().cpu() - two_t).abs().min()
+                               / two_t)}
+
+
+def _hold_launch_on_blocks(torch, G, st, agg_blocks, beta, threshold) -> dict:
+    """The full-width launch against plain statistics summed over
+    TRAIN_CHECK_BLOCK-column blocks (the statistics add over disjoint
+    column ranges): scores exact (the blocks' whole counts summed in
+    float64), l1 within REL_TOL; selected and 𝔗 from the launch's own
+    scores and l1 through the plain rule, exact; the aggregate bit-equal
+    to masked_mean_det of the launch's weights on sampled blocks."""
+    from repro_torch.kernels import ref
+    m, d = G.shape
+    sc = torch.zeros(m, dtype=torch.float64, device=G.device)
+    l1 = torch.zeros(m, dtype=torch.float64, device=G.device)
+    for a in range(0, d, TRAIN_CHECK_BLOCK):
+        part = ref.fused_stats_ref(G[:, a:a + TRAIN_CHECK_BLOCK],
+                                   ("scores", "l1"))
+        sc += part["scores"].double()
+        l1 += part["l1"].double()
+    sc32 = sc.float()
+    res = {"blocks": -(-d // TRAIN_CHECK_BLOCK),
+           "scores_equal": bool(torch.equal(st.scores, sc32)),
+           "l1_rel_err": float((st.l1.double() - l1).abs().max()
+                               / l1.abs().max())}
+    sel, _, _, T = ref.brsgd_select_mask(st.scores, st.l1, beta, threshold)
+    res["selected_equal"] = bool(torch.equal(sel, st.selected))
+    res["threshold_equal"] = bool(torch.equal(T.float(), st.threshold))
+    plain_sel, _, _, plain_T = ref.brsgd_select_mask(sc32, l1.float(), beta,
+                                                     threshold)
+    res["plain_stats_selection_equal"] = bool(torch.equal(plain_sel, sel))
+    res["margins"] = _selection_margins(torch, st.scores, st.l1, beta,
+                                        st.threshold)
+    w = st.selected.float()
+    n = TRAIN_SAMPLE_COLUMNS
+    res["sampled_blocks"] = sorted(agg_blocks)
+    res["aggregate_equal"] = all(
+        torch.equal(blk, ref.masked_mean_det(G[:, a:a + n], w))
+        for a, blk in agg_blocks.items())
+    res["n_selected"] = int(w.sum())
+    if not (res["scores_equal"] and res["l1_rel_err"] <= REL_TOL
+            and res["selected_equal"] and res["threshold_equal"]
+            and res["aggregate_equal"]):
+        fail(f"train step: the brsgd launch at [{m}, {d}] disagrees with "
+             f"its plain statistics over column blocks: {res}")
+    return res
+
+
+def _train_full_width(torch, ops, cfg, m, want, ckpt_dir):
+    """``launch.train.main`` at full width for TRAIN_STEPS + 1 steps (the
+    first a warm-up), its checkpoint and telemetry into ``ckpt_dir``.  The
+    bundle main builds is wrapped so that each step is timed and held to
+    ``want`` launches (counted from 0 before it); host ms (median of
+    TRAIN_STEPS), the split of the median step, peak memory.  Returns
+    (params, opt_state, result, last probe, each step's launches)."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import engine, threat
+    from repro_torch.launch import train
+    from repro_torch.serving import telemetry
+    from repro_torch.training import step as step_mod
+    res = {"check": "train_step", "entry": "launch.train.main",
+           "arch": cfg.name, "workers": m, "batch_per_worker": TRAIN_B,
+           "seq": TRAIN_S}
+    steps, got_each, last = [], [], {}
+    build = step_mod.build_train_step
+
+    def build_timed(*args, **kw):
+        bundle = build(*args, **kw)
+        last["bundle"] = bundle
+
+        def step_fn(*a):
+            s = len(steps)
+            out, host, split, got, copies = _train_step_timed(
+                torch, ops, bundle.step_fn, a, seen)
+            _check_step_launches(f"step {s}", got, copies, want)
+            met = out[2]
+            if not all(math.isfinite(met[k]) for k in ("loss", "gnorm")):
+                fail(f"train step {s}: metrics {met}")
+            got_each.append(got)
+            steps.append({"step": s, "host_ms": host, "split_ms": split,
+                          "loss": met["loss"], "gnorm": met["gnorm"],
+                          "n_selected": met["n_selected"]})
+            last["state"] = out[:2]
+            return out
+        return bundle._replace(step_fn=step_fn)
+    argv = ["--arch", cfg.name, "--workers", str(m),
+            "--steps", str(TRAIN_STEPS + 1),
+            "--batch-per-worker", str(TRAIN_B), "--seq", str(TRAIN_S),
+            "--attack", TRAIN_ATTACK["attack"],
+            "--alpha", str(TRAIN_ATTACK["alpha"]), "--optimizer", "adamw",
+            "--ckpt-dir", str(ckpt_dir)]
+    torch.cuda.reset_peak_memory_stats()
+    step_mod.build_train_step = build_timed
+    try:
+        with _step_probe(torch, threat, engine) as seen:
+            history = train.main(argv)
+            probe = {k: seen.pop(k) for k in ("G", "result", "agg_blocks")}
+    finally:
+        step_mod.build_train_step = build
+    bundle = last["bundle"]
+    res.update(argv=argv, scope=bundle.scope, layout=bundle.layout,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
+    rows = telemetry.read_rows(str(ckpt_dir))
+    res["ckpt"] = {"steps": ckpt.steps(str(ckpt_dir)),
+                   "history_rows": len(json.loads(
+                       (ckpt_dir / "history.json").read_text())),
+                   "telemetry_rows": len(rows)}
+    n = TRAIN_STEPS + 1
+    if (len(steps) != n or [h["step"] for h in history] != list(range(n))
+            or any(h["loss"] != r["loss"] for h, r in zip(history, steps))
+            or res["ckpt"] != {"steps": [n], "history_rows": n,
+                               "telemetry_rows": n}):
+        fail(f"train.main: {len(steps)} steps, history {history}, "
+             f"{res['ckpt']} (expected {n} of each, checkpoint step {n})")
+    timed = sorted(steps[1:], key=lambda r: r["host_ms"])
+    res.update(host_ms=timed[len(timed) // 2]["host_ms"],
+               host_ms_runs=[r["host_ms"] for r in steps[1:]],
+               split_ms=timed[len(timed) // 2]["split_ms"],
+               warmup_host_ms=steps[0]["host_ms"], steps=steps,
+               launches_per_step=want)
+    if res["peak_device_gb"] >= res["card_gb"]:
+        fail(f"train step: peak {res['peak_device_gb']} GB")
+    params, opt_state = last.pop("state")
+    return params, opt_state, res, probe, got_each
+
+
+def _supervised_steps(torch, ops, tcfg, params, opt_state, pipe, m):
+    """Guarded steps under the supervisor at full width: quorum m, a
+    nan_burst on worker TRAIN_FAULT_WORKER (honest: the byzantine workers
+    are the first ones) for two steps: the first holds (params the input's
+    bits) and evicts it, the second runs on the rest and is ok."""
+    import dataclasses
+    from repro_torch.configs import RecoveryConfig
+    from repro_torch.faults import (ChaosPlan, FaultEvent, Supervisor,
+                                    Trigger)
+    from repro_torch.models import params as PM
+    from repro_torch.training import build_train_step, step_generator
+    bcfg = dataclasses.replace(tcfg.byzantine, max_m=m, quorum=m)
+    tcfg = dataclasses.replace(tcfg, byzantine=bcfg,
+                               recovery=RecoveryConfig(guard=True))
+    bundle = build_train_step(tcfg, m, "cuda")
+    sup = Supervisor(bundle.step_fn, bcfg, tcfg.recovery, m, like=params)
+    plan = ChaosPlan([FaultEvent("nan_burst", Trigger(at=0, duration=2),
+                                 workers=(TRAIN_FAULT_WORKER,))], m, 2)
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(2):
+        before = [p.to("cpu", copy=True) for p in PM.tree_leaves(params)]
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        params, opt_state, met = sup.run_step(
+            params, opt_state, pipe.batch(10 + s), 10 + s,
+            step_generator(0, 10 + s, "cuda"),
+            faults=plan.grad_faults(s))
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        same = all(torch.equal(a, b.cpu()) for a, b in
+                   zip(before, PM.tree_leaves(params)))
+        rows.append({"step": 10 + s, "host_ms": host, "held":
+                     met.get("held"), "step_ok": met["step_ok"],
+                     "n_active": met["n_active"], "loss": met["loss"],
+                     "gnorm": met["gnorm"], "params_unchanged": same,
+                     "launches": {k: v for k, v in ops.launches().items()
+                                  if v}})
+        del before
+    L = tcfg.model.n_layers
+    n = m * L
+    res = {"check": "train_supervised", "rows": rows,
+           "summary": {k: v for k, v in sup.summary().items()
+                       if k != "events"}, "events": sup.events,
+           "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    a, b = rows
+    # the held step: every worker's gradient, the masked round's combine;
+    # then the evicted worker's loss alone (no gradient: one forward)
+    want_a = {"flash_attention": n, "flash_attention_bwd": n,
+              "masked_mean": 1}
+    want_b = {"flash_attention": n, "flash_attention_bwd": n - L,
+              "masked_mean": 1}
+    if not (a["held"] == "nonfinite" and a["params_unchanged"]
+            and a["launches"] == want_a
+            and sup.evicted[TRAIN_FAULT_WORKER] and sup.evictions == 1
+            and b["step_ok"] == 1.0 and not b["params_unchanged"]
+            and b["n_active"] == m - 1 and sup.quorum_shrinks == 1
+            and b["launches"] == want_b):
+        fail(f"train step under the supervisor: {res} (launches should be "
+             f"{want_a}, then {want_b})")
+    del bundle
+    return params, opt_state, res
+
+
+def _train_card_vs_cpu(torch, arch, n_layers):
+    """The step of ``arch`` at full width cut to ``n_layers`` layers (None:
+    its reduced config) at TRAIN_CPU_M workers, sgd at lr 1, on the card
+    and on the host CPU from
+    the same params and batch: per-worker gradient rows (G before the
+    attack is the rows of the CPU gradients; each leaf's slice within
+    GRAD_CPU_TOL of its largest |g|), the aggregation of the CPU's G on
+    the card (scores and masks exact), the loss within GRAD_CPU_TOL and
+    the params within TRAIN_CPU_PARAM_TOL of the largest |Δp|.  The
+    card's step runs with the plain versions of B6 and B7 refusing the
+    card and is held to its launches: one brsgd launch and one forward
+    and one backward launch a layer a worker."""
+    import dataclasses
+    from repro_torch.configs import ByzantineConfig, TrainConfig, get_config
+    from repro_torch.core import engine, threat
+    from repro_torch.data import pipeline as PL
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import build_train_step
+    cfg = get_config(arch)
+    cfg = (cfg.reduced() if n_layers is None
+           else dataclasses.replace(cfg, n_layers=n_layers))
+    bcfg = ByzantineConfig(**TRAIN_ATTACK)
+    tcfg = TrainConfig(model=cfg, byzantine=bcfg, optimizer="sgd", lr=1.0,
+                       agg_scope="global", agg_layout="gather")
+    m = TRAIN_CPU_M
+    p_gpu = PM.init_params(TF.param_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(2), device="cuda")
+    p_cpu = _tree_to(p_gpu, "cpu")
+    p0 = [p.clone() for p in PM.tree_leaves(p_cpu)]
+    batch = PL.LMWorkerPipeline(cfg, m, 1, GRAD_CPU_SEQ, seed=4,
+                                byz=bcfg).batch(0)
+    shapes = [tuple(p.shape) for p in p0]
+    fwd, bwd = GRAD_KERNELS[TF.segments(cfg)[0].kind]
+    n = m * cfg.n_layers
+    want_launches = {"brsgd_aggregate": 1, fwd: n, bwd: n}
+    out = {}
+    with _step_probe(torch, threat, engine) as seen, \
+            _plain_versions_refuse_the_card(torch):
+        for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+            bundle = build_train_step(tcfg, m, dev)
+            ops.reset_launches()
+            _, _, met = bundle.step_fn(p, (), batch, 0, None)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                copies = {k: v for k, v in ops.copies().items() if v}
+                _check_step_launches(f"card vs CPU {cfg.name}",
+                                     ops.launches(), {}, want_launches)
+            G = seen.pop("G")
+            st = seen.pop("result")[1]
+            out[dev] = {"met": met, "G": G.cpu(), "state": st,
+                        "params": [t.cpu() for t in PM.tree_leaves(p)]}
+            del bundle, G
+    c, g = out["cpu"], out["cuda"]
+    # per-worker gradients: the attack's rows (sign_flip) flip both alike
+    errs, a = {}, 0
+    for li, s in enumerate(shapes):
+        n = math.prod(s)
+        for i in range(m):
+            want = c["G"][i, a:a + n]
+            errs[(li, i)] = float((g["G"][i, a:a + n] - want).abs().max()
+                                  / max(float(want.abs().max()), 1e-30))
+        a += n
+    # the aggregation of one G on both devices
+    _, st_card = engine.aggregate_local(c["G"].cuda(), bcfg,
+                                        return_state=True)
+    st_cpu = c["state"]
+    dp = max(float((q - p).abs().max()) for q, p in zip(c["params"], p0))
+    perr = max(float((q - p).abs().max())
+               for q, p in zip(g["params"], c["params"]))
+    res = {"check": "train_card_vs_cpu", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "D": sum(math.prod(s) for s in shapes), "workers": m,
+           "seq": GRAD_CPU_SEQ,
+           "loss_rel_err": abs(g["met"]["loss"] - c["met"]["loss"])
+           / abs(c["met"]["loss"]),
+           "worst_row_leaf_rel_err": max(errs.values()),
+           "same_G_scores_equal": bool(torch.equal(st_card.scores.cpu(),
+                                                   st_cpu.scores)),
+           "same_G_selected_equal": bool(torch.equal(
+               st_card.selected.cpu(), st_cpu.selected)),
+           "same_G_c1_c2_equal": bool(
+               torch.equal(st_card.c1.cpu(), st_cpu.c1)
+               and torch.equal(st_card.c2.cpu(), st_cpu.c2)),
+           "step_selected_equal": bool(torch.equal(
+               g["state"].selected.cpu(), st_cpu.selected)),
+           "card_launches": want_launches, "card_copies": copies,
+           "n_selected": [c["met"]["n_selected"], g["met"]["n_selected"]],
+           "margins": _selection_margins(torch, st_cpu.scores, st_cpu.l1,
+                                         bcfg.beta, st_cpu.threshold),
+           "params_err_over_max_dp": perr / dp,
+           "tol": {"loss": GRAD_CPU_TOL[0], "row_leaf": GRAD_CPU_TOL[1],
+                   "params": TRAIN_CPU_PARAM_TOL}}
+    if not (res["loss_rel_err"] <= GRAD_CPU_TOL[0]
+            and res["worst_row_leaf_rel_err"] <= GRAD_CPU_TOL[1]
+            and res["same_G_scores_equal"] and res["same_G_selected_equal"]
+            and res["same_G_c1_c2_equal"] and res["step_selected_equal"]
+            and res["params_err_over_max_dp"] <= TRAIN_CPU_PARAM_TOL):
+        fail(f"train step card vs CPU {cfg.name}: {res}")
+    emit(res)
+
+
+def phase_train(torch):
+    """The BrSGD train step at qwen3-0.6b's full width through its entry
+    point, launch.train.main, with m = TRAIN_M workers, brsgd under
+    sign_flip at 0.25, adamw, the plain versions of B6 and B7 refusing
+    the card; the brsgd launch held on that step's G against plain
+    statistics over column blocks; guarded steps under the supervisor;
+    card = CPU at 2 layers for both archs.  Returns the results and the
+    launches counted in the full-width steps."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import ByzantineConfig, TrainConfig, get_config
+    from repro_torch.data import pipeline as PL
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    bcfg = ByzantineConfig(**TRAIN_ATTACK)
+    tcfg = TrainConfig(model=cfg, byzantine=bcfg, optimizer="adamw")
+    m = TRAIN_M
+    n = m * cfg.n_layers
+    want = {"brsgd_aggregate": 1, "flash_attention": n,
+            "flash_attention_bwd": n}
+    results = []
+    tmp = Path(tempfile.mkdtemp(prefix="train_", dir=ROOT / "build"))
+    try:
+        with _plain_versions_refuse_the_card(torch):
+            t0 = time.perf_counter()
+            params, opt_state, res, probe, got_each = _train_full_width(
+                torch, ops, cfg, m, want, tmp / "ckpt")
+            res["D"] = PM.count_params(TF.param_defs(cfg))
+            res["seconds"] = time.perf_counter() - t0
+            shutil.rmtree(tmp / "ckpt")
+            st = probe["result"][1]
+            t0 = time.perf_counter()
+            res["launch_held_on_blocks"] = _hold_launch_on_blocks(
+                torch, probe["G"], st, probe["agg_blocks"], bcfg.beta,
+                bcfg.threshold)
+            res["launch_check_seconds"] = time.perf_counter() - t0
+            emit(res)
+            results.append(res)
+            del probe, st
+            torch.cuda.empty_cache()
+            pipe = PL.LMWorkerPipeline(cfg, m, TRAIN_B, TRAIN_S,
+                                       seed=tcfg.seed, byz=bcfg)
+            t0 = time.perf_counter()
+            params, opt_state, sres = _supervised_steps(
+                torch, ops, tcfg, params, opt_state, pipe, m)
+            sres["seconds"] = time.perf_counter() - t0
+            emit(sres)
+            results.append(sres)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    for arch, n_layers in TRAIN_CPU_CASES:
+        t0 = time.perf_counter()
+        _train_card_vs_cpu(torch, arch, n_layers)
+        emit({"check": "train_card_vs_cpu_seconds", "arch": arch,
+              "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    launches = {}
+    for got in got_each + [r["launches"] for r in sres["rows"]]:
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    return results, launches
+
+
+# ---------------------------------------------------------------------------
 # 8. timing
 # ---------------------------------------------------------------------------
 
@@ -3353,6 +3847,7 @@ def main() -> int:
     loop_res, loop_launches, per_admission = timed(
         "serve_loop", phase_serve_loop, torch, ref, worst)
     grad_res, grad_launches = timed("grad", phase_grad, torch)
+    train_res, train_launches = timed("train", phase_train, torch)
     main_t = timed("timing_main", phase_timing, torch, kern, ref, MAIN_SHAPE,
                    reps=200, plain_reps=20, worst=worst)
     bucket_t = timed("timing_buckets", phase_bucket_timing, torch, kern, ref)
@@ -3380,7 +3875,8 @@ def main() -> int:
                "hbm_wrapper_ms": h["wrapper_ms"],
                "hbm_bound_ms": h["bound_ms"], "hbm_plain_ms": h["plain_ms"],
                "hbm_library_ms": h["library_ms"],
-               "worker_counts_device_ms": bucket_t[key]}
+               "worker_counts_device_ms": bucket_t[key],
+               "train_launches": train_launches.get(name, 0)}
         if name == "brsgd_aggregate":
             row.update(also_replaces=ALSO_REPLACES[name],
                        grid=t["grid"], resident=t["resident"],
@@ -3447,6 +3943,7 @@ def main() -> int:
                "launches_per_prefill": per_prefill[name],
                "serve_loop_launches": loop_launches[name],
                "serve_loop_launches_per_admission": per_admission[name],
+               "train_launches": train_launches.get(name, 0),
                "max_abs_err": worst[name], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -3471,6 +3968,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": grad_launches[name],
+            "train_launches": train_launches.get(name, 0),
             "launches_per_gradient": {
                 f"{r['arch']} [{r['batch']},{r['seq']}]"
                 f"{' remat' if r['remat'] else ''}": r["launches"].get(name)
@@ -3498,6 +3996,20 @@ def main() -> int:
         "arch", "batch", "seq", "remat", "host_ms", "peak_device_gb",
         "device_busy_ms", "device_ms_by_group", "launches")}
         for r in grad_res]})
+    fixed, sup = train_res
+    emit({"train": {"arch": fixed["arch"], "D": fixed["D"],
+                    "workers": fixed["workers"],
+                    "batch_per_worker": fixed["batch_per_worker"],
+                    "seq": fixed["seq"], "host_ms": fixed["host_ms"],
+                    "host_ms_runs": fixed["host_ms_runs"],
+                    "split_ms": fixed["split_ms"],
+                    "peak_device_gb": fixed["peak_device_gb"],
+                    "launches_per_step": fixed["launches_per_step"],
+                    "launches": train_launches,
+                    "supervised": [{k: r[k] for k in (
+                        "held", "step_ok", "n_active", "host_ms")}
+                        for r in sup["rows"]],
+                    "supervised_peak_device_gb": sup["peak_device_gb"]}})
     emit({"phase_seconds": phase_s})
     emit({"serve": {a: {k: r[k] for k in ("prefill_tok_s", "decode_tok_s",
                                           "prefill_s", "decode_s",

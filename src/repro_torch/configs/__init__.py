@@ -7,7 +7,7 @@ names the slice of ROADMAP.md that ports it.
 from __future__ import annotations
 
 from . import qwen3_0_6b, rwkv6_7b
-from .base import ModelConfig
+from .base import ByzantineConfig, ModelConfig, RecoveryConfig, TrainConfig
 
 ARCHS = {
     "qwen3-0.6b": qwen3_0_6b.CONFIG,
@@ -38,4 +38,5 @@ def get_config(name: str) -> ModelConfig:
     raise KeyError(f"unknown arch {name!r}; ported: {sorted(ARCHS)}")
 
 
-__all__ = ["ARCHS", "get_config"]
+__all__ = ["ARCHS", "ByzantineConfig", "ModelConfig", "RecoveryConfig",
+           "TrainConfig", "get_config"]

@@ -4,6 +4,9 @@
 imports nothing of ``repro``.  ``tests/test_torch_models.py`` pins the
 copies equal to the JAX dataclasses field by field.
 
+``RecoveryConfig`` and ``TrainConfig`` are the train step's knobs
+(``training/step.py``, ``faults/supervisor.py``, ``launch/train.py``).
+
 ``MoESpec`` and ``SSMSpec`` are data only here: ``ModelConfig`` names
 them, and the blocks that read them (MoE, mamba2) wait for a later
 slice of the port.
@@ -217,3 +220,70 @@ class ModelConfig:
             n_prefix_tokens=min(self.n_prefix_tokens, 8),
             dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class RecoveryConfig:
+    """Fault-detection and self-healing knobs.
+
+    ``guard`` puts the finite-gradient / loss-spike guard into the train
+    step: a non-finite gnorm/loss or a loss above ``spike_mult``× the
+    supervisor's EMA holds the update (params and optimizer state stay
+    as they were), and a per-worker finiteness vector (``worker_ok``)
+    rides out as a metric so the supervisor can evict the implicated
+    workers from the validity mask.  The guard requires the elastic
+    worker set (``ByzantineConfig.quorum/max_m``): eviction is a
+    validity-mask edit.  Everything else here is host-side supervisor
+    policy (faults/supervisor.py)."""
+
+    guard: bool = False
+    spike_mult: float = 10.0      # hold when loss > spike_mult * EMA
+    ema_decay: float = 0.9        # loss EMA decay (host-side)
+    evict_after: int = 1          # worker_ok strikes before eviction
+    readmit_after: int = 8        # probation steps before re-admission
+    rollback_after: int = 2       # consecutive held steps before rollback
+    max_rollbacks: int = 3        # retry budget; exceeding it raises
+    backoff_base: int = 2         # cooldown = base * 2^(rollbacks-1) steps
+    keep_ckpts: int = 3           # keep-last-k retention (checkpoint/ckpt)
+
+    def __post_init__(self):
+        if self.spike_mult <= 1.0:
+            raise ValueError(f"spike_mult must be > 1, got {self.spike_mult}")
+        if not 0.0 < self.ema_decay < 1.0:
+            raise ValueError(f"ema_decay must be in (0, 1), got "
+                             f"{self.ema_decay}")
+        for k in ("evict_after", "readmit_after", "rollback_after",
+                  "backoff_base", "keep_ckpts"):
+            if getattr(self, k) < 1:
+                raise ValueError(f"{k} must be >= 1, got {getattr(self, k)}")
+        if self.max_rollbacks < 0:
+            raise ValueError(f"max_rollbacks must be >= 0, got "
+                             f"{self.max_rollbacks}")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig
+    byzantine: ByzantineConfig = field(default_factory=ByzantineConfig)
+    optimizer: str = "adamw"      # sgd | momentum | adamw
+    lr: float = 3e-4
+    momentum: float = 0.9
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    seed: int = 0
+    microbatch: int = 0           # 0 = no grad accumulation
+    remat: str = "none"           # none | block  (activation checkpointing)
+    # fault detection / self-healing: recovery.guard puts the
+    # finite-gradient + loss-spike hold into the step
+    recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
+    # robust-aggregation execution strategy:
+    #   scope  "global"  — the full per-worker gradient matrix G [m, D]
+    #                      materialized, one global selection.
+    #          "blocked" — per-layer-bucket aggregation inside the
+    #                      backward (ROADMAP A.4; not ported yet).
+    #          "auto"    — blocked iff param count > 20e9.
+    agg_scope: str = "auto"
+    #   layout "gather" / "a2a" / "auto" name the JAX package's
+    #   collectives; one card holds all of G, so "gather" and "auto"
+    #   both run the local executor and "a2a" waits for ROADMAP A.4.
+    agg_layout: str = "auto"

@@ -431,8 +431,66 @@ def _combine_rows(G, w):
     return ops.masked_mean(G, w)
 
 
+# columns the elastic round reads at a time: [m, ELASTIC_BLOCK] floats of
+# temporaries, and a score partial of at most 2^22 counts (a float holds
+# it exactly); a G of at most this many columns is one block
+ELASTIC_BLOCK = 1 << 22
+
+
+def _sum_partials(parts: list) -> dict:
+    """The blocks' statistics partials summed, in block order.  Score
+    partials are whole counts: summed in double and rounded to float
+    once, so the total is exact past 2^24 columns as the fixed round's
+    is; one block is its own partial's bits."""
+    tot = {}
+    for k in parts[0]:
+        if k == "scores":
+            tot[k] = torch.stack([p[k] for p in parts]).sum(
+                dim=0, dtype=torch.float64).to(torch.float32)
+            continue
+        tot[k] = parts[0][k]
+        for p in parts[1:]:
+            tot[k] = tot[k] + p[k]
+    return tot
+
+
+def _aggregate_masked(G, cfg, spec, vf, return_state: bool, inplace: bool):
+    """The elastic round over blocks of :data:`ELASTIC_BLOCK` columns, with no
+    [m, d] temporary but (without ``inplace``) one zeroed copy of G.
+
+    The inactive rows are zeroed first, as the reference's ``where`` on
+    entry does: in place with ``inplace`` (the train step owns its G),
+    else in a copy.  A select rule's masked statistics are the sum of
+    the blocks' ``leaf_stats`` partials (the statistics add over
+    disjoint column ranges), then ``resolve_select`` and one combine over
+    all of G; a column rule runs block by block (it works per column, so
+    the blocks are exact)."""
+    m, d = G.shape
+    off = torch.nonzero(vf <= 0).flatten().tolist()
+    if inplace:
+        for r in off:
+            G[r].zero_()
+    elif off:
+        G = torch.where(vf[:, None] > 0, G, 0.0)
+    blocks = [(a, min(a + ELASTIC_BLOCK, d))
+              for a in range(0, d, ELASTIC_BLOCK)]
+    if spec.column is not None:
+        out = torch.empty((d,), dtype=torch.float32, device=G.device)
+        for a, b in blocks:
+            out[a:b] = spec.column(G[:, a:b], cfg, m, valid=vf)
+        st = SelectionState(vf > 0, vf)
+        return (out, st) if return_state else out
+    stats = _sum_partials([leaf_stats(G[:, a:b], spec.stats, m, valid=vf)
+                           for a, b in blocks])
+    stats["valid"] = vf
+    w, st, _denom = resolve_select(spec, stats, cfg, m, G.device)
+    agg = _combine_rows(G, w)
+    return (agg, st) if return_state else agg
+
+
 def aggregate_local(G, cfg: ByzantineConfig, return_state: bool = False,
-                    spec: AggregatorSpec | None = None, valid=None):
+                    spec: AggregatorSpec | None = None, valid=None,
+                    inplace: bool = False):
     """Run one aggregator on the worker-gradient matrix G [m, d] -> [d].
 
     A fixed round of a select rule is one launch on the card.  brsgd
@@ -447,22 +505,15 @@ def aggregate_local(G, cfg: ByzantineConfig, return_state: bool = False,
     quantiles and the combine cover the active rows only, and dropped
     rows contribute exact zeros.  The masked statistics are torch ops on
     G's device (``kernels.ops``); the combine is the masked-mean kernel
-    on the zeroed rows."""
+    on the zeroed rows, over column blocks (:func:`_aggregate_masked`);
+    ``inplace`` lets it zero the inactive rows of G itself instead of a
+    copy."""
     spec = spec or get_spec(cfg.aggregator)
     G = G.to(torch.float32).contiguous()
     m = G.shape[0]
     if valid is not None:
         vf = torch.as_tensor(valid).to(device=G.device, dtype=torch.float32)
-        if spec.column is not None:
-            out = spec.column(G, cfg, m, valid=vf)
-            st = SelectionState(vf > 0, vf)
-            return (out, st) if return_state else out
-        stats = dict(leaf_stats(G, spec.stats, m, valid=vf))
-        stats["valid"] = vf
-        w, st, _denom = resolve_select(spec, stats, cfg, m, G.device)
-        Gz = torch.where(vf[:, None] > 0, G, 0.0)
-        agg = _combine_rows(Gz, w)
-        return (agg, st) if return_state else agg
+        return _aggregate_masked(G, cfg, spec, vf, return_state, inplace)
 
     if spec.column is not None:
         out = spec.column(G, cfg, m)

@@ -227,12 +227,18 @@ def is_gradient_attack(cfg: ByzantineConfig) -> bool:
     return get_spec(cfg.attack).scope == "gradient"
 
 
+# columns an in-place attack reads at a time (the knowledge rules' honest
+# moments and their evil row): [m, KNOWLEDGE_BLOCK] floats of temporaries,
+# not [m, d]; at or below one block the moments are the whole-G sums
+KNOWLEDGE_BLOCK = 1 << 22
+
+
 def _dense_knowledge(G, mask, knows, n_honest, active=None) -> dict:
-    """Honest per-coordinate moments from the full [m, d] matrix.  In an
-    elastic round the dropped workers are excluded too: the adversary
-    reads only gradients that were produced.  ``n_honest`` rides along
-    as a float32 tensor on G's device, so the rules divide by it with
-    IEEE division on the card too."""
+    """Honest per-coordinate moments from the [m, d] matrix (or a column
+    block of it).  In an elastic round the dropped workers are excluded
+    too: the adversary reads only gradients that were produced.
+    ``n_honest`` rides along as a float32 tensor on G's device, so the
+    rules divide by it with IEEE division on the card too."""
     know = {}
     if knows:
         drop = mask if active is None else (mask | ~(active > 0))
@@ -247,18 +253,29 @@ def _dense_knowledge(G, mask, knows, n_honest, active=None) -> dict:
     return know
 
 
-def apply_dense(G, generator, cfg: ByzantineConfig, active=None):
+def _column_blocks(d: int, block: int):
+    return [(a, min(a + block, d)) for a in range(0, d, block)]
+
+
+def apply_dense_(G, generator, cfg: ByzantineConfig, active=None):
     """Corrupt the byzantine rows of the dense worker-gradient matrix
-    G [m, d].  Data- and timing-scope attacks and alpha=0 are no-ops
-    here (data corruption happens in the pipeline, arrival timing in
-    the ArrivalSchedule).  ``generator`` (a ``torch.Generator`` on G's
-    device) drives gaussian noise and "resample" membership.
-    ``active`` ([m] 0/1) scopes an elastic round: membership and
-    knowledge are drawn over the active set only."""
+    G [m, d] in place and return G.  Data- and timing-scope attacks and
+    alpha=0 leave G as it is (data corruption happens in the pipeline,
+    arrival timing in the ArrivalSchedule).  ``generator`` (a
+    ``torch.Generator`` on G's device) drives gaussian noise and
+    "resample" membership.  ``active`` ([m] 0/1) scopes an elastic
+    round: membership and knowledge are drawn over the active set only.
+
+    No [m, d] temporary is made: the honest moments of a knowledge rule
+    are taken over blocks of :data:`KNOWLEDGE_BLOCK` columns, and its evil row
+    written block by block into the first byzantine row, then copied to
+    the others (every shipped knowledge rule is a shared-row rule); any
+    other rule corrupts one byzantine row at a time, in row order, so
+    gaussian noise is drawn row by row into G."""
     if not is_gradient_attack(cfg):
         return G
     spec = get_spec(cfg.attack)
-    m = G.shape[0]
+    m, d = G.shape
     if active is None:
         n_byz = n_byzantine(cfg, m)
         if n_byz == 0:
@@ -270,10 +287,37 @@ def apply_dense(G, generator, cfg: ByzantineConfig, active=None):
         na = (active > 0).sum()
         mask = membership_mask(cfg, m, generator, active=active)
         n_honest = na - n_byzantine(cfg, m, na)
-    know = _dense_knowledge(G, mask, spec.knows, n_honest, active)
+    rows = torch.nonzero(mask).flatten().tolist()
+    if not rows:
+        return G
     if spec.shared_row:
-        evil = spec.corrupt(G[0], know, generator, cfg)[None]
-    else:
-        evil = torch.zeros_like(G, dtype=torch.float32)
-        evil[mask] = spec.corrupt(G[mask], know, generator, cfg)
-    return torch.where(mask[:, None], evil.to(G.dtype), G)
+        first = G[rows[0]]
+        for a, b in _column_blocks(d, KNOWLEDGE_BLOCK):
+            know = _dense_knowledge(G[:, a:b], mask, spec.knows, n_honest,
+                                    active)
+            evil = spec.corrupt(G[0, a:b], know, generator, cfg)
+            first[a:b] = evil.to(G.dtype)
+        for r in rows[1:]:
+            G[r].copy_(first)
+        return G
+    know = {}
+    if spec.knows:
+        parts = [_dense_knowledge(G[:, a:b], mask, spec.knows, n_honest,
+                                  active)
+                 for a, b in _column_blocks(d, KNOWLEDGE_BLOCK)]
+        know = {k: torch.cat([p[k] for p in parts]) for k in spec.knows}
+        know["n_honest"] = parts[0]["n_honest"]
+    for r in rows:
+        evil = spec.corrupt(G[r:r + 1], know, generator, cfg)
+        G[r].copy_(evil[0].to(G.dtype))
+    return G
+
+
+def apply_dense(G, generator, cfg: ByzantineConfig, active=None):
+    """:func:`apply_dense_` on a copy of G: the corrupted matrix, G left
+    as it was (G itself when no attack fires: no gradient attack, or no
+    byzantine worker in a fixed round)."""
+    if not is_gradient_attack(cfg) or (
+            active is None and n_byzantine(cfg, G.shape[0]) == 0):
+        return G
+    return apply_dense_(G.clone(), generator, cfg, active)

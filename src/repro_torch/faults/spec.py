@@ -8,7 +8,8 @@ checkpoints, frozen swap sources, wedged serve slots.  In the port the
 ``ckpt`` faults act on :mod:`repro_torch.checkpoint.ckpt` checkpoints
 (the same on-disk format) and the ``serve`` faults on
 :class:`repro_torch.serving.ServeLoop`; the ``worker`` and ``grad``
-faults wait for their caller, the supervisor of the train step.
+faults feed the guarded train step (``training/step.py``) that the
+supervisor (``faults/supervisor.py``) drives.
 
 Registry contract (DESIGN.md §Faults)
 -------------------------------------
@@ -42,8 +43,8 @@ A :class:`FaultSpec` declares:
   so a chaos run is reproducible from ``(events, seed)`` alone.
 
 The recovery side lives in the HotSwapper quarantine + scheduler
-requeue (serving/) and, for training, in the supervisor that comes with
-the port's train step.  Adding a fault is one :func:`register` call —
+requeue (serving/) and, for training, in the supervisor
+(``faults/supervisor.py``).  Adding a fault is one :func:`register` call —
 it is then available to :class:`ChaosPlan` schedules and the tests.
 """
 from __future__ import annotations

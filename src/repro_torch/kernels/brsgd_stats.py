@@ -234,6 +234,22 @@ def column_launch_plan(G, variant: int) -> ColumnPlan:
     return _plans[key]
 
 
+# the most columns a block's score partial may count: below 2^24 a float
+# holds every count, so the partials are exact and their double sum the
+# exact score
+MAX_BLOCK_COLUMNS = 1 << 24
+
+
+def _total(name: str, parts):
+    """A statistic's total over the blocks' partials [grid, ...].  Score
+    partials are whole counts: they are summed in double, exact past 2^24
+    columns, and rounded to float once (below 2^24 the float sum's
+    bits)."""
+    if name == "scores":
+        return parts.sum(dim=0, dtype=torch.float64).to(torch.float32)
+    return parts.sum(dim=0)
+
+
 def fused_stats(G, needs) -> dict:
     """G [m, d] -> {stat: tensor} for any subset of ``ref.STAT_NAMES``
     in one read of G: scores/l1/d2med [m], gram [m, m]."""
@@ -254,7 +270,7 @@ def fused_stats(G, needs) -> dict:
     _launch(lib, "fused_stats", lib.brsgd_fused_stats, G, _ptr(G), m, d,
             bits, _ptr(parts.get("scores")), _ptr(parts.get("l1")),
             _ptr(parts.get("d2med")), _ptr(parts.get("gram")), nb, stages)
-    return {n: p.sum(dim=0) for n, p in parts.items()}
+    return {n: _total(n, p) for n, p in parts.items()}
 
 
 def brsgd_partials(G):
@@ -333,6 +349,10 @@ def aggregate_plan(m: int, d: int, coresident,
     if grid0 < 1:
         raise RuntimeError(f"{rule} aggregate: no block of m={m} fits on "
                            f"the card")
+    if -(-n_tiles // grid0) * THREADS >= MAX_BLOCK_COLUMNS:
+        raise ValueError(f"{rule} aggregate: d={d} puts {MAX_BLOCK_COLUMNS} "
+                         f"or more columns on a block of a {grid0}-block "
+                         f"grid; its score counts would round")
     per_block = -(-n_tiles // grid0)
     while per_block <= n_tiles:
         grid = -(-n_tiles // per_block)
@@ -485,7 +505,7 @@ def brsgd_stats(G):
     _launch(lib, "brsgd_stats", lib.brsgd_column_stats, G, _ptr(G), m, d,
             _ptr(med), _ptr(mean), _ptr(sc), _ptr(l1), plan.grid,
             plan.stages)
-    return med, mean, sc.sum(dim=0), l1.sum(dim=0)
+    return med, mean, _total("scores", sc), l1.sum(dim=0)
 
 
 def cwise_median(G):

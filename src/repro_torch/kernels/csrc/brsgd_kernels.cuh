@@ -121,6 +121,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
 // Sorts at(0), ..., at(MP-1) ascending in place with the network of
 // ref.bitonic_stages.  `at` returns a reference: an element of a register
 // array, or of the thread's strided column in shared memory.  fminf/fmaxf
@@ -1643,6 +1649,16 @@ select_aggregate_kernel(const float* __restrict__ G, long long d, int ia, int ib
   if constexpr (RULE == RULE_BRSGD) {
     if (warp == 0) {
       for (long long p = b; p < PAIRS; p += grid) {
+        if (p < m) {
+          // a score: every block's partial is a whole count below 2^24
+          // (brsgd_stats.py:aggregate_plan), so a double sum is the exact
+          // count past 2^24 columns too, rounded to float once
+          double v = 0.0;
+          for (long long j = lane; j < grid; j += 32) v += __ldcg(partials + p * grid + j);
+          v = warp_sum(v);
+          if (lane == 0) totals[p] = __double2float_rn(v);
+          continue;
+        }
         float v = 0.f;
         for (long long j = lane; j < grid; j += 32) v += __ldcg(partials + p * grid + j);
         v = warp_sum(v);

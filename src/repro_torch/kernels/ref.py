@@ -157,7 +157,9 @@ def majority_score_ref(G):
     """Paper Algorithm 2, Constraint-2 scores [m].  Per column: split
     workers by the column mean (row-order sum over m, IEEE-divided);
     workers on the larger side score 1, ties at exactly m/2 favour the
-    >= mean side.  Score_i = sum over columns."""
+    >= mean side.  Score_i = sum over columns, counted in integers and
+    rounded to float once (exact past 2^24 columns, as the kernels'
+    counts are; below, the float sum's bits)."""
     x = G.to(torch.float32)
     m = x.shape[0]
     mean_c = exact_div(det_sum_rows(x), float(m))
@@ -165,7 +167,7 @@ def majority_score_ref(G):
     n_above = above.to(torch.int32).sum(dim=0)
     majority_is_above = n_above * 2 >= m
     M = torch.where(majority_is_above[None], above, ~above)
-    return M.to(torch.float32).sum(dim=1)
+    return M.sum(dim=1).to(torch.float32)
 
 
 def l1_to_median_ref(G, med=None):

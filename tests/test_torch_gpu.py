@@ -1289,3 +1289,117 @@ def _flat(tree, path=""):
             out.update(_flat(tree[k], f"{path}/{k}"))
         return out
     return {path: tree}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b"])
+def test_train_step_on_the_card_matches_the_cpu(arch):
+    """The BrSGD train step (training/step.py), reduced config, 8 workers
+    of 2 x 32 tokens, brsgd under sign_flip at 0.25, sgd at lr 1: on the
+    card and on the CPU from the same params, two steps.  The loss within
+    1e-5, the same n_selected, params within 1e-4 of the largest |Δp|;
+    per step 1 brsgd launch and one forward and one backward launch a
+    layer per worker.  Then a guarded step with a NaN worker holds on
+    both: params the input's bits, worker_ok equal."""
+    need_card()
+    from repro_torch.configs import (ByzantineConfig, RecoveryConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.data.pipeline import LMWorkerPipeline
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import build_train_step
+    m = 8
+    cfg = get_config(arch).reduced()
+    bcfg = ByzantineConfig(attack="sign_flip", alpha=0.25)
+    tcfg = TrainConfig(model=cfg, byzantine=bcfg, optimizer="sgd", lr=1.0,
+                       agg_scope="global", agg_layout="gather")
+    p_cpu = PM.init_params(TF.param_defs(cfg),
+                           torch.Generator().manual_seed(0))
+    p0 = [p.clone() for p in PM.tree_leaves(p_cpu)]
+    pipe = LMWorkerPipeline(cfg, m, 2, 32, seed=1, byz=bcfg)
+    fwd, bwd = (("flash_attention", "flash_attention_bwd")
+                if arch == "qwen3-0.6b" else ("wkv6_seq", "wkv6_seq_bwd"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = _copy(p_cpu, dev)           # the step updates in place
+        bundle = build_train_step(tcfg, m, dev)
+        mets = []
+        for s in range(2):
+            ops.reset_launches()
+            params, _, met = bundle.step_fn(params, (), pipe.batch(s), s,
+                                            None)
+            launched = {n: c for n, c in ops.launches().items() if c}
+            if dev == "cuda":
+                L = cfg.n_layers
+                assert launched == {"brsgd_aggregate": 1, fwd: m * L,
+                                    bwd: m * L}
+            mets.append(met)
+        out[dev] = (mets, [p.cpu() for p in PM.tree_leaves(params)])
+    (cm, cp), (gm, gp) = out["cpu"], out["cuda"]
+    for c, g in zip(cm, gm):
+        assert abs(g["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"])
+        assert g["n_selected"] == c["n_selected"]
+    dp = max(float((q - p).abs().max()) for q, p in zip(cp, p0))
+    err = max(float((q - p).abs().max()) for q, p in zip(gp, cp))
+    assert err <= 1e-4 * dp, (err, dp)
+
+    guarded = TrainConfig(model=cfg, byzantine=ByzantineConfig(
+        attack="sign_flip", alpha=0.25, max_m=m, quorum=m), optimizer="sgd",
+        agg_scope="global", recovery=RecoveryConfig(guard=True))
+    flt = np.zeros(m, np.float32)
+    flt[5] = 1
+    oks = []
+    for dev in ("cpu", "cuda"):
+        params = _copy(p_cpu, dev)
+        before = [p.clone() for p in PM.tree_leaves(params)]
+        bundle = build_train_step(guarded, m, dev)
+        params, _, met = bundle.step_fn(params, (), pipe.batch(0), 0, None,
+                                        None, flt)
+        assert met["step_ok"] == 0.0
+        assert all(torch.equal(a, b) for a, b in
+                   zip(before, PM.tree_leaves(params)))
+        oks.append(met["worker_ok"])
+    np.testing.assert_array_equal(oks[0], oks[1])
+    assert oks[0][5] == 0 and oks[0].sum() == m - 1
+
+
+def _copy(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _copy(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)
+
+
+@pytest.mark.gpu
+def test_brsgd_launch_past_2_31_elements():
+    """G [20, 120,000,000]: 2.4e9 elements, past 2^31, and score counts
+    past 2^24.  The fused brsgd launch against plain statistics summed
+    over column blocks of 2^22: scores exact (the blocks' whole counts
+    summed in float64), l1 within 1e-5; its selection and 𝔗 the plain
+    rule's on its own statistics; its aggregate bit-equal to
+    masked_mean_det on the first, a middle and the last block; B3 and
+    the column pass's scores at the same G too."""
+    need_card()
+    m, d, blk = 20, 120_000_000, 1 << 22
+    assert m * d > 2 ** 31
+    G = torch.randn((m, d), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    r = kern.brsgd_aggregate(G, 0.5, 0.0)
+    sc = torch.zeros(m, dtype=torch.float64, device="cuda")
+    l1 = torch.zeros(m, dtype=torch.float64, device="cuda")
+    for a in range(0, d, blk):
+        part = ref.fused_stats_ref(G[:, a:a + blk], ("scores", "l1"))
+        sc += part["scores"].double()
+        l1 += part["l1"].double()
+    assert float(sc.max()) > 2 ** 24
+    exact(r.scores, sc.float())
+    close(r.l1, l1.float())
+    sel, c1, c2, T = ref.brsgd_select_mask(r.scores, r.l1, 0.5, 0.0)
+    exact(r.selected, sel)
+    exact(r.threshold, T)
+    n = 1 << 16
+    for a in (0, d // 2 + 12345, d - n):
+        exact(r.agg[a:a + n], ref.masked_mean_det(G[:, a:a + n], r.w))
+    w = torch.linspace(0.5, 2.0, m, device="cuda")
+    mm = kern.masked_mean(G, w)
+    exact(mm[d - n:], ref.masked_mean_det(G[:, d - n:], w))
+    exact(kern.fused_stats(G, ("scores",))["scores"], sc.float())

@@ -12,7 +12,12 @@ backward at its three timing shapes, and checks nothing: run it on this
 tree's src and on a parent commit's, unpacked beside it, in turns, to
 compare kernels on one card.
 
-Phases (any failure exits non-zero; nothing is caught and carried on):
+Phases (any failure exits non-zero; nothing is caught and carried on),
+in this order: 1, 2's start, B6 / B7 of 3, 3b, 7 but its profile, 7e's
+serve (their libraries build in seconds), 2's end, 3, 4, 5, 6, 7's
+profile, 7b, 7c, 7d, 7e's train step, 7f, 8, 9 (the BrSGD libraries
+take minutes to build, which the first phases use; no torch.profiler
+session runs before every library is loaded):
   1. device: name, count, versions, nvidia-smi name and power limit;
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (one nvcc
      per source, all started together) and print the -Xptxas -v
@@ -60,7 +65,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      128], a ragged S = 200, window 64, D = 64 and 80, in
      bfloat16, S = 5 (below one mma tile), S one past a query and a key
      tile, groups 1, 2 and 8, every D in both types, and the model's
-     strided views against contiguous copies; B7's one-chunk call at
+     strided views against contiguous copies; B6's MLA instance (q/k 96,
+     v 64) at minicpm3-4b's prefill [4, 40, 40, 512] in both types, at
+     [1, 40, 40, 4096], a ragged S = 211 in groups of 2 and a window;
+     B7's one-chunk call at
      rwkv6-7b's [4, 64, 64, 64] with w in (e^-1, 1) and down to e^-3 (the
      clamps bite), a ragged Q = 40 and K = 32, also against the
      sequential oracle, and B7's layer call (wkv6_seq, one launch) at
@@ -72,7 +80,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      128, 128], one train_4k sequence [1, 16, 8, 4096, 128], the prefill
      shape, a ragged S = 200 with window 64, D = 64 and 80, S = 5, S one
      past a tile, groups 1, 2 and 8, the model's strided views against
-     contiguous copies (bit-equal); B7 (dr, dk, dv, dw, du, dS_in) at
+     contiguous copies (bit-equal), and the (96, 64) instance at
+     minicpm3-4b's [4, 40, 40, 512], [1, 40, 40, 4096], S = 211 and a
+     window; B7 (dr, dk, dv, dw, du, dS_in) at
      [2, 128, 64, 64] and [1, 4096, 64, 64], S in {1, 63, 64, 65}, K = 32,
      w in (e^-1, 1) and down to e^-3, from a nonzero state, with a given
      dS_final and without; each backward launched twice (the same bits),
@@ -169,6 +179,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      of the largest |Δp| at lr 1; the card's step with the plain versions
      refusing the card, 1 brsgd launch and one B6 or B7 forward and
      backward launch a layer a worker);
+  7e. the zoo configs at full width: serve.main for qwen3-1.7b (28
+     layers), minicpm3-4b (62 layers of MLA on B6's (96, 64) instance)
+     and nemotron-4-15b (32 layers, 62.5 GB of weights, last: the cache
+     emptied first), batch 4, prompt 512, 16 tokens, 2 passes, B6 once a
+     layer a prefill and never in decode; each card against the host CPU
+     at full width cut to 2 layers over a float32 and a bfloat16 cache
+     (nemotron at batch 1 x 32, the float32 cache alone); minicpm3-4b
+     through the serve loop (4
+     requests on 4 slots: one decode graph, 62 B6 launches an admission,
+     B6 held on the loop's own prefill inputs, tokens equal to the
+     batch-1 decode but for a near tie); qwen3-1.7b's train step at full
+     width through launch.train.main (m = 4, 2 x 128 tokens, brsgd under
+     sign_flip at 0.25, adamw: a warm-up and 3 timed steps, each 1 brsgd
+     launch, 112 B6 and 112 B6-bwd launches and nothing else, host ms,
+     split, peak memory); card = CPU steps of minicpm3-4b (the reduced
+     model with its MLA head widths) and nemotron-4-15b reduced;
+  7f. the demo twins on the card: paper.train_100m --full for 3 steps
+     (the ~100M qwen3 config, m = 8 workers of 4 x 512 tokens; 1 brsgd,
+     96 B6 and 96 B6-bwd launches a step; the loss falls),
+     paper.serve_demo --train-and-serve (8 requests across a hot swap,
+     the last checkpoint served), paper.byzantine_lenet at 20 steps,
+     each held to its launches;
   8. timing with CUDA events (bare kernel launch, wrapper call, plain
      version, one library call) and each bare kernel's device time
      (torch.profiler) at [20, 61706] and [20, 8388608] (the fused select
@@ -178,19 +210,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      must not be slower) and on a sweep of grids; the fused select launch
      of each gram rule; B6 at
      its serve shape and at S = 4096 beside SDPA, with its FP32-pipe and
-     3xTF32 tensor-core bounds; B7 per layer launch at [4, 512, 64, 64]
+     3xTF32 tensor-core bounds, and its (96, 64) instance at minicpm3-4b's
+     prefill and at S = 4096 (SDPA on the same unequal widths); B7 per layer launch at [4, 512, 64, 64]
      and its one-chunk call; B6's backward at [2, 16, 8, 128, 128] and
      [1, 16, 8, 4096, 128] beside the backward of SDPA (its kernels'
-     registers, spills, shared memory and CTAs an SM first), B7's (its
+     registers, spills, shared memory and CTAs an SM first), and its
+     (96, 64) instance at [4, 40, 40, 512] and [1, 40, 40, 4096], B7's (its
      four kernels, each timed too, its CTAs an SM and shared memory
      first) at [2, 128, 64, 64], [2, 128, 64, 32] and [1, 4096, 64, 64],
      with the bytes its design moves beside the bound, each with the
      plain versions' autograd backward; every BrSGD kernel's device time at m = 10, 12,
      16, 32, 33, 63 and 64 (12, 33 and 63 on bucket instances) at d =
      61706 and 8388608;
-  9. the {"gradient": [...]}, {"train": {...}}, {"phase_seconds": {...}} and
-     {"kernels": [...]} lines, the nvidia-smi line, and last the
-     {"ok": true, "device": {...}} line.
+  9. the {"gradient": [...]}, {"train": {...}}, {"zoo": ..., "demos": ...},
+     {"phase_seconds": {...}} and {"kernels": [...]} lines (a
+     {"phase": ..., "seconds": ...} line also ends each phase), the
+     nvidia-smi line, and last the {"ok": true, "device": {...}} line.
 """
 from __future__ import annotations
 
@@ -280,6 +315,16 @@ FLASH_CASES = ((4, 16, 8, 512, 128, 0, "float32"),
                (1, 4, 2, 65, 80, 0, "bfloat16"),
                (2, 8, 4, 300, 64, 48, "bfloat16"))
 FLASH_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}  # rtol, atol
+# B6's (D, Dv) = (96, 64) instance, MLA's (B, H, Hkv, S, D, Dv, window,
+# dtype name): minicpm3-4b's prefill [4, 40, 40, 512] in both types, one
+# train_4k sequence, a ragged S in GQA groups, a window; held to the B6
+# rows' FLASH_TOL
+MLA_FLASH_CASES = ((4, 40, 40, 512, 96, 64, 0, "float32"),
+                   (4, 40, 40, 512, 96, 64, 0, "bfloat16"),
+                   (1, 40, 40, 4096, 96, 64, 0, "float32"),
+                   (2, 8, 4, 211, 96, 64, 0, "float32"),
+                   (2, 8, 4, 1000, 96, 64, 48, "float32"),
+                   (1, 40, 40, 200, 96, 64, 64, "bfloat16"))
 # B7 cases (B, H, Q, K, log-decay range): rwkv6-7b's chunk with w in
 # (e^-1, 1), w down to e^-3, a ragged last chunk, K = 32
 WKV_CASES = ((4, 64, 64, 64, 1.0), (4, 64, 64, 64, 3.0),
@@ -310,6 +355,13 @@ FLASH_BWD_CASES = ((2, 16, 8, 128, 128, 0), (1, 16, 8, 4096, 128, 0),
 # bits in every run (seeded inputs, a deterministic kernel).  So each case
 # is held to 2e-5 + 2e-8 per key, never above FLASH_BWD_TOL.
 FLASH_BWD_TOL = 1e-4
+# B6-bwd's (96, 64) instance (B, H, Hkv, S, D, Dv, window), at the per-S
+# limit of the B6-bwd rows: minicpm3-4b's prefill shape, one train_4k
+# sequence, a ragged S in GQA groups, a window
+MLA_FLASH_BWD_CASES = ((4, 40, 40, 512, 96, 64, 0),
+                       (1, 40, 40, 4096, 96, 64, 0),
+                       (2, 8, 4, 211, 96, 64, 0),
+                       (2, 8, 4, 1000, 96, 64, 48))
 
 
 def _flash_bwd_tol(S: int) -> float:
@@ -326,6 +378,17 @@ WKV_BWD_CASES = ((2, 128, 64, 64, 1.0), (2, 128, 64, 64, 3.0),
                  (2, 65, 8, 64, 1.0), (2, 130, 8, 32, 1.0),
                  (2, 130, 8, 32, 3.0))
 WKV_BWD_TOL = 2e-5            # each gradient, relative to its largest |plain|
+# B6's and B6-bwd's timing rows (label, (B, H, Hkv, S, D, Dv)): the
+# qwen3-0.6b serve / train shape and one train_4k sequence, and MLA's
+# (96, 64) instance at minicpm3-4b's prefill and at one train_4k sequence
+FLASH_TIMING = (("serve", (4, 16, 8, 512, 128, 128)),
+                ("long", (1, 16, 8, 4096, 128, 128)),
+                ("mla", (4, 40, 40, 512, 96, 64)),
+                ("mla_long", (1, 40, 40, 4096, 96, 64)))
+FLASH_BWD_TIMING = (("train", (2, 16, 8, 128, 128, 128)),
+                    ("long", (1, 16, 8, 4096, 128, 128)),
+                    ("mla", (4, 40, 40, 512, 96, 64)),
+                    ("mla_long", (1, 40, 40, 4096, 96, 64)))
 # B7's backward kernels by a part of their names; a tree from before the
 # chunk-parallel design (a parent's, for --kernel-times) has one kernel
 WKV_BWD_PARTS = (("wkv6_bwd_carry",), ("wkv6_bwd_scan",),
@@ -380,6 +443,38 @@ TRAIN_CPU_CASES = (("qwen3-0.6b", 2), ("rwkv6-7b", None))
 TRAIN_CPU_M = 4
 TRAIN_CPU_PARAM_TOL = 1e-4    # params, relative to the largest |Δp| (lr 1)
 SERVE_ARCHS = ("qwen3-0.6b", "rwkv6-7b")
+# the zoo configs at full width (phase 7e): single-shot serve, nemotron
+# last so that its 62.5 GB of weights meet no other arch's; card = CPU at
+# 2 layers (batch, prompt): nemotron's 256,000 x 6144 head on a short
+# prompt (its CPU forward at [2, 80] is ~6x the work)
+ZOO_SERVE_ARCHS = ("qwen3-1.7b", "minicpm3-4b", "nemotron-4-15b")
+ZOO_SERVE_ARGS = ("--batch", "4", "--prompt-len", "512", "--gen", "16",
+                  "--repeat", "2")
+ZOO_CPU_SHAPES = {"qwen3-1.7b": (2, 80), "minicpm3-4b": (2, 80),
+                  "nemotron-4-15b": (1, 32)}
+# the caches each is held over: nemotron's CPU decode reads its 15.7 GB of
+# 2-layer weights a step, so it takes the float32 cache (SERVE_TOL) alone
+ZOO_CPU_CACHES = {"qwen3-1.7b": ("float32", "bfloat16"),
+                  "minicpm3-4b": ("float32", "bfloat16"),
+                  "nemotron-4-15b": ("float32",)}
+ZOO_CPU_STEPS = 4
+# minicpm3-4b through the serve loop at full width: 4 requests on 4 slots
+ZOO_LOOP_ARCH = "minicpm3-4b"
+ZOO_LOOP_ARGS = ("--requests", "4", "--max-batch", "4", "--prompt-len",
+                 "512", "--gen", "8")
+# qwen3-1.7b's train step at full width through launch.train.main: m = 4
+# (G 27.5 GB beside params, m, v, the aggregate and one worker's gradient)
+ZOO_TRAIN_ARCH, ZOO_TRAIN_M = "qwen3-1.7b", 4
+# card = CPU steps: minicpm3-4b's reduced model with its full MLA head
+# widths (q/k 64 + 32, v 64: the reduced widths, 48 and 32, have no B6
+# instance; cut to 2 layers at full width, D = 0.5 B, the CPU's plain
+# aggregation of G [4, D] took 74 s of the script); nemotron-4-15b
+# reduced: cut to 2 layers at full width its D is 3.9 B, and G [4, D]
+# alone (63 GB) with params and sgd's state does not fit the card
+ZOO_TRAIN_CPU_CASES = (("minicpm3-4b", "mla_heads"), ("nemotron-4-15b", None))
+# the demo twins (phase 7f): train_100m --full for DEMO_100M_STEPS steps
+DEMO_100M_STEPS = 3
+DEMO_LENET_STEPS = 20         # byzantine_lenet's table (its default is 60)
 SERVE_ARGS = ("--batch", "4", "--prompt-len", "512", "--gen", "16",
               "--repeat", "3")
 SERVE_TOL = 1e-4              # logits, relative to the largest |logit|
@@ -457,17 +552,38 @@ def phase_device(torch):
 # 2. build
 # ---------------------------------------------------------------------------
 
-def phase_build():
+# the libraries of B6, B7 and their backward kernels: they build in
+# seconds, the two BrSGD libraries in minutes, so the sequence phases run
+# while those still compile
+SEQ_LIBS = ("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd")
+
+
+def phase_build_start():
+    """Starts one nvcc per source, all at once; returns the pending
+    builds (``_build.Builds``)."""
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
-    paths = _build.build_all()
+    return _build.Builds()
+
+
+def phase_build_wait(builds, names):
+    """Waits for the libraries ``names`` and loads them."""
+    from repro_torch.kernels import _build
+    for name in builds.wait(names):
+        _build.load(name)
+
+
+def phase_build(builds, t_start):
+    """Waits for every library, then the SASS checks and the ptxas
+    report."""
+    from repro_torch.kernels import _build
+    paths = builds.wait()
     for name in paths:
         _build.load(name)
+    secs = time.perf_counter() - t_start
     phase_sass(paths)
-    secs = time.perf_counter() - t0
     libs = ", ".join(str(p.relative_to(ROOT)) for p in paths.values())
-    print(f"build: {libs} in {secs:.1f} s (one nvcc per source, in "
-          f"parallel)", flush=True)
+    print(f"build: {libs} done {secs:.1f} s after the start (one nvcc per "
+          f"source, in parallel)", flush=True)
     if not _build.BUILD_LOGS:
         print("build: ptxas report not measured (libraries reused from an "
               "earlier build)", flush=True)
@@ -1122,6 +1238,14 @@ def _wkv_inputs(torch, B, H, Q, K, decay, seed=0):
     return r, k, v, w, u, S0
 
 
+def _flash_inputs(torch, B, H, Hkv, S, D, Dv, dtype, with_do=False):
+    """q [B,H,S,D], k [B,Hkv,S,D], v [B,Hkv,S,Dv] (and dO [B,H,S,Dv]) as
+    the model's strided views."""
+    shapes = ((H, D), (Hkv, D), (Hkv, Dv)) + (((H, Dv),) if with_do else ())
+    return tuple(_bshd(torch, B, S, h, d, i, dtype)
+                 for i, (h, d) in enumerate(shapes))
+
+
 def _check_flash(torch, ref, q, k, v, win, label, worst, row=None):
     """B6 on (q, k, v) against its plain version at FLASH_TOL, and on
     contiguous copies (bit-equal: the model passes strided views)."""
@@ -1175,6 +1299,12 @@ def phase_seq_kernels(torch, ref):
                    for i, h in enumerate((H, Hkv, Hkv)))
         _check_flash(torch, ref, q, k, v, win,
                      f"[{B},{H},{Hkv},{S},{D}] window={win} {dt}", worst)
+    for B, H, Hkv, S, D, Dv, win, dt in MLA_FLASH_CASES:
+        q, k, v = _flash_inputs(torch, B, H, Hkv, S, D, Dv, dt)
+        _check_flash(torch, ref, q, k, v, win,
+                     f"[{B},{H},{Hkv},{S},{D}->{Dv}] window={win} {dt}",
+                     worst, {"instance": [D, Dv]})
+        del q, k, v
     for B, H, Q, K, decay in WKV_CASES:
         ins = _wkv_inputs(torch, B, H, Q, K, decay)
         y, S_out = wkv_kern.wkv6_chunk(*ins)
@@ -1236,10 +1366,13 @@ def phase_bwd_kernels(torch, ref):
     from repro_torch.kernels import flash_attention as fa_kern
     from repro_torch.kernels import wkv6 as wkv_kern
     worst = {name: 0.0 for name in BWD_KERNELS}
-    for B, H, Hkv, S, D, win in FLASH_BWD_CASES:
-        label = f"[{B},{H},{Hkv},{S},{D}] window={win}"
-        q, k, v, dO = (_bshd(torch, B, S, h, D, i, "float32")
-                       for i, h in enumerate((H, Hkv, Hkv, H)))
+    cases = ([c[:5] + (c[4],) + c[5:] for c in FLASH_BWD_CASES]
+             + list(MLA_FLASH_BWD_CASES))
+    for B, H, Hkv, S, D, Dv, win in cases:
+        label = (f"[{B},{H},{Hkv},{S},{D}] window={win}" if D == Dv else
+                 f"[{B},{H},{Hkv},{S},{D}->{Dv}] window={win}")
+        q, k, v, dO = _flash_inputs(torch, B, H, Hkv, S, D, Dv, "float32",
+                                    with_do=True)
         o_serve = fa_kern.flash_attention(q, k, v, win)
         o, lse = fa_kern.flash_attention_lse(q, k, v, win)
         got = fa_kern.flash_attention_bwd(q, k, v, o, lse, dO, win)
@@ -1811,104 +1944,137 @@ def _serve_profile(torch, cfg, res):
     del params, cache, state
 
 
-def phase_serve(torch):
-    """(a)/(b) serve.main at full width with the launch counters; (c) the
-    card against the host CPU at full width cut to 2 layers; (d) prefill
-    == sequential decode on the card for the reduced configs."""
-    import dataclasses
+def _serve_full_width(torch, arch, args):
+    """serve.main at full width with the launch counters read around it:
+    B6 (B7) once a layer in each prefill, nothing in decode, finite
+    logits.  Returns (result, launches over every pass, launches of one
+    prefill)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", arch, *args])
+    secs = time.perf_counter() - t0
+    counts = ops.launches()
+    passes, S = res["repeat"], res["prompt_len"]
+    want = _expected_prefill(cfg, S)
+    pre = {k: n for k, n in res["launches"]["prefill"].items() if n}
+    dec = {k: n for k, n in res["launches"]["decode"].items() if n}
+    if pre != want or dec:
+        fail(f"serve {arch}: prefill launched {pre} (expected {want}), "
+             f"decode launched {dec} (expected none)")
+    total = {k: n for k, n in counts.items() if n}
+    if total != {k: n * passes for k, n in want.items()}:
+        fail(f"serve {arch}: {passes} passes launched {total}")
+    if not res["logits_finite"]:
+        fail(f"serve {arch}: non-finite logits")
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit({"check": "serve", "arch": arch, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "batch": res["batch"],
+          "prompt_len": S, "gen": res["gen"], "passes": passes,
+          "prefill_launches": pre, "decode_launches": dec or "none",
+          "launches_all_passes": total,
+          "prefill_tok_s_median": res["prefill_tok_s"],
+          "decode_tok_s_median": res["decode_tok_s"],
+          "prefill_s_median": res["prefill_s"],
+          "decode_s_median": res["decode_s"], "seconds": secs,
+          "peak_mem_gb": res["peak_mem_gb"], "logits_finite": True})
+    return res, total, pre
+
+
+def _serve_card_vs_cpu(torch, arch, B, S, steps,
+                       dtypes=("float32", "bfloat16")):
+    """The card against the host CPU at full width cut to 2 layers: the
+    prefill's logits and ``steps`` teacher-forced decode steps over the
+    float32 cache (held to SERVE_TOL) and over the serve path's bfloat16
+    cache (held to BF16_CACHE_TOL: decode rounds the cache entries and
+    the attention weights to bfloat16 on both devices, from float32
+    values that differ in their last bits, so a rounding can land one
+    bfloat16 step, 2^-8, apart), and the greedy tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p_gpu = PM.init_params(TF.param_defs(cfg), gen, device="cuda")
+    p_cpu = _tree_to(p_gpu, "cpu")
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda").cpu()
+    for dt in dtypes:
+        dtype = getattr(torch, dt)
+        tol = SERVE_TOL if dt == "float32" else BF16_CACHE_TOL
+        caches = {d: TF.init_cache(cfg, B, S + steps, dtype, d)
+                  for d in ("cpu", "cuda")}
+        lc, caches["cpu"] = TF.prefill_cache(cfg, p_cpu, tokens,
+                                             caches["cpu"])
+        lg, caches["cuda"] = TF.prefill_cache(cfg, p_gpu, tokens.cuda(),
+                                              caches["cuda"])
+        errs = [_err(lg.cpu(), lc) / float(lc.abs().max())]
+        greedy_equal = bool(torch.equal(lg[:, -1].argmax(-1).cpu(),
+                                        lc[:, -1].argmax(-1)))
+        tok = lc[:, -1].argmax(-1)[:, None]
+        for i in range(steps):
+            lc, caches["cpu"] = TF.decode_step(cfg, p_cpu, caches["cpu"],
+                                               tok, S + i)
+            lg, caches["cuda"] = TF.decode_step(cfg, p_gpu, caches["cuda"],
+                                                tok.cuda(), S + i)
+            errs.append(_err(lg.cpu(), lc) / float(lc.abs().max()))
+            nxt = lc.reshape(B, -1).argmax(-1)
+            greedy_equal &= bool(torch.equal(
+                lg.reshape(B, -1).argmax(-1).cpu(), nxt))
+            tok = nxt[:, None]
+        emit({"check": "serve_card_vs_cpu", "arch": arch, "n_layers": 2,
+              "d_model": cfg.d_model, "batch": B, "prompt_len": S,
+              "decode_steps": steps, "cache_dtype": dt,
+              "prefill_rel_err": errs[0],
+              "decode_rel_err_max": max(errs[1:]),
+              "prefill_rel_tol": SERVE_TOL, "decode_rel_tol": tol,
+              "greedy_equal": greedy_equal,
+              "seconds": time.perf_counter() - t0})
+        if errs[0] > SERVE_TOL or max(errs[1:]) > tol or not greedy_equal:
+            fail(f"serve {arch} ({dt} cache): card and CPU differ at "
+                 f"full width (relative errors {errs}, greedy equal "
+                 f"{greedy_equal})")
+    del p_gpu, p_cpu, caches
+    torch.cuda.empty_cache()
+
+
+def phase_serve_profile(torch, results):
+    """Each serve arch's profile (``_serve_profile``) beside phase 7's
+    host times: after every library is loaded, since kernels of a library
+    loaded after the process's first torch.profiler session were missing
+    from later traces (on an H100: a brsgd aggregate_local counted 0
+    device kernels in five traces)."""
+    from repro_torch.configs import get_config
+    for arch, res in results.items():
+        _serve_profile(torch, get_config(arch), res)
+
+
+def phase_serve(torch):
+    """(a)/(b) serve.main at full width with the launch counters; (c) the
+    card against the host CPU at full width cut to 2 layers; (d) prefill
+    == sequential decode on the card for the reduced configs.  No
+    profiler: it runs while the BrSGD libraries build (the profile is
+    ``phase_serve_profile``)."""
+    from repro_torch.configs import get_config
     from repro_torch.models import params as PM
     from repro_torch.models import transformer as TF
 
     results, launches, per_prefill = {}, {}, {}
     for arch in SERVE_ARCHS:
-        cfg = get_config(arch)
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        res = serve.main(["--arch", arch, *SERVE_ARGS])
-        secs = time.perf_counter() - t0
-        counts = ops.launches()
-        passes, S = res["repeat"], res["prompt_len"]
-        want = _expected_prefill(cfg, S)
-        pre = {k: n for k, n in res["launches"]["prefill"].items() if n}
-        dec = {k: n for k, n in res["launches"]["decode"].items() if n}
-        if pre != want or dec:
-            fail(f"serve {arch}: prefill launched {pre} (expected {want}), "
-                 f"decode launched {dec} (expected none)")
-        total = {k: n for k, n in counts.items() if n}
-        if total != {k: n * passes for k, n in want.items()}:
-            fail(f"serve {arch}: {passes} passes launched {total}")
-        if not res["logits_finite"]:
-            fail(f"serve {arch}: non-finite logits")
+        res, total, pre = _serve_full_width(torch, arch, SERVE_ARGS)
         launches.update(total)
         per_prefill.update(pre)
         results[arch] = res
-        emit({"check": "serve", "arch": arch, "n_layers": cfg.n_layers,
-              "d_model": cfg.d_model, "batch": res["batch"],
-              "prompt_len": S, "gen": res["gen"], "passes": passes,
-              "prefill_launches": pre, "decode_launches": dec or "none",
-              "launches_all_passes": total,
-              "prefill_tok_s_median": res["prefill_tok_s"],
-              "decode_tok_s_median": res["decode_tok_s"],
-              "prefill_s_median": res["prefill_s"],
-              "decode_s_median": res["decode_s"], "seconds": secs,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "logits_finite": True})
-        _serve_profile(torch, cfg, res)
 
-    # (c) card against the host CPU, full width, 2 layers, prompt 80, with
-    # the float32 cache (held to SERVE_TOL) and the serve path's bfloat16
-    # cache (held to BF16_CACHE_TOL: decode rounds the cache entries and
-    # the attention weights to bfloat16 on both devices, from float32
-    # values that differ in their last bits, so a rounding can land one
-    # bfloat16 step, 2^-8, apart)
-    B, S, steps = 2, 80, 8
+    # (c) card against the host CPU, full width, 2 layers, prompt 80
     for arch in SERVE_ARCHS:
-        cfg = dataclasses.replace(get_config(arch), n_layers=2)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        p_gpu = PM.init_params(TF.param_defs(cfg), gen, device="cuda")
-        p_cpu = _tree_to(p_gpu, "cpu")
-        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
-                               device="cuda").cpu()
-        for dtype, tol in ((torch.float32, SERVE_TOL),
-                           (torch.bfloat16, BF16_CACHE_TOL)):
-            caches = {d: TF.init_cache(cfg, B, S + steps, dtype, d)
-                      for d in ("cpu", "cuda")}
-            lc, caches["cpu"] = TF.prefill_cache(cfg, p_cpu, tokens,
-                                                 caches["cpu"])
-            lg, caches["cuda"] = TF.prefill_cache(cfg, p_gpu, tokens.cuda(),
-                                                  caches["cuda"])
-            errs = [_err(lg.cpu(), lc) / float(lc.abs().max())]
-            greedy_equal = bool(torch.equal(lg[:, -1].argmax(-1).cpu(),
-                                            lc[:, -1].argmax(-1)))
-            tok = lc[:, -1].argmax(-1)[:, None]
-            for i in range(steps):
-                lc, caches["cpu"] = TF.decode_step(cfg, p_cpu, caches["cpu"],
-                                                   tok, S + i)
-                lg, caches["cuda"] = TF.decode_step(cfg, p_gpu,
-                                                    caches["cuda"],
-                                                    tok.cuda(), S + i)
-                errs.append(_err(lg.cpu(), lc) / float(lc.abs().max()))
-                nxt = lc.reshape(B, -1).argmax(-1)
-                greedy_equal &= bool(torch.equal(
-                    lg.reshape(B, -1).argmax(-1).cpu(), nxt))
-                tok = nxt[:, None]
-            dt = str(dtype).replace("torch.", "")
-            emit({"check": "serve_card_vs_cpu", "arch": arch, "n_layers": 2,
-                  "d_model": cfg.d_model, "batch": B, "prompt_len": S,
-                  "decode_steps": steps, "cache_dtype": dt,
-                  "prefill_rel_err": errs[0],
-                  "decode_rel_err_max": max(errs[1:]),
-                  "prefill_rel_tol": SERVE_TOL, "decode_rel_tol": tol,
-                  "greedy_equal": greedy_equal})
-            if errs[0] > SERVE_TOL or max(errs[1:]) > tol or not greedy_equal:
-                fail(f"serve {arch} ({dt} cache): card and CPU differ at "
-                     f"full width (relative errors {errs}, greedy equal "
-                     f"{greedy_equal})")
-        del p_gpu, p_cpu, caches
+        _serve_card_vs_cpu(torch, arch, 2, 80, 8)
 
     # (d) prefill == sequential decode on the card, reduced configs
     for arch in SERVE_ARCHS:
@@ -2756,9 +2922,10 @@ def _hold_launch_on_blocks(torch, G, st, agg_blocks, beta, threshold) -> dict:
     return res
 
 
-def _train_full_width(torch, ops, cfg, m, want, ckpt_dir):
+def _train_full_width(torch, ops, cfg, m, want, ckpt_dir=None):
     """``launch.train.main`` at full width for TRAIN_STEPS + 1 steps (the
-    first a warm-up), its checkpoint and telemetry into ``ckpt_dir``.  The
+    first a warm-up), its checkpoint and telemetry into ``ckpt_dir`` (none
+    without one).  The
     bundle main builds is wrapped so that each step is timed and held to
     ``want`` launches (counted from 0 before it); host ms (median of
     TRAIN_STEPS), the split of the median step, peak memory.  Returns
@@ -2797,8 +2964,9 @@ def _train_full_width(torch, ops, cfg, m, want, ckpt_dir):
             "--steps", str(TRAIN_STEPS + 1),
             "--batch-per-worker", str(TRAIN_B), "--seq", str(TRAIN_S),
             "--attack", TRAIN_ATTACK["attack"],
-            "--alpha", str(TRAIN_ATTACK["alpha"]), "--optimizer", "adamw",
-            "--ckpt-dir", str(ckpt_dir)]
+            "--alpha", str(TRAIN_ATTACK["alpha"]), "--optimizer", "adamw"]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", str(ckpt_dir)]
     torch.cuda.reset_peak_memory_stats()
     step_mod.build_train_step = build_timed
     try:
@@ -2811,16 +2979,18 @@ def _train_full_width(torch, ops, cfg, m, want, ckpt_dir):
     res.update(argv=argv, scope=bundle.scope, layout=bundle.layout,
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
                card_gb=torch.cuda.get_device_properties(0).total_memory / 1e9)
-    rows = telemetry.read_rows(str(ckpt_dir))
-    res["ckpt"] = {"steps": ckpt.steps(str(ckpt_dir)),
-                   "history_rows": len(json.loads(
-                       (ckpt_dir / "history.json").read_text())),
-                   "telemetry_rows": len(rows)}
     n = TRAIN_STEPS + 1
+    want_ckpt = None
+    if ckpt_dir is not None:
+        rows = telemetry.read_rows(str(ckpt_dir))
+        res["ckpt"] = {"steps": ckpt.steps(str(ckpt_dir)),
+                       "history_rows": len(json.loads(
+                           (ckpt_dir / "history.json").read_text())),
+                       "telemetry_rows": len(rows)}
+        want_ckpt = {"steps": [n], "history_rows": n, "telemetry_rows": n}
     if (len(steps) != n or [h["step"] for h in history] != list(range(n))
             or any(h["loss"] != r["loss"] for h, r in zip(history, steps))
-            or res["ckpt"] != {"steps": [n], "history_rows": n,
-                               "telemetry_rows": n}):
+            or res.get("ckpt") != want_ckpt):
         fail(f"train.main: {len(steps)} steps, history {history}, "
              f"{res['ckpt']} (expected {n} of each, checkpoint step {n})")
     timed = sorted(steps[1:], key=lambda r: r["host_ms"])
@@ -2899,9 +3069,20 @@ def _supervised_steps(torch, ops, tcfg, params, opt_state, pipe, m):
     return params, opt_state, res
 
 
+def _mla_heads_config(cfg):
+    """The reduced config of an MLA arch with the arch's own attention
+    head widths (4 heads, latent ranks 64 / 32): its B6 instance in a
+    small model."""
+    import dataclasses
+    return dataclasses.replace(cfg.reduced(), attention=dataclasses.replace(
+        cfg.attention, n_heads=4, n_kv_heads=4, q_lora_rank=64,
+        kv_lora_rank=32))
+
+
 def _train_card_vs_cpu(torch, arch, n_layers):
     """The step of ``arch`` at full width cut to ``n_layers`` layers (None:
-    its reduced config) at TRAIN_CPU_M workers, sgd at lr 1, on the card
+    its reduced config; "mla_heads": ``_mla_heads_config``) at
+    TRAIN_CPU_M workers, sgd at lr 1, on the card
     and on the host CPU from
     the same params and batch: per-worker gradient rows (G before the
     attack is the rows of the CPU gradients; each leaf's slice within
@@ -2921,6 +3102,7 @@ def _train_card_vs_cpu(torch, arch, n_layers):
     from repro_torch.training import build_train_step
     cfg = get_config(arch)
     cfg = (cfg.reduced() if n_layers is None
+           else _mla_heads_config(cfg) if n_layers == "mla_heads"
            else dataclasses.replace(cfg, n_layers=n_layers))
     bcfg = ByzantineConfig(**TRAIN_ATTACK)
     tcfg = TrainConfig(model=cfg, byzantine=bcfg, optimizer="sgd", lr=1.0,
@@ -3068,6 +3250,237 @@ def phase_train(torch):
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
     return results, launches
+
+
+# ---------------------------------------------------------------------------
+# 7e. the dense zoo configs at full width
+# ---------------------------------------------------------------------------
+
+def _zoo_serve_loop(torch, ref, worst):
+    """minicpm3-4b through serve.main --serve-loop at full width from
+    --seed: every request completes, one decode graph, B6 = 62 launches
+    per admission on the (96, 64) instance (held against its plain
+    version on the loop's own prefill inputs) and none in the decode
+    step, every request's tokens equal to its isolated batch-1
+    serve.generate decode but for a near tie (BF16_CACHE_TOL over the
+    bfloat16 cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = get_config(ZOO_LOOP_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with _first_inputs(torch, ops, ("flash_attention",)) as seen:
+        t0 = time.perf_counter()
+        res = serve.main(["--arch", ZOO_LOOP_ARCH, "--serve-loop",
+                          *ZOO_LOOP_ARGS])
+        secs = time.perf_counter() - t0
+    seen["wkv6_seq"] = {}
+    loop, stream, done = res["loop"], res["stream"], res["done"]
+    per = _check_loop_launches(ZOO_LOOP_ARCH, cfg, res)
+    if res["decode_graphs"] != 1:
+        fail(f"serve loop {ZOO_LOOP_ARCH}: {res['decode_graphs']} decode "
+             f"graphs (expected 1)")
+    if sorted(done) != list(range(len(stream))) or any(
+            len(done[r]) != g for r, (_, g) in enumerate(stream)):
+        fail(f"serve loop {ZOO_LOOP_ARCH}: not every request completed")
+    lat = loop.metrics.step_lat_s
+    row = {"check": "serve_loop", "arch": ZOO_LOOP_ARCH,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "requests": res["requests"], "max_batch": res["max_batch"],
+           "max_len": res["max_len"], "tokens": res["tokens"],
+           "seconds": secs, "tok_s": res["tok_s"], "steps": res["steps"],
+           "decode_tok_s": res["decode_tok_s"],
+           "step_ms_median": float(sorted(lat[1:])[len(lat[1:]) // 2])
+           * 1e3 if len(lat) > 1 else None,
+           "decode_graphs": res["decode_graphs"],
+           "prefill_shapes": res["prefill_shapes"],
+           "launches_per_admission": per, "decode_launches": "none",
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    row["prefill_inputs_checked"] = _check_loop_inputs(
+        torch, ref, ZOO_LOOP_ARCH, seen, worst)
+    if not row["prefill_inputs_checked"]:
+        fail(f"serve loop {ZOO_LOOP_ARCH}: no prefill kernel input seen")
+    t0 = time.perf_counter()
+    row["against_generate"] = {
+        "cache_dtype": cfg.dtype, "near_tie_tol": BF16_CACHE_TOL,
+        **_ties(_against_generate(torch, serve, cfg, loop.params(), stream,
+                                  done, res["max_len"], BF16_CACHE_TOL))}
+    row["against_generate_seconds"] = time.perf_counter() - t0
+    emit(row)
+    del res, loop, done, seen
+    torch.cuda.empty_cache()
+    return row, per
+
+
+def phase_zoo_serve(torch, ref, worst):
+    """(a) serve.main at full width for qwen3-1.7b, minicpm3-4b (MLA, B6's
+    (96, 64) instance) and nemotron-4-15b (62.5 GB of weights: the cache
+    is emptied first and nothing else stays on the card), with B6 held
+    to one launch a layer a prefill; (b) each card = CPU at full width
+    cut to 2 layers; (c) minicpm3-4b through the serve loop.  B6 only:
+    it runs while the BrSGD libraries build.  Returns the results and
+    the launches counted."""
+    import gc
+    out = {"serve": {}, "launches": {}, "per_prefill": {}}
+    sub_s = {}
+    for arch in ZOO_SERVE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res, total, pre = _serve_full_width(torch, arch, ZOO_SERVE_ARGS)
+        sub_s[f"serve {arch}"] = time.perf_counter() - t0
+        out["serve"][arch] = {k: res[k] for k in (
+            "prefill_tok_s", "decode_tok_s", "prefill_s", "decode_s",
+            "n_layers", "batch", "prompt_len", "gen", "repeat",
+            "peak_mem_gb")}
+        for k, n in total.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        out["per_prefill"][arch] = pre
+        del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ZOO_SERVE_ARCHS:
+        t0 = time.perf_counter()
+        B, S = ZOO_CPU_SHAPES[arch]
+        _serve_card_vs_cpu(torch, arch, B, S, ZOO_CPU_STEPS,
+                           ZOO_CPU_CACHES[arch])
+        sub_s[f"serve card vs CPU {arch}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serve_loop"], out["loop_per_admission"] = _zoo_serve_loop(
+        torch, ref, worst)
+    sub_s[f"serve loop {ZOO_LOOP_ARCH}"] = time.perf_counter() - t0
+    emit({"check": "zoo_serve_seconds", **sub_s})
+    return out
+
+
+def phase_zoo_train(torch, zoo):
+    """(d) qwen3-1.7b's train step at full width through
+    launch.train.main, m = ZOO_TRAIN_M, brsgd under sign_flip at 0.25,
+    adamw, the plain versions refusing the card, each step 1 brsgd launch
+    and one B6 and one B6-bwd launch a layer a worker; (e) card = CPU
+    steps of minicpm3-4b and nemotron-4-15b.  Adds its results and
+    launches to ``zoo`` (phase_zoo_serve's)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    out, sub_s = zoo, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(ZOO_TRAIN_ARCH)
+    m = ZOO_TRAIN_M
+    n = m * cfg.n_layers
+    want = {"brsgd_aggregate": 1, "flash_attention": n,
+            "flash_attention_bwd": n}
+    # no checkpoint: phase 7d writes and counts one (6.9 GB here)
+    with _plain_versions_refuse_the_card(torch):
+        t0 = time.perf_counter()
+        params, opt_state, res, probe, got_each = _train_full_width(
+            torch, ops, cfg, m, want)
+        res["D"] = PM.count_params(TF.param_defs(cfg))
+        res["seconds"] = time.perf_counter() - t0
+        sub_s[f"train {ZOO_TRAIN_ARCH}"] = res["seconds"]
+        emit(res)
+        out["train"] = res
+        del params, opt_state, probe
+    for got in got_each:
+        for k, v in got.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, n_layers in ZOO_TRAIN_CPU_CASES:
+        t0 = time.perf_counter()
+        _train_card_vs_cpu(torch, arch, n_layers)
+        sub_s[f"train card vs CPU {arch}"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    emit({"check": "zoo_train_seconds", **sub_s})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7f. the demo twins
+# ---------------------------------------------------------------------------
+
+def phase_demos(torch):
+    """The three demo twins of src/repro_torch/paper on the card:
+    train_100m --full (the ~100M qwen3 config, D = 100,684,032, m = 8
+    workers of 4 x 512 tokens, gaussian at 0.25, brsgd) for
+    DEMO_100M_STEPS steps, each 1 brsgd launch and one B6 and one B6-bwd
+    launch a layer a worker, the loss falling; serve_demo
+    --train-and-serve (its own assertions: 8 requests, a hot swap, the
+    last checkpoint served, one decode graph a parameter slot; its
+    launches: 5 brsgd, one B6 and B6-bwd a layer a worker a step, one B6
+    a layer an admission); and byzantine_lenet at DEMO_LENET_STEPS steps
+    (one brsgd, median or mean launch a step; the brsgd column
+    finite)."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.paper import byzantine_lenet, serve_demo, train_100m
+    out, sub_s = {}, {}
+    tmp = Path(tempfile.mkdtemp(prefix="demo_", dir=ROOT / "build"))
+    try:
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist = train_100m.main(["--full", "--steps", str(DEMO_100M_STEPS),
+                                "--ckpt-dir", str(tmp / "train_100m")])
+        sub_s["train_100m"] = time.perf_counter() - t0
+        cfg = train_100m.full_config()
+        n = DEMO_100M_STEPS * 8 * cfg.n_layers
+        want = {"brsgd_aggregate": DEMO_100M_STEPS, "flash_attention": n,
+                "flash_attention_bwd": n}
+        got = {k: v for k, v in ops.launches().items() if v}
+        if got != want or len(hist) != DEMO_100M_STEPS:
+            fail(f"train_100m --full: launches {got} (expected {want}), "
+                 f"{len(hist)} steps")
+        out["train_100m"] = {
+            "steps": len(hist), "losses": [h["loss"] for h in hist],
+            "launches": got, "seconds": sub_s["train_100m"],
+            "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+        emit({"check": "train_100m_full", **out["train_100m"]})
+        torch.cuda.empty_cache()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = serve_demo.main(["--train-and-serve"])
+        sub_s["serve_demo"] = time.perf_counter() - t0
+        got = {k: v for k, v in ops.launches().items() if v}
+        # the reduced model (2 layers): 5 steps of 8 workers, then 8
+        # prefills at batch 1; the decode steps launch nothing
+        want = {"brsgd_aggregate": 5, "flash_attention": 5 * 8 * 2 + 8 * 2,
+                "flash_attention_bwd": 5 * 8 * 2}
+        if got != want:
+            fail(f"serve_demo --train-and-serve: launches {got} (expected "
+                 f"{want})")
+        out["serve_demo"] = {"requests": len(res["done"]),
+                             "swap_count": res["swap_count"],
+                             "loaded_step": res["loaded_step"],
+                             "decode_graphs": res["decode_graphs"],
+                             "launches": got}
+        emit({"check": "serve_demo_train_and_serve", **out["serve_demo"]})
+        del res
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        table = byzantine_lenet.main(["--steps", str(DEMO_LENET_STEPS)])
+        sub_s["byzantine_lenet"] = time.perf_counter() - t0
+        got = {k: v for k, v in ops.launches().items() if v}
+        # one launch a step: brsgd and the median under the four attacks,
+        # the mean under them and in the baseline
+        n = DEMO_LENET_STEPS
+        want = {"brsgd_aggregate": 4 * n, "cwise_median": 4 * n,
+                "masked_mean": 5 * n}
+        if got != want:
+            fail(f"byzantine_lenet: launches {got} (expected {want})")
+        if not all(math.isfinite(r["brsgd"]) for r in table["rows"].values()):
+            fail(f"byzantine_lenet: a brsgd accuracy is not finite: {table}")
+        out["byzantine_lenet"] = {**table, "launches": got}
+        emit({"check": "byzantine_lenet", **out["byzantine_lenet"]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"check": "demos_seconds", **sub_s})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3364,17 +3777,16 @@ def phase_seq_timing(torch, ref):
     from repro_torch.kernels import flash_attention as fa_kern
     from repro_torch.kernels import wkv6 as wkv_kern
     out = {}
-    for label, (B, H, Hkv, S, D) in (("serve", (4, 16, 8, 512, 128)),
-                                     ("long", (1, 16, 8, 4096, 128))):
-        q, k, v = (_bshd(torch, B, S, h, D, i, "float32")
-                   for i, h in enumerate((H, Hkv, Hkv)))
+    for label, (B, H, Hkv, S, D, Dv) in FLASH_TIMING:
+        q, k, v = _flash_inputs(torch, B, H, Hkv, S, D, Dv, "float32")
         kx, vx = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
         qc = q.contiguous()
-        nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
-        ops = 4 * D * B * H * _visible_pairs(S, S, 0)
+        # q and o, k and v, each read or written once
+        nbytes = 4 * (B * H * S * (D + Dv) + B * Hkv * S * (D + Dv))
+        ops = 2 * (D + Dv) * B * H * _visible_pairs(S, S, 0)
         bound_ms, bound_by = _tc_bound(nbytes, ops)
         fp32_ms, _ = _bound(nbytes, ops)
-        reps = 50 if label == "serve" else 10
+        reps = 10 if "long" in label else 50
         kern = lambda: fa_kern.flash_attention(q, k, v)        # noqa: E731
         lib = lambda: F.scaled_dot_product_attention(            # noqa: E731
             qc, kx, vx, is_causal=True)
@@ -3382,7 +3794,8 @@ def phase_seq_timing(torch, ref):
         ms = [_time_ms(torch, kern, reps)]
         lib_ms = [_time_ms(torch, lib, reps), _time_ms(torch, lib, reps)]
         ms.append(_time_ms(torch, kern, reps))
-        res = {"shape": [B, H, Hkv, S, D], "ms": min(ms), "ms_runs": ms,
+        res = {"shape": [B, H, Hkv, S, D] + ([Dv] if Dv != D else []),
+               "ms": min(ms), "ms_runs": ms,
                "plain_ms": _time_ms(torch, lambda: ref.flash_attention_ref(
                    q, k, v), max(2, reps // 5), 1),
                "library_ms": min(lib_ms), "library_ms_runs": lib_ms,
@@ -3391,10 +3804,11 @@ def phase_seq_timing(torch, ref):
                "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "gflop": ops / 1e9, "mbytes": nbytes / 1e6}
         out[f"flash_attention/{label}"] = res
-        emit({"timing": "flash_attention", **res,
+        emit({"timing": "flash_attention", "label": label, **res,
               "bound": "3xTF32 tensor cores (3 x FLOPs / 495 TFLOP/s)",
               "library_call": "F.scaled_dot_product_attention(is_causal=True)"
                               ", float32, kv heads repeated"})
+        del q, k, v, kx, vx, qc
     # B7: one layer of rwkv6-7b's prefill, [B, S, H, K] = [4, 512, 64, 64]
     B, S, H, K, Q = 4, 512, 64, 64, 64
     r, k, v, w, u, S0 = _wkv_inputs(torch, B, H, S, K, 1.0)
@@ -3485,28 +3899,33 @@ def phase_bwd_timing(torch, ref):
     # (the build's ptxas report) and the CTAs an SM holds (the occupancy
     # calculator, with the launch's dynamic shared memory)
     occ = (ctypes.c_int * 4)()
-    rc = _build.load("flash_attention_bwd").flash_bwd_ctas_per_sm(128, occ)
-    if rc != 0:
-        fail(f"flash_bwd_ctas_per_sm: CUDA error {rc}")
     log = _build.BUILD_LOGS.get("flash_attention_bwd")
-    emit({"check": "flash_attention_bwd_resources", "D": 128,
-          "threads_per_cta": 384, "ctas_per_sm": {"dkdv": occ[0],
-                                                  "dq": occ[1]},
-          "dynamic_smem_bytes": {"dkdv": occ[2], "dq": occ[3]},
-          "ptxas": ({fn: {k: r[k] for k in ("registers", "smem",
-                                            "spill_bytes")}
-                     for fn, r in _ptxas_entries(log).items()}
-                    if log else "not measured (library reused)")})
-    for label, (B, H, Hkv, S, D) in (("train", (2, 16, 8, 128, 128)),
-                                     ("long", (1, 16, 8, 4096, 128))):
-        q, k, v, dO = (_bshd(torch, B, S, h, D, i, "float32")
-                       for i, h in enumerate((H, Hkv, Hkv, H)))
+    for D, Dv in ((128, 128), (96, 64)):
+        rc = _build.load("flash_attention_bwd").flash_bwd_ctas_per_sm(
+            D, Dv, occ)
+        if rc != 0:
+            fail(f"flash_bwd_ctas_per_sm({D}, {Dv}): CUDA error {rc}")
+        emit({"check": "flash_attention_bwd_resources", "D": D, "Dv": Dv,
+              "threads_per_cta": 384, "ctas_per_sm": {"dkdv": occ[0],
+                                                      "dq": occ[1]},
+              "dynamic_smem_bytes": {"dkdv": occ[2], "dq": occ[3]},
+              "ptxas": ({fn: {k: r[k] for k in ("registers", "smem",
+                                                "spill_bytes")}
+                         for fn, r in _ptxas_entries(log).items()
+                         if f"ILi{D}ELi{Dv}E" in fn}
+                        if log else "not measured (library reused)")})
+    for label, (B, H, Hkv, S, D, Dv) in FLASH_BWD_TIMING:
+        q, k, v, dO = _flash_inputs(torch, B, H, Hkv, S, D, Dv, "float32",
+                                    with_do=True)
         o, lse = fa_kern.flash_attention_lse(q, k, v)
-        reps = 50 if label == "train" else 10
+        reps = 10 if "long" in label else 50
         kern = lambda: fa_kern.flash_attention_bwd(  # noqa: E731
             q, k, v, o, lse, dO)
-        nbytes = 4 * (4 * B * H * S * D + 4 * B * Hkv * S * D + B * H * S)
-        ops = 10 * D * B * H * _visible_pairs(S, S, 0)
+        # q, dq, k, dk (D wide); o, dO, v, dv (Dv wide); the log-sum-exp
+        nbytes = 4 * (2 * B * H * S * (D + Dv) + 2 * B * Hkv * S * (D + Dv)
+                      + B * H * S)
+        # s = q·kᵀ, dq, dk over D; dp = dO·vᵀ, dv over Dv
+        ops = 2 * (3 * D + 2 * Dv) * B * H * _visible_pairs(S, S, 0)
         bound_ms, bound_by = _tc_bound(nbytes, ops)
         kx, vx = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
         sdpa = lambda a, b, c: F.scaled_dot_product_attention(  # noqa: E731
@@ -3521,7 +3940,8 @@ def phase_bwd_timing(torch, ref):
                   for x in sdpa_ins]
         o_lib = sdpa(*leaves)
         records = {}
-        res = {"shape": [B, H, Hkv, S, D], "ms": min(ms), "ms_runs": ms,
+        res = {"shape": [B, H, Hkv, S, D] + ([Dv] if Dv != D else []),
+               "ms": min(ms), "ms_runs": ms,
                "device_ms": _kernel_device_ms(
                    torch, kern, reps, (("flash_bwd_dot",),
                                        ("flash_bwd_dkdv",),
@@ -3746,12 +4166,12 @@ def phase_bucket_timing(torch, kern, ref) -> dict:
     instances of m = 12, 33 and 63 and on the tuned m = 10, 16, 32 and 64, at
     d = 61706 and 8388608; one line per shape.  Returns {kernel row:
     {"m,d": ms}}."""
-    import numpy as np
     out = {}
     for d in (MAIN_SHAPE[1], HBM_SHAPE[1]):
         for m in BUCKET_TIMING_M:
-            G = torch.as_tensor(np.random.default_rng(7).standard_normal(
-                (m, d), dtype=np.float32), device="cuda")
+            # drawn on the card: [64, 8388608] from numpy took seconds
+            G = torch.randn(m, d, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(7))
             reps = 200 if d == MAIN_SHAPE[1] else 10
             row = {}
             for name, fn in _kernel_fns(torch, kern, ref, G).items():
@@ -3815,6 +4235,17 @@ def kernel_times(torch, src: Path, shapes=()) -> int:
     return 0
 
 
+def _instance_rows(timed_rows, name) -> dict:
+    """The (96, 64) instance's timing rows of B6 / B6-bwd, by label."""
+    keys = ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "fp32_bound_ms", "library_ms", "library_backend")
+    return {"96x64": {label: {k: r[k] for k in keys if k in r}
+                      for label, r in (
+                          (key.split("/", 1)[1], r)
+                          for key, r in timed_rows.items()
+                          if key.startswith(name + "/mla"))}}
+
+
 def main() -> int:
     import torch
     smi_line = phase_device(torch)
@@ -3833,21 +4264,33 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         phase_s[name] = time.perf_counter() - t0
+        emit({"phase": name, "seconds": phase_s[name]})
         return out
-    timed("build", phase_build)
-    worst = timed("kernels", phase_kernels, torch, kern, ref)
-    worst.update(timed("seq_kernels", phase_seq_kernels, torch, ref))
+    # every nvcc starts at once; the phases that launch only B6, B7 and
+    # their backward kernels, and no torch.profiler session, run while the
+    # BrSGD libraries compile (every library is loaded before the first
+    # profiler session: see phase_serve_profile)
+    t_build = time.perf_counter()
+    builds = phase_build_start()
+    timed("build_sequence_libs", phase_build_wait, builds, SEQ_LIBS)
+    worst = timed("seq_kernels", phase_seq_kernels, torch, ref)
     worst.update(timed("bwd_kernels", phase_bwd_kernels, torch, ref))
+    serve_res, serve_launches, per_prefill = timed("serve", phase_serve,
+                                                   torch)
+    zoo = timed("zoo_serve", phase_zoo_serve, torch, ref, worst)
+    timed("build", phase_build, builds, t_build)
+    worst.update(timed("kernels", phase_kernels, torch, kern, ref))
     timed("loop", phase_loop, torch, kern, ref)
     agg_t = timed("aggregation", phase_aggregation, torch, kern, ref)
     launches = timed("main_path", phase_main_path, torch, kern)
     elastic_launches = timed("elastic", phase_elastic, torch, kern)
-    serve_res, serve_launches, per_prefill = timed("serve", phase_serve,
-                                                   torch)
+    timed("serve_profile", phase_serve_profile, torch, serve_res)
     loop_res, loop_launches, per_admission = timed(
         "serve_loop", phase_serve_loop, torch, ref, worst)
     grad_res, grad_launches = timed("grad", phase_grad, torch)
     train_res, train_launches = timed("train", phase_train, torch)
+    zoo = timed("zoo_train", phase_zoo_train, torch, zoo)
+    demos = timed("demos", phase_demos, torch)
     main_t = timed("timing_main", phase_timing, torch, kern, ref, MAIN_SHAPE,
                    reps=200, plain_reps=20, worst=worst)
     bucket_t = timed("timing_buckets", phase_bucket_timing, torch, kern, ref)
@@ -3957,7 +4400,16 @@ def main() -> int:
                        long_plain_ms=lt["plain_ms"],
                        long_bound_ms=lt["bound_ms"],
                        long_fp32_bound_ms=lt["fp32_bound_ms"],
-                       long_library_ms=lt["library_ms"])
+                       long_library_ms=lt["library_ms"],
+                       zoo_launches=zoo["launches"].get(name, 0),
+                       zoo_launches_per_prefill={
+                           a: p.get(name) for a, p in
+                           zoo["per_prefill"].items()},
+                       zoo_serve_loop_launches_per_admission=zoo[
+                           "loop_per_admission"].get(name),
+                       demo_train_100m_launches=demos["train_100m"]
+                       ["launches"].get(name, 0),
+                       instances=_instance_rows(seq_t, name))
         else:
             row.update(per="layer launch", chunk_ms=t["chunk_ms"],
                        chunk_plain_ms=t["chunk_plain_ms"],
@@ -3985,6 +4437,11 @@ def main() -> int:
             "train_ms": t["ms"], "train_device_ms": t["device_ms"],
             "train_plain_ms": t["plain_ms"], "train_bound_ms": t["bound_ms"],
             "train_library_ms": t["library_ms"],
+            **({"zoo_train_launches": zoo["launches"].get(name, 0),
+                "demo_train_100m_launches": demos["train_100m"]["launches"]
+                .get(name, 0),
+                "instances": _instance_rows(bwd_t, name)}
+               if name == "flash_attention_bwd" else {}),
             **({"design_mbytes": lt["design_mbytes"],
                 "design_bytes_ms": lt["design_bytes_ms"],
                 "device_ms_by_kernel": lt["device_ms_by_kernel"],
@@ -4010,6 +4467,16 @@ def main() -> int:
                         "held", "step_ok", "n_active", "host_ms")}
                         for r in sup["rows"]],
                     "supervised_peak_device_gb": sup["peak_device_gb"]}})
+    emit({"zoo": {"serve": zoo["serve"],
+                  "serve_loop": {k: zoo["serve_loop"][k] for k in (
+                      "decode_tok_s", "step_ms_median", "tok_s", "requests",
+                      "max_batch", "decode_graphs", "against_generate",
+                      "peak_mem_gb")},
+                  "train": {k: zoo["train"][k] for k in (
+                      "arch", "D", "workers", "batch_per_worker", "seq",
+                      "host_ms", "host_ms_runs", "split_ms",
+                      "peak_device_gb", "launches_per_step")}},
+          "demos": {k: v for k, v in demos.items()}})
     emit({"phase_seconds": phase_s})
     emit({"serve": {a: {k: r[k] for k in ("prefill_tok_s", "decode_tok_s",
                                           "prefill_s", "decode_s",

@@ -6,26 +6,26 @@ names the slice of ROADMAP.md that ports it.
 """
 from __future__ import annotations
 
-from . import qwen3_0_6b, rwkv6_7b
+from . import minicpm3_4b, nemotron_4_15b, qwen3_0_6b, qwen3_1_7b, rwkv6_7b
 from .base import ByzantineConfig, ModelConfig, RecoveryConfig, TrainConfig
 
 ARCHS = {
     "qwen3-0.6b": qwen3_0_6b.CONFIG,
+    "qwen3-1.7b": qwen3_1_7b.CONFIG,
+    "nemotron-4-15b": nemotron_4_15b.CONFIG,
+    "minicpm3-4b": minicpm3_4b.CONFIG,
     "rwkv6-7b": rwkv6_7b.CONFIG,
 }
 
-# the JAX package's other archs, by the block family that still has to be
-# ported (ROADMAP.md A.3)
-_DENSE = "the other dense zoo configs (ROADMAP A.3, after the train step)"
+# the JAX package's other archs, by what they still need (ROADMAP.md A.3)
 _LATER = {
-    "qwen3-1.7b": _DENSE,
-    "nemotron-4-15b": _DENSE,
-    "phi-3-vision-4.2b": "the vision frontend (ROADMAP A.3)",
-    "musicgen-large": "the audio frontend (ROADMAP A.3)",
-    "minicpm3-4b": "MLA attention (ROADMAP A.3)",
-    "deepseek-v2-236b": "MLA attention and MoE (ROADMAP A.3)",
-    "dbrx-132b": "MoE (ROADMAP A.3)",
+    "dbrx-132b": "the MoE segment (ROADMAP A.3, MoE)",
+    "deepseek-v2-236b": "the MoE segment beside its MLA attention "
+                        "(ROADMAP A.3, MoE) and B6's (192, 128) instance",
     "zamba2-2.7b": "mamba2 and the hybrid segment (ROADMAP A.3)",
+    "phi-3-vision-4.2b": "the vision frontend and B6's head dim 96 "
+                         "(ROADMAP A.3)",
+    "musicgen-large": "the audio frontend (ROADMAP A.3)",
 }
 
 

@@ -7,7 +7,7 @@ Each library's file name carries a hash of its source, of the shared
 headers in ``csrc/`` and of the nvcc flags, so an edited kernel is never
 served from a stale build.
 :func:`build_all` starts one nvcc per source at once and waits for all
-of them.  A missing ``nvcc`` or a failed build raises: there is no
+of them; :class:`Builds` starts them and waits for the ones asked for.  A missing ``nvcc`` or a failed build raises: there is no
 fallback to the plain versions.
 """
 from __future__ import annotations
@@ -71,19 +71,20 @@ SIGNATURES = {
         "brsgd_select_aggregate_coresident": (_I, _I, _L, _P),
     },
     "flash_attention": {
-        # q, k, v, o, lse (nullable), dtype, B, H, Hkv, S, T, D,
+        # q, k, v, o, lse (nullable), dtype, B, H, Hkv, S, T, D, Dv,
         # 4 x (b, h, s) strides, window, stream
         "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                _L, _L, _I, _P),
+                                _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                _L, _L, _L, _I, _P),
     },
     "flash_attention_bwd": {
-        # q, k, v, o, dO, lse, di, dq, dk, dv, B, H, Hkv, S, T, D,
+        # q, k, v, o, dO, lse, di, dq, dk, dv, B, H, Hkv, S, T, D, Dv,
         # 8 x (b, h, s) strides (q, k, v, o, dO, dq, dk, dv), window, stream
-        "flash_attention_bwd": (_P,) * 10 + (_I,) * 6 + (_L,) * 24
+        "flash_attention_bwd": (_P,) * 10 + (_I,) * 7 + (_L,) * 24
                                + (_I, _P),
-        # D, int out[4]: dK/dV and dQ CTAs an SM holds, their shared memory
-        "flash_bwd_ctas_per_sm": (_I, _P),
+        # D, Dv, int out[4]: dK/dV and dQ CTAs an SM holds, their shared
+        # memory
+        "flash_bwd_ctas_per_sm": (_I, _I, _P),
     },
     "wkv6": {
         # r, k, v, w, u, S0, y, S_out, S_chunks (nullable), B, H, S, Q, K,
@@ -184,21 +185,48 @@ def build(name: str = "brsgd_stats") -> Path:
     return library_path(SOURCES[name])
 
 
+class Builds:
+    """Every source without a library compiling at once: one nvcc each,
+    started together, each read to its end by a thread of its own (so no
+    nvcc stalls on a full output pipe).  :meth:`wait` blocks until the
+    named libraries are built, so a caller can use the quick ones while
+    the slow ones compile."""
+
+    def __init__(self):
+        self._threads, self._errors = {}, {}
+        for name in SOURCES:
+            job = _start(name)
+            if job is not None:
+                t = threading.Thread(target=self._finish, args=(name, job),
+                                     daemon=True)
+                t.start()
+                self._threads[name] = t
+
+    def _finish(self, name, job):
+        try:
+            _finish(name, job)
+        except RuntimeError as e:
+            self._errors[name] = str(e)
+
+    def wait(self, names=None) -> dict:
+        """Waits for the libraries ``names`` (default: all) and returns
+        {name: library path}; raises, after they have all ended, if any
+        of them failed to build."""
+        names = list(SOURCES) if names is None else list(names)
+        for name in names:
+            if name in self._threads:
+                self._threads[name].join()
+        errors = [self._errors[n] for n in names if n in self._errors]
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return {name: library_path(SOURCES[name]) for name in names}
+
+
 def build_all() -> dict:
-    """Compile every source that has no library yet, one nvcc each, all
-    started together; returns {name: library path}.  Raises on the first
-    failed build, after every nvcc has ended."""
-    jobs = {name: _start(name) for name in SOURCES}
-    errors = []
-    for name, job in jobs.items():
-        if job is not None:
-            try:
-                _finish(name, job)
-            except RuntimeError as e:
-                errors.append(str(e))
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return {name: library_path(src) for name, src in SOURCES.items()}
+    """Compile every source that has no library yet, all at once; returns
+    {name: library path}.  Raises on a failed build, after every nvcc has
+    ended."""
+    return Builds().wait()
 
 
 def load(name: str = "brsgd_stats") -> ctypes.CDLL:

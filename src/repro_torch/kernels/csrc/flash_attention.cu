@@ -63,10 +63,16 @@
 //     [B, S, H, D] activations go in as [B, H, S, D] views with no copy.
 //     The wrapper checks that every row start is 16-byte aligned.
 //   * expf and IEEE division, not the fast intrinsics.
-//   * Shared memory: 2 stages × 64 rows × (D + 8 + D + 4) floats of K/V
-//     and 128 × (D + 8) floats of q = 202 KB at D = 128 in float32 (one
-//     CTA of 8 warps per SM), above the 48 KB default, so each instance
-//     opts in with cudaFuncSetAttribute.
+//   * Shared memory: 2 stages × 64 rows × (D + 8 + DV + 4) floats of K/V
+//     and 128 × (D + 8) floats of q = 202 KB at D = DV = 128 in float32
+//     (one CTA of 8 warps per SM; 138 KB at (96, 64)), above the 48 KB
+//     default, so each instance opts in with cudaFuncSetAttribute.
+//
+// Value width: v and o have DV columns, q and k D.  Every instance but
+// one has DV = D; (D, DV) = (96, 64) is MLA's (minicpm3-4b: q/k are
+// qk_nope 64 + qk_rope 32, v is v_head_dim 64), whose q·kᵀ runs 12
+// k-steps and P·V 8 n-tiles, scaled by 1/√96 as the reference's
+// 1/sqrt(qk_nope + qk_rope).  Nothing is padded to another instance.
 //
 // Plain C interface for ctypes: the entry returns cudaGetLastError() after
 // its launch; nothing here allocates or synchronises.
@@ -95,15 +101,16 @@ struct Strides {
 template <typename T>
 struct Layout {
   static constexpr bool kF32 = sizeof(T) == 4;
-  template <int D>
+  template <int D, int DV>
   struct Of {
-    static constexpr int KS = D + 8;               // K row stride, elements
-    static constexpr int VS = D + (kF32 ? 4 : 8);  // V row stride
-    static constexpr int QS = D + 8;               // Q row stride, floats
-    static constexpr int STAGE = BK * (KS + VS);   // elements per stage
+    static constexpr int KS = D + 8;                // K row stride, elements
+    static constexpr int VS = DV + (kF32 ? 4 : 8);  // V row stride
+    static constexpr int QS = D + 8;                // Q row stride, floats
+    static constexpr int STAGE = BK * (KS + VS);    // elements per stage
     static constexpr int KV_BYTES = STAGES * STAGE * (int)sizeof(T);
     static constexpr int BYTES = KV_BYTES + BQ * QS * (int)sizeof(float);
-    static constexpr int CHUNKS = D * (int)sizeof(T) / 16;  // per row
+    static constexpr int CHUNKS = D * (int)sizeof(T) / 16;    // per K row
+    static constexpr int V_CHUNKS = DV * (int)sizeof(T) / 16;  // per V row
   };
 };
 
@@ -135,12 +142,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D, typename T>
+template <int D, int DV, typename T>
 __device__ __forceinline__ void load_tile(T* sk, T* sv, const T* kb,
                                           const T* vb, long long kss,
                                           long long vss, int k0, int T_len,
                                           int tid) {
-  using L = typename Layout<T>::template Of<D>;
+  using L = typename Layout<T>::template Of<D, DV>;
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
   for (int i = tid; i < BK * L::CHUNKS; i += THREADS) {
     const int r = i / L::CHUNKS, c = (i % L::CHUNKS) * EPC;
@@ -148,21 +155,31 @@ __device__ __forceinline__ void load_tile(T* sk, T* sv, const T* kb,
     const bool in = s < T_len;
     const long long row = in ? s : 0;  // a valid address; 0 bytes read
     tc::cp_async16(sk + r * L::KS + c, kb + row * kss + c, in);
-    tc::cp_async16(sv + r * L::VS + c, vb + row * vss + c, in);
+    if constexpr (DV == D)
+      tc::cp_async16(sv + r * L::VS + c, vb + row * vss + c, in);
+  }
+  if constexpr (DV != D) {
+    for (int i = tid; i < BK * L::V_CHUNKS; i += THREADS) {
+      const int r = i / L::V_CHUNKS, c = (i % L::V_CHUNKS) * EPC;
+      const int s = k0 + r;
+      const bool in = s < T_len;
+      const long long row = in ? s : 0;
+      tc::cp_async16(sv + r * L::VS + c, vb + row * vss + c, in);
+    }
   }
 }
 
-template <int D, typename T>
+template <int D, int DV, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o,
              float* __restrict__ lse, int H, int group,
              int S, int T_len, Strides qs, Strides ks, Strides vs, Strides os,
              int window, float scale) {
-  using L = typename Layout<T>::template Of<D>;
+  using L = typename Layout<T>::template Of<D, DV>;
   constexpr bool EXACT = !Layout<T>::kF32;  // bf16 k, v are exact in TF32
   constexpr int KK = D / 8;                 // k-steps of Q·Kᵀ
-  constexpr int ND = D / 8;                 // n-tiles of P·V
+  constexpr int ND = DV / 8;                // n-tiles of P·V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   float* sq = reinterpret_cast<float*>(smem_raw + L::KV_BYTES);
@@ -186,7 +203,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_lo = k_lo / BK, t_hi = (k_hi + BK - 1) / BK;
 
   if (t_lo < t_hi) {
-    load_tile<D, T>(smem, smem + BK * L::KS, kb, vb, ks.s, vs.s, t_lo * BK,
+    load_tile<D, DV, T>(smem, smem + BK * L::KS, kb, vb, ks.s, vs.s, t_lo * BK,
                     T_len, tid);
   }
   tc::cp_async_commit();
@@ -214,7 +231,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = t * BK;
     if (t + 1 < t_hi) {
       T* nxt = smem + ((t + 1 - t_lo) & 1) * L::STAGE;
-      load_tile<D, T>(nxt, nxt + BK * L::KS, kb, vb, ks.s, vs.s, k0 + BK,
+      load_tile<D, DV, T>(nxt, nxt + BK * L::KS, kb, vb, ks.s, vs.s, k0 + BK,
                       T_len, tid);
     }
     tc::cp_async_commit();
@@ -331,12 +348,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, typename T>
+template <int D, int DV, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Hkv, int S, int T_len, Strides qs, Strides ks,
            Strides vs, Strides os, int window, cudaStream_t stream) {
-  constexpr int bytes = Layout<T>::template Of<D>::BYTES;
-  auto kern = flash_kernel<D, T>;
+  constexpr int bytes = Layout<T>::template Of<D, DV>::BYTES;
+  auto kern = flash_kernel<D, DV, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -350,22 +367,20 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 template <typename T>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int H, int Hkv, int S, int T_len,
+int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
+               void* o, float* lse, int B, int H, int Hkv, int S, int T_len,
                Strides qs, Strides ks, Strides vs, Strides os, int window,
                cudaStream_t st) {
-#define FLASH_CASE(DD)                                                     \
-  case DD:                                                                 \
-    return launch<DD, T>(q, k, v, o, lse, B, H, Hkv, S, T_len, qs, ks, vs, \
-                         os, window, st);
-  switch (D) {
-    FLASH_CASE(64)
-    FLASH_CASE(80)
-    FLASH_CASE(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define FLASH_CASE(DD, VV)                                                \
+  if (D == DD && DV == VV)                                                \
+    return launch<DD, VV, T>(q, k, v, o, lse, B, H, Hkv, S, T_len, qs, ks, \
+                             vs, os, window, st);
+  FLASH_CASE(64, 64)
+  FLASH_CASE(80, 80)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(96, 64)
 #undef FLASH_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -378,15 +393,16 @@ const char* flash_error_string(int err) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike).  Strides are in
 // elements, (batch, head, sequence) for each tensor; the head dimension
-// D is contiguous and every row start is 16-byte aligned (the wrapper
-// checks).  Causal; window > 0 adds the sliding window.  lse, when not
-// null, receives each row's log-sum-exp of the scaled logits, [B, H, S]
-// float32 contiguous (the backward's input; the serve path passes null).
-// Returns cudaErrorInvalidValue for a D without an instance (64, 80,
-// 128) or a bad dtype.
+// (D of q and k, DV of v and o) is contiguous and every row start is
+// 16-byte aligned (the wrapper checks).  Causal; window > 0 adds the
+// sliding window.  lse, when not null, receives each row's log-sum-exp
+// of the scaled logits, [B, H, S] float32 contiguous (the backward's
+// input; the serve path passes null).  Returns cudaErrorInvalidValue for
+// a (D, DV) without an instance ((64, 64), (80, 80), (128, 128), (96,
+// 64)) or a bad dtype.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int dtype, int B, int H, int Hkv, int S,
-                        int T_len, int D, long long qsb, long long qsh, long long qss,
+                        int T_len, int D, int DV, long long qsb, long long qsh, long long qss,
                         long long ksb, long long ksh, long long kss,
                         long long vsb, long long vsh, long long vss,
                         long long osb, long long osh, long long oss,
@@ -397,12 +413,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, static_cast<float*>(lse), B, H,
-                             Hkv, S, T_len, qs, ks, vs, os, window, st);
+    return dispatch_d<float>(D, DV, q, k, v, o, static_cast<float*>(lse), B,
+                             H, Hkv, S, T_len, qs, ks, vs, os, window, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, static_cast<float*>(lse),
-                                     B, H, Hkv, S, T_len, qs, ks, vs, os,
-                                     window, st);
+    return dispatch_d<__nv_bfloat16>(D, DV, q, k, v, o,
+                                     static_cast<float*>(lse), B, H, Hkv, S,
+                                     T_len, qs, ks, vs, os, window, st);
   return cudaErrorInvalidValue;
 }
 

@@ -84,6 +84,14 @@
 //     wgmma (with zero fragments) and releases the stage.
 //   * expf and IEEE arithmetic, not the fast intrinsics.
 //
+// Value width: v, o, dO, dv have DV columns, q, k, dq, dk D.  Every
+// instance but one has DV = D; (D, DV) = (96, 64) is MLA's (minicpm3-4b):
+// s = q·kᵀ runs 12 mma.sync k-steps and dp = dO·vᵀ 8, dv takes wgmma
+// m64n64k8 and dk, dq m64n96k8; the stationary v / dO rows are DV + 8
+// floats and the streamed dOᵀ / vᵀ tiles DV / 8 groups.  At (96, 64) the
+// dK/dV kernel takes 137,856 B of shared memory and the dQ kernel
+// 118,912 B (4 stages each).
+//
 // Layout: q, o, dO, dq are [B, H, S, D] and k, v, dk, dv [B, Hkv, T, D]
 // through (batch, head, sequence) element strides with the head dimension
 // contiguous (the model's [B, S, H, D] activations as views); every row
@@ -121,13 +129,15 @@ struct Strides {
   long long b, h, s;  // element strides; the head dimension is contiguous
 };
 
-template <int D>
+template <int D, int DV>
 struct Shape {
-  static constexpr int PS = D + 8;                   // stationary row, floats
-  static constexpr int TL = (D / 8) * SBO_F;         // a transposed tile
-  static constexpr int STATIONARY = 2 * BR * PS;     // two [BR][PS] arrays
-  static constexpr int KV_STAGE = 4 * TL + 2 * BT;   // qᵀ, lo, dOᵀ, lo, lse, Di
-  static constexpr int DQ_STAGE = 3 * TL;            // kᵀ, lo, vᵀ
+  static constexpr int PS = D + 8;                   // stationary q / k row, floats
+  static constexpr int PSV = DV + 8;                 // stationary v / dO row
+  static constexpr int TL = (D / 8) * SBO_F;         // a transposed q / k tile
+  static constexpr int TLV = (DV / 8) * SBO_F;       // a transposed dO / v tile
+  static constexpr int STATIONARY = BR * (PS + PSV); // [BR][PS] and [BR][PSV]
+  static constexpr int KV_STAGE = 2 * TL + 2 * TLV + 2 * BT;  // qᵀ, lo, dOᵀ, lo, lse, Di
+  static constexpr int DQ_STAGE = 2 * TL + TLV;      // kᵀ, lo, vᵀ
   static constexpr int stages(int stage) {
     const int n = (SMEM_LIMIT - BARRIER_BYTES - 4 * STATIONARY) / (4 * stage);
     return n > 4 ? 4 : n;
@@ -138,21 +148,24 @@ struct Shape {
   static constexpr int DQ_BYTES = BARRIER_BYTES + 4 * (STATIONARY + DQ_STAGES * DQ_STAGE);
   static_assert(KV_STAGES >= 2 && DQ_STAGES >= 2, "two stages at least");
   static_assert(KV_BYTES <= SMEM_LIMIT && DQ_BYTES <= SMEM_LIMIT, "shared memory");
+  // the warpgroups' final sums pass through the ring
+  static_assert(64 * (D + DV) <= KV_STAGES * KV_STAGE && 64 * D <= DQ_STAGES * DQ_STAGE,
+                "the ring holds the pair sums");
 };
 
-// rows [r0, r0 + n) of one (batch, head) into shared memory with 16-byte
-// cp.async copies by every thread of the CTA; rows at or past `limit` are
-// zero-filled
-template <int D>
+// rows [r0, r0 + n) of W floats of one (batch, head) into shared memory
+// rows of RS floats with 16-byte cp.async copies by every thread of the
+// CTA; rows at or past `limit` are zero-filled
+template <int W, int RS>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long ss, int r0, int n,
                                           int limit, int tid) {
-  constexpr int CH = D / 4;  // 16-byte pieces per row
+  constexpr int CH = W / 4;  // 16-byte pieces per row
   for (int i = tid; i < n * CH; i += THREADS) {
     const int r = i / CH, c = (i % CH) * 4;
     const int s = r0 + r;
     const bool in = s < limit;
-    tc::cp_async16(dst + r * Shape<D>::PS + c,
+    tc::cp_async16(dst + r * RS + c,
                    src + (in ? (long long)s * ss : 0) + c, in);
   }
 }
@@ -182,18 +195,20 @@ __device__ __forceinline__ int tl_off(int d, int r) {
   return (d >> 3) * SBO_F + (rk >> 2) * LBO_F + (d & 7) * 4 + (rk & 3);
 }
 
-// The producer warpgroup's copy of BT rows [r0, r0 + BT) of x and y (one
-// (batch, head) each, row strides xs, ys) into transposed tiles: x_raw and
-// x_lo, y_raw and, unless null, y_lo.  Rows at or past `limit` are zeros.
-// Producer warp pw takes the column groups pw, pw + 4, ...; its lane (e,
-// r4) loads column 8·group + e of rows 8c + 2·r4 + parity, so a warp load
-// is 4 rows × 32 bytes and a warp store one core matrix.
-template <int D>
+// The producer warpgroup's copy of BT rows [r0, r0 + BT) of x (DX
+// columns) and y (DY columns) (one (batch, head) each, row strides xs, ys)
+// into transposed tiles: x_raw and x_lo, y_raw and, unless null, y_lo.
+// Rows at or past `limit` are zeros.  Producer warp pw takes the column
+// groups pw, pw + 4, ...; its lane (e, r4) loads column 8·group + e of
+// rows 8c + 2·r4 + parity, so a warp load is 4 rows × 32 bytes and a warp
+// store one core matrix.
+template <int DX, int DY>
 __device__ __forceinline__ void stage_rows(float* x_raw, float* x_lo, const float* x,
                                            long long xs, float* y_raw, float* y_lo,
                                            const float* y, long long ys, int r0, int limit,
                                            int pw, int lane) {
-  constexpr int NG = D / 8;
+  constexpr int NGX = DX / 8, NGY = DY / 8;
+  constexpr int NG = NGX > NGY ? NGX : NGY;
   constexpr int NU = 4 * ((NG + PRODUCER_WARPS - 1) / PRODUCER_WARPS);  // units a warp
   const int e = lane & 7, r4 = lane >> 3;
   float vx[NU], vy[NU];
@@ -201,20 +216,22 @@ __device__ __forceinline__ void stage_rows(float* x_raw, float* x_lo, const floa
   for (int u = 0; u < NU; ++u) {
     const int cp = u & 3, dg = pw + PRODUCER_WARPS * (u >> 2);
     const int row = r0 + 8 * (cp >> 1) + 2 * r4 + (cp & 1);
-    const bool in = row < limit && dg < NG;
-    vx[u] = in ? x[(long long)row * xs + 8 * dg + e] : 0.f;
-    vy[u] = in ? y[(long long)row * ys + 8 * dg + e] : 0.f;
+    vx[u] = row < limit && dg < NGX ? x[(long long)row * xs + 8 * dg + e] : 0.f;
+    vy[u] = row < limit && dg < NGY ? y[(long long)row * ys + 8 * dg + e] : 0.f;
   }
 #pragma unroll
   for (int u = 0; u < NU; ++u) {
     const int cp = u & 3, dg = pw + PRODUCER_WARPS * (u >> 2);
-    if (dg >= NG) continue;
     const int off = dg * SBO_F + cp * LBO_F + e * 4 + r4;
-    x_raw[off] = vx[u];
-    x_lo[off] = vx[u] - __uint_as_float(__float_as_uint(vx[u]) & 0xffffe000u);
-    y_raw[off] = vy[u];
-    if (y_lo != nullptr)
-      y_lo[off] = vy[u] - __uint_as_float(__float_as_uint(vy[u]) & 0xffffe000u);
+    if (dg < NGX) {
+      x_raw[off] = vx[u];
+      x_lo[off] = vx[u] - __uint_as_float(__float_as_uint(vx[u]) & 0xffffe000u);
+    }
+    if (dg < NGY) {
+      y_raw[off] = vy[u];
+      if (y_lo != nullptr)
+        y_lo[off] = vy[u] - __uint_as_float(__float_as_uint(vy[u]) & 0xffffe000u);
+    }
   }
 }
 
@@ -287,7 +304,7 @@ flash_bwd_dot_kernel(const float* __restrict__ o,
   if (lane == 0) di[row] = acc;
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -298,14 +315,16 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       int T_len, Strides qs, Strides ks, Strides vs,
                       Strides dos, Strides dks, Strides dvs, int window,
                       float scale) {
-  using L = Shape<D>;
-  constexpr int PS = L::PS, KK = D / 8, NS = L::KV_STAGES;
+  using L = Shape<D, DV>;
+  constexpr int PS = L::PS, PSV = L::PSV, NS = L::KV_STAGES;
+  // k-steps of s (over D) and dp (over DV); with DV = D one loop runs both
+  constexpr int KK = D / 8, KKV = DV / 8, KMAX = KK > KKV ? KK : KKV;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + NS;
   float* sk = reinterpret_cast<float*>(smem + BARRIER_BYTES);
   float* sv = sk + BR * PS;
-  float* ring = sv + BR * PS;
+  float* ring = sv + BR * PSV;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int Hkv = H / group;
@@ -319,8 +338,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int total = group * n_qt;
 
   init_barriers(full, empty, NS);
-  load_rows<D>(sk, k + b * ks.b + hk * ks.h, ks.s, k0, BR, T_len, tid);
-  load_rows<D>(sv, v + b * vs.b + hk * vs.h, vs.s, k0, BR, T_len, tid);
+  load_rows<D, PS>(sk, k + b * ks.b + hk * ks.h, ks.s, k0, BR, T_len, tid);
+  load_rows<DV, PSV>(sv, v + b * vs.b + hk * vs.h, vs.s, k0, BR, T_len, tid);
   tc::cp_async_commit();
   tc::cp_async_wait<0>();
   __syncthreads();
@@ -334,13 +353,14 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int h = hk * group + idx / n_qt;
       const int q0 = (qt_lo + idx % n_qt) * BT;
       float* st = ring + s * L::KV_STAGE;
-      stage_rows<D>(st, st + L::TL, q + b * qs.b + h * qs.h, qs.s, st + 2 * L::TL,
-                    st + 3 * L::TL, dO + b * dos.b + h * dos.h, dos.s, q0, S, pw, lane);
+      stage_rows<D, DV>(st, st + L::TL, q + b * qs.b + h * qs.h, qs.s, st + 2 * L::TL,
+                        st + 2 * L::TL + L::TLV, dO + b * dos.b + h * dos.h, dos.s, q0, S,
+                        pw, lane);
       if (pw == 0 && lane < BT) {
         const bool in = q0 + lane < S;
         const long long row = ((long long)b * H + h) * S + q0 + lane;
-        st[4 * L::TL + lane] = in ? lse[row] : 0.f;
-        st[4 * L::TL + BT + lane] = in ? di[row] : 0.f;
+        st[2 * L::TL + 2 * L::TLV + lane] = in ? lse[row] : 0.f;
+        st[2 * L::TL + 2 * L::TLV + BT + lane] = in ? di[row] : 0.f;
       }
       tc::fence_proxy_async();
       tc::mbar_arrive(&full[s]);
@@ -352,10 +372,12 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
   const int kw0 = k0 + 16 * (warp & 3);  // this warp's first key
   const float* skw = sk + (kw0 - k0) * PS;
-  const float* svw = sv + (kw0 - k0) * PS;
-  float adk[D / 2], adv[D / 2];
+  const float* svw = sv + (kw0 - k0) * PSV;
+  float adk[D / 2], adv[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) adk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) adv[i] = 0.f;
 
   // warpgroup wg takes the tiles wg, wg + 2, ...
   for (int idx = wg; idx < total; idx += 2) {
@@ -371,8 +393,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* sq = ring + s * L::KV_STAGE;
       const float* sqlo = sq + L::TL;
       const float* sdo = sq + 2 * L::TL;
-      const float* sdolo = sq + 3 * L::TL;
-      const float* sl = sq + 4 * L::TL;
+      const float* sdolo = sdo + L::TLV;
+      const float* sl = sdo + 2 * L::TLV;
       const float* sdi = sl + BT;
       uint32_t pb[2][4], ps[2][4], db[2][4], ds[2][4];
       if (warp_on) {
@@ -383,15 +405,17 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll 4
-        for (int kk = 0; kk < KK; ++kk) {
+        for (int kk = 0; kk < KMAX; ++kk) {
+          // (the width that sets KMAX takes every step: no test)
+          const bool on_s = KK == KMAX || kk < KK, on_dp = KKV == KMAX || kk < KKV;
           uint32_t kb[4], ks_[4], vb[4], vs_[4];
-          a_rows<PS>(skw, kk, g, t4, kb, ks_);
-          a_rows<PS>(svw, kk, g, t4, vb, vs_);
+          if (on_s) a_rows<PS>(skw, kk, g, t4, kb, ks_);
+          if (on_dp) a_rows<PSV>(svw, kk, g, t4, vb, vs_);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int o = tl_off(8 * kk + 2 * t4, 8 * j + g);
-            tc::mma3<false>(sc[j], kb, ks_, sq[o], sq[o + 4]);
-            tc::mma3<false>(dp[j], vb, vs_, sdo[o], sdo[o + 4]);
+            if (on_s) tc::mma3<false>(sc[j], kb, ks_, sq[o], sq[o + 4]);
+            if (on_dp) tc::mma3<false>(dp[j], vb, vs_, sdo[o], sdo[o + 4]);
           }
         }
         // element e of sc[j]: key kw0 + g + 8·(e >> 1), query q0 + 8j + 2t
@@ -422,7 +446,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       tc::wgmma_fence();
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        wgmma3<D>(adv, pb[j], ps[j], tile_desc(sdo, j), tile_desc(sdolo, j));
+        wgmma3<DV>(adv, pb[j], ps[j], tile_desc(sdo, j), tile_desc(sdolo, j));
         wgmma3<D>(adk, db[j], ds[j], tile_desc(sq, j), tile_desc(sqlo, j));
       }
       tc::wgmma_commit();
@@ -447,16 +471,18 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int kp = kw0 + g + 8 * r;
     if (kp >= T_len) continue;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<float2*>(dkb + kp * dks.s + 8 * n + 2 * t4) =
-          make_float2(adk[4 * n + 2 * r] * scale, adk[4 * n + 2 * r + 1] * scale);
-      *reinterpret_cast<float2*>(dvb + kp * dvs.s + 8 * n + 2 * t4) =
-          make_float2(adv[4 * n + 2 * r], adv[4 * n + 2 * r + 1]);
+    for (int n = 0; n < KMAX; ++n) {
+      if (KK == KMAX || n < KK)
+        *reinterpret_cast<float2*>(dkb + kp * dks.s + 8 * n + 2 * t4) =
+            make_float2(adk[4 * n + 2 * r] * scale, adk[4 * n + 2 * r + 1] * scale);
+      if (KKV == KMAX || n < KKV)
+        *reinterpret_cast<float2*>(dvb + kp * dvs.s + 8 * n + 2 * t4) =
+            make_float2(adv[4 * n + 2 * r], adv[4 * n + 2 * r + 1]);
     }
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dO,
@@ -465,14 +491,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     int H, int group, int S, int T_len, Strides qs,
                     Strides ks, Strides vs, Strides dos, Strides dqs,
                     int window, float scale) {
-  using L = Shape<D>;
-  constexpr int PS = L::PS, KK = D / 8, NS = L::DQ_STAGES;
+  using L = Shape<D, DV>;
+  constexpr int PS = L::PS, PSV = L::PSV, NS = L::DQ_STAGES;
+  constexpr int KK = D / 8, KKV = DV / 8, KMAX = KK > KKV ? KK : KKV;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + NS;
   float* sq = reinterpret_cast<float*>(smem + BARRIER_BYTES);
   float* sdo = sq + BR * PS;
-  float* ring = sdo + BR * PS;
+  float* ring = sdo + BR * PSV;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x;
@@ -484,8 +511,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int t_lo = k_lo / BT, total = max(0, (k_hi + BT - 1) / BT - t_lo);
 
   init_barriers(full, empty, NS);
-  load_rows<D>(sq, q + b * qs.b + h * qs.h, qs.s, q0, BR, S, tid);
-  load_rows<D>(sdo, dO + b * dos.b + h * dos.h, dos.s, q0, BR, S, tid);
+  load_rows<D, PS>(sq, q + b * qs.b + h * qs.h, qs.s, q0, BR, S, tid);
+  load_rows<DV, PSV>(sdo, dO + b * dos.b + h * dos.h, dos.s, q0, BR, S, tid);
   tc::cp_async_commit();
   tc::cp_async_wait<0>();
   __syncthreads();
@@ -499,8 +526,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int s = idx % NS;
       tc::mbar_wait(&empty[s], ((idx / NS) & 1) ^ 1);
       float* st = ring + s * L::DQ_STAGE;
-      stage_rows<D>(st, st + L::TL, kb, ks.s, st + 2 * L::TL, nullptr, vb, vs.s,
-                    (t_lo + idx) * BT, T_len, pw, lane);
+      stage_rows<D, DV>(st, st + L::TL, kb, ks.s, st + 2 * L::TL, nullptr, vb, vs.s,
+                        (t_lo + idx) * BT, T_len, pw, lane);
       tc::fence_proxy_async();
       tc::mbar_arrive(&full[s]);
     }
@@ -511,7 +538,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
   const int r0 = q0 + 16 * (warp & 3);    // this warp's first query
   const float* sqw = sq + (r0 - q0) * PS;
-  const float* sdow = sdo + (r0 - q0) * PS;
+  const float* sdow = sdo + (r0 - q0) * PSV;
   float lr[2], dr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -546,15 +573,16 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
 #pragma unroll 4
-        for (int kk = 0; kk < KK; ++kk) {
+        for (int kk = 0; kk < KMAX; ++kk) {
+          const bool on_s = KK == KMAX || kk < KK, on_dp = KKV == KMAX || kk < KKV;
           uint32_t qb_[4], qs_[4], ob[4], os_[4];
-          a_rows<PS>(sqw, kk, g, t4, qb_, qs_);
-          a_rows<PS>(sdow, kk, g, t4, ob, os_);
+          if (on_s) a_rows<PS>(sqw, kk, g, t4, qb_, qs_);
+          if (on_dp) a_rows<PSV>(sdow, kk, g, t4, ob, os_);
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int o = tl_off(8 * kk + 2 * t4, 8 * j + g);
-            tc::mma3<false>(sc[j], qb_, qs_, skt[o], skt[o + 4]);
-            tc::mma3<false>(dp[j], ob, os_, svt[o], svt[o + 4]);
+            if (on_s) tc::mma3<false>(sc[j], qb_, qs_, skt[o], skt[o + 4]);
+            if (on_dp) tc::mma3<false>(dp[j], ob, os_, svt[o], svt[o + 4]);
           }
         }
         // element e of sc[j]: query r0 + g + 8·(e >> 1), key kt0 + 8j + 2t
@@ -611,19 +639,19 @@ struct Args {
   Strides qs, ks, vs, os, dos, dqs, dks, dvs;
 };
 
-template <int D>
+template <int D, int DV>
 int launch(const Args& a, cudaStream_t stream) {
-  using L = Shape<D>;
+  using L = Shape<D, DV>;
   const float scale = (float)(1.0 / sqrt((double)D));  // the forward's
   const int group = a.H / a.Hkv;
   const long long rows = (long long)a.B * a.H * a.S;
   flash_bwd_dot_kernel<<<(unsigned)((rows + DOT_WARPS - 1) / DOT_WARPS),
                          32 * DOT_WARPS, 0, stream>>>(
-      a.o, a.dO, a.di, a.H, a.S, D, a.os, a.dos, rows);
+      a.o, a.dO, a.di, a.H, a.S, DV, a.os, a.dos, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto kv = flash_bwd_dkdv_kernel<D>;
+  auto kv = flash_bwd_dkdv_kernel<D, DV>;
   err = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::KV_BYTES);
   if (err != cudaSuccess) return err;
@@ -634,7 +662,7 @@ int launch(const Args& a, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto qk = flash_bwd_dq_kernel<D>;
+  auto qk = flash_bwd_dq_kernel<D, DV>;
   err = cudaFuncSetAttribute(qk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::DQ_BYTES);
   if (err != cudaSuccess) return err;
@@ -652,10 +680,11 @@ const char* flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out[0], out[1]: the dK/dV and the dQ CTAs of head dimension D that one
-// SM of the current card holds at once (the occupancy calculator, with
-// each kernel's dynamic shared memory); out[2], out[3]: those bytes
-int flash_bwd_ctas_per_sm(int D, void* out) {
+// out[0], out[1]: the dK/dV and the dQ CTAs of head dimensions (D, DV)
+// that one SM of the current card holds at once (the occupancy
+// calculator, with each kernel's dynamic shared memory); out[2], out[3]:
+// those bytes
+int flash_bwd_ctas_per_sm(int D, int DV, void* out) {
   int* o = static_cast<int*>(out);
   const auto query = [o](auto kv, auto qk, int kv_bytes, int dq_bytes) {
     cudaError_t e = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -670,31 +699,29 @@ int flash_bwd_ctas_per_sm(int D, void* out) {
     o[3] = dq_bytes;
     return static_cast<int>(e);
   };
-  switch (D) {
-    case 64:
-      return query(flash_bwd_dkdv_kernel<64>, flash_bwd_dq_kernel<64>, Shape<64>::KV_BYTES,
-                   Shape<64>::DQ_BYTES);
-    case 80:
-      return query(flash_bwd_dkdv_kernel<80>, flash_bwd_dq_kernel<80>, Shape<80>::KV_BYTES,
-                   Shape<80>::DQ_BYTES);
-    case 128:
-      return query(flash_bwd_dkdv_kernel<128>, flash_bwd_dq_kernel<128>, Shape<128>::KV_BYTES,
-                   Shape<128>::DQ_BYTES);
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define BWD_CASE(DD, VV)                                                                \
+  if (D == DD && DV == VV)                                                              \
+    return query(flash_bwd_dkdv_kernel<DD, VV>, flash_bwd_dq_kernel<DD, VV>,            \
+                 Shape<DD, VV>::KV_BYTES, Shape<DD, VV>::DQ_BYTES);
+  BWD_CASE(64, 64)
+  BWD_CASE(80, 80)
+  BWD_CASE(128, 128)
+  BWD_CASE(96, 64)
+#undef BWD_CASE
+  return cudaErrorInvalidValue;
 }
 
-// float32 only.  q, o, dO, dq [B, H, S, D] and k, v, dk, dv [B, Hkv, T, D]
-// through (batch, head, sequence) element strides, the head dimension
-// contiguous, every row start 16-byte aligned (the wrapper checks); lse
-// (the forward's) and di (scratch) [B, H, S] contiguous.  Causal; window
-// > 0 adds the sliding window.  Returns cudaErrorInvalidValue for a D
-// without an instance (64, 80, 128).
+// float32 only.  q, dq [B, H, S, D], o, dO [B, H, S, DV], k, dk [B, Hkv,
+// T, D] and v, dv [B, Hkv, T, DV] through (batch, head, sequence) element
+// strides, the head dimension contiguous, every row start 16-byte
+// aligned (the wrapper checks); lse (the forward's) and di (scratch) [B,
+// H, S] contiguous.  Causal; window > 0 adds the sliding window.  Returns
+// cudaErrorInvalidValue for a (D, DV) without an instance ((64, 64), (80,
+// 80), (128, 128), (96, 64)).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dO, const void* lse,
                         void* di, void* dq, void* dk, void* dv, int B, int H,
-                        int Hkv, int S, int T_len, int D, long long qsb,
+                        int Hkv, int S, int T_len, int D, int DV, long long qsb,
                         long long qsh, long long qss, long long ksb,
                         long long ksh, long long kss, long long vsb,
                         long long vsh, long long vss, long long osb,
@@ -716,16 +743,11 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                {osb, osh, oss}, {dosb, dosh, doss}, {dqsb, dqsh, dqss},
                {dksb, dksh, dkss}, {dvsb, dvsh, dvss}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<64>(a, st);
-    case 80:
-      return launch<80>(a, st);
-    case 128:
-      return launch<128>(a, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (D == 64 && DV == 64) return launch<64, 64>(a, st);
+  if (D == 80 && DV == 80) return launch<80, 80>(a, st);
+  if (D == 128 && DV == 128) return launch<128, 128>(a, st);
+  if (D == 96 && DV == 64) return launch<96, 64>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

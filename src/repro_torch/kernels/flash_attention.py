@@ -4,9 +4,9 @@
 ``kernels/flash_attention.py``.
 
 The wrapper takes CUDA tensors only: it checks device, dtype, shape and
-that the head dimension is contiguous, allocates the output with
-``torch.empty_like(q)`` (so a [B, H, S, D] view of [B, S, H, D]
-activations comes back in the same layout), launches on the current
+that the head dimension is contiguous, allocates the output in q's
+layout (so a [B, H, S, D] view of [B, S, H, D] activations comes back
+in the same layout), launches on the current
 stream, raises if the launch reports an error, and adds one to
 :data:`LAUNCHES`.  The plain version is ``ref.flash_attention_ref``;
 :mod:`.ops` picks between the two by the tensor's device.  Nothing is
@@ -18,6 +18,12 @@ row start of q, k, v (and of the output, which takes q's strides) must be
 sequence) strides with ``_build.aligned`` and raises otherwise; it never
 copies.  The model's [B, S, H, D] activations pass for every supported D
 in float32 and bfloat16.
+
+Head widths: q and k have D columns, v and the output Dv.  The kernels
+have an instance for each (D, Dv) of :data:`SUPPORTED_PAIRS`: D = Dv for
+the GQA configs (:data:`SUPPORTED_D`), and (96, 64) for MLA (minicpm3-4b:
+q/k are qk_nope 64 + qk_rope 32, v is 64), scaled by 1/√D.  Any other
+pair raises.
 
 Training (:class:`FlashAttentionFn`, float32 only): the forward also
 writes each row's log-sum-exp, and the backward is the hand-written
@@ -36,7 +42,9 @@ import torch
 
 from ._build import aligned, error_string, load
 
-SUPPORTED_D = (64, 80, 128)     # csrc FLASH_CASE instances
+SUPPORTED_D = (64, 80, 128)     # the instances with Dv = D
+# (D of q and k, Dv of v and the output): csrc FLASH_CASE / BWD_CASE
+SUPPORTED_PAIRS = tuple((d, d) for d in SUPPORTED_D) + ((96, 64),)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches since the last reset_launches(): forward launches, and
@@ -54,13 +62,29 @@ def reset_launches() -> None:
 
 def _check(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        if not isinstance(t, torch.Tensor) or t.ndim != 4:
+            raise ValueError(f"flash_attention: {name} must be a 4-D tensor, "
+                             f"got {getattr(t, 'shape', type(t))}")
+    # the shapes and the instance first, whatever the device
+    B, H, S, D = q.shape
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != B
+            or k.shape[3] != D):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} needs k "
+                         f"[B, Hkv, T, D] and v [B, Hkv, T, Dv], got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    Hkv = k.shape[1]
+    if H % Hkv:
+        raise ValueError(f"flash_attention: H={H} is not a multiple of "
+                         f"Hkv={Hkv}")
+    if (D, v.shape[3]) not in SUPPORTED_PAIRS:
+        raise ValueError(f"flash_attention: head dims (q/k {D}, v "
+                         f"{v.shape[3]}) have no kernel instance; "
+                         f"supported (D, Dv): {SUPPORTED_PAIRS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
             raise ValueError(f"flash_attention: {name} must be a CUDA tensor "
                              f"(CPU tensors take the plain version through "
                              f"kernels.ops)")
-        if t.ndim != 4:
-            raise ValueError(f"flash_attention: {name} must be 4-D, got "
-                             f"{tuple(t.shape)}")
         if t.dtype not in DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash_attention: q, k, v must share one dtype "
                             f"of {list(DTYPES)}, got {q.dtype}, {k.dtype}, "
@@ -70,18 +94,6 @@ def _check(q, k, v):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head dimension must "
                              f"be contiguous, strides {t.stride()}")
-    B, H, S, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} needs k, v "
-                         f"[B, Hkv, T, D], got {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    Hkv = k.shape[1]
-    if H % Hkv:
-        raise ValueError(f"flash_attention: H={H} is not a multiple of "
-                         f"Hkv={Hkv}")
-    if D not in SUPPORTED_D:
-        raise ValueError(f"flash_attention: head dim {D} has no kernel "
-                         f"instance; supported: {SUPPORTED_D}")
     if min(S, k.shape[2]) == 0:
         raise ValueError("flash_attention: empty sequence")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -93,11 +105,23 @@ def _check(q, k, v):
                              f"kernel copies rows in 16-byte pieces")
 
 
+def _like(q, width: int):
+    """An empty [B, H, S, width] tensor in q's layout: ``empty_like(q)``
+    where the widths agree, else its (batch, head, sequence) axes in the
+    order of q's strides."""
+    if width == q.shape[3]:
+        return torch.empty_like(q)
+    order = sorted(range(3), key=lambda i: -q.stride(i))   # outermost first
+    buf = torch.empty([q.shape[i] for i in order] + [width], dtype=q.dtype,
+                      device=q.device)
+    return buf.permute([order.index(i) for i in range(3)] + [3])
+
+
 def _forward(q, k, v, window: int, with_lse: bool):
     _check(q, k, v)
     B, H, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
+    o = _like(q, Dv)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
     lib = load("flash_attention")
@@ -107,7 +131,7 @@ def _forward(q, k, v, window: int, with_lse: bool):
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(), DTYPES[q.dtype], B, H,
-            Hkv, S, T, D, *st, int(window), stream)
+            Hkv, S, T, D, Dv, *st, int(window), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {rc} "
@@ -117,10 +141,11 @@ def _forward(q, k, v, window: int, with_lse: bool):
 
 
 def flash_attention(q, k, v, window: int = 0):
-    """q [B,H,S,D], k/v [B,Hkv,T,D] (float32 or bfloat16, H a multiple
-    of Hkv) -> [B,H,S,D] in q's dtype: causal (and, with window > 0,
-    sliding-window) softmax attention, query head h on kv head
-    h // (H/Hkv), math in float32."""
+    """q [B,H,S,D], k [B,Hkv,T,D], v [B,Hkv,T,Dv] (float32 or
+    bfloat16, H a multiple of Hkv, (D, Dv) in :data:`SUPPORTED_PAIRS`)
+    -> [B,H,S,Dv] in q's dtype: causal (and, with window > 0,
+    sliding-window) softmax attention scaled by 1/√D, query head h on kv
+    head h // (H/Hkv), math in float32."""
     return _forward(q, k, v, window, False)[0]
 
 
@@ -141,16 +166,16 @@ def _train_dtype(fn, *ts):
 
 def flash_attention_bwd(q, k, v, o, lse, dO, window: int = 0):
     """The gradients (dq, dk, dv) of :func:`flash_attention` at (q, k,
-    v) given its output o, its log-sum-exp and dO [B,H,S,D], float32:
+    v) given its output o, its log-sum-exp and dO [B,H,S,Dv], float32:
     three launches (Di, dK/dV, dQ), outputs in q's, k's and v's
     layouts."""
     _check(q, k, v)
     _train_dtype("flash_attention_bwd", q, dO)
     B, H, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
-    if dO.shape != q.shape or o.shape != q.shape:
+    Hkv, T, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if dO.shape != (B, H, S, Dv) or o.shape != (B, H, S, Dv):
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and dO "
-                         f"{tuple(dO.shape)} must be q's {tuple(q.shape)}")
+                         f"{tuple(dO.shape)} must be [{B}, {H}, {S}, {Dv}]")
     if (tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd: lse must be contiguous "
@@ -172,7 +197,7 @@ def flash_attention_bwd(q, k, v, o, lse, dO, window: int = 0):
         rc = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dO.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, H, Hkv, S, T, D, *st,
+            dk.data_ptr(), dv.data_ptr(), B, H, Hkv, S, T, D, Dv, *st,
             int(window), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed with "

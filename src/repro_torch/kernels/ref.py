@@ -569,11 +569,13 @@ def attention_mask(S: int, T: int, window: int, device):
 
 
 def flash_attention_ref(q, k, v, window: int = 0):
-    """q [B,H,S,D], k/v [B,Hkv,T,D] (H a multiple of Hkv) -> [B,H,S,D]
-    in q's dtype: causal softmax attention in float32 with query head h
-    on kv head h // (H/Hkv), masked logits at -1e30.  The twin of the
-    JAX package's ``flash_attention_ref`` (causal=True, the only form
-    the models run); the function B6 computes."""
+    """q [B,H,S,D], k [B,Hkv,T,D], v [B,Hkv,T,Dv] (H a multiple of Hkv)
+    -> [B,H,S,Dv] in q's dtype: causal softmax attention in float32,
+    scaled by 1/√D, with query head h on kv head h // (H/Hkv), masked
+    logits at -1e30.  The twin of the JAX package's
+    ``flash_attention_ref`` (causal=True, the only form the models run);
+    the function B6 computes.  Dv may differ from D (MLA's q/k 96, v
+    64)."""
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     G = H // Hkv

@@ -1,12 +1,16 @@
 """Shared transformer layers (the port of the JAX package's
-``models/layers.py``): RMSNorm, RoPE, activations, the dense MLP and GQA
-attention (full sequence and single-token decode).
+``models/layers.py``): RMSNorm, RoPE, activations, the dense MLP, GQA
+attention and MLA (the low-rank latent attention of MiniCPM3 /
+DeepSeek-V2), each in its full-sequence and single-token decode form.
 
 Parameters are dicts in the JAX layouts ([in, out] dense, ``wq``
 [d, H, D], ``wo`` [H, D, d]).  The full-sequence attention goes through
-``ops.flash_attention`` (kernel B6 on the card); the decode attention
-stays plain torch on both devices, as the JAX package computes it
-outside any Pallas kernel (its mask is per slot, which B6 has not).
+``ops.flash_attention`` (kernel B6 on the card; MLA's q/k and v widths
+differ, (96, 64) at minicpm3-4b, an instance of its own); the decode
+attention stays plain torch on both devices, as the JAX package
+computes it outside any Pallas kernel (its mask is per slot, which B6
+has not; MLA decodes in the weight-absorbed form over the latent
+cache).
 
 Dtypes follow the JAX promotion rules of the reference: where JAX mixes
 a float32 operand with a bfloat16 cache and promotes, the port casts to
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -198,3 +203,120 @@ def gqa_decode(p, a: AttentionSpec, x, cache_k, cache_v, pos):
     out = _sdpa(q, cache_k, cache_v, mask)
     out = torch.einsum("bshk,hkd->bsd", _promote(out, p["wo"]), p["wo"])
     return out, (cache_k, cache_v)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 / MiniCPM3): low-rank latent KV, decoupled RoPE key
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def mla_defs(d_model: int, a: AttentionSpec) -> dict:
+    qk_head = a.qk_nope_dim + a.qk_rope_dim
+    d: dict = {}
+    if a.q_lora_rank:
+        d["w_dq"] = ParamDef((d_model, a.q_lora_rank), ("embed", "qlora"))
+        d["q_norm"] = ParamDef((a.q_lora_rank,), (None,), init="ones")
+        d["w_uq"] = ParamDef((a.q_lora_rank, a.n_heads, qk_head),
+                             ("qlora", "heads", "hd"))
+    else:
+        d["w_uq"] = ParamDef((d_model, a.n_heads, qk_head),
+                             ("embed", "heads", "hd"))
+    d["w_dkv"] = ParamDef((d_model, a.kv_lora_rank), ("embed", "kvlora"))
+    d["kv_norm"] = ParamDef((a.kv_lora_rank,), (None,), init="ones")
+    d["w_krope"] = ParamDef((d_model, a.qk_rope_dim), ("embed", None))
+    d["w_uk"] = ParamDef((a.kv_lora_rank, a.n_heads, a.qk_nope_dim),
+                         ("kvlora", "heads", "hd"))
+    d["w_uv"] = ParamDef((a.kv_lora_rank, a.n_heads, a.v_head_dim),
+                         ("kvlora", "heads", "hd"))
+    d["wo"] = ParamDef((a.n_heads, a.v_head_dim, d_model),
+                       ("heads", "hd", "embed"))
+    return d
+
+
+def _mla_scale(a: AttentionSpec) -> float:
+    """1/sqrt(qk_nope + qk_rope) rounded as the reference's float32
+    ``1.0 / jnp.sqrt(...)``."""
+    return float(np.float32(1.0)
+                 / np.sqrt(np.float32(a.qk_nope_dim + a.qk_rope_dim)))
+
+
+def _mla_q(p, a: AttentionSpec, x, positions):
+    if a.q_lora_rank:
+        cq = rms_norm(x @ p["w_dq"], p["q_norm"])
+        q = torch.einsum("bsr,rhk->bshk", cq, p["w_uq"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["w_uq"])
+    q_nope, q_rope = q[..., :a.qk_nope_dim], q[..., a.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, a.rope_theta)
+    return q_nope, q_rope
+
+
+def mla_attention(p, a: AttentionSpec, x, positions):
+    """Full-sequence MLA.  x: [B,S,d]; positions: [S] or [B,S].  Returns
+    (out [B,S,d], (c_kv [B,S,R], k_rope [B,S,Dr])), the latent cache
+    pieces.
+
+    The reference's logits q_nope·k_nope + q_rope·k_rope are one
+    product over the concatenated head: q = [q_nope | rope(q_rope)] and
+    k = [k_nope | k_rope broadcast over the heads], [B,S,H,Dqk], with v
+    [B,S,H,Dv], through ``ops.flash_attention`` (B6's (96, 64) instance
+    at minicpm3-4b), scaled by 1/sqrt(Dqk) under the causal (window)
+    mask, the masked logits at -1e30 before the softmax as in the
+    reference."""
+    B, S, _ = x.shape
+    H = a.n_heads
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    q_nope, q_rope = _mla_q(p, a, x, positions)
+    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"])           # [B,S,R]
+    k_rope = apply_rope((x @ p["w_krope"])[:, :, None, :], positions,
+                        a.rope_theta)                        # [B,S,1,Dr]
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"]).contiguous()
+    q = torch.cat([q_nope, q_rope], dim=-1)                  # [B,S,H,Dqk]
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, a.qk_rope_dim)], dim=-1)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), a.window).transpose(1, 2)
+    out = torch.einsum("bshk,hkd->bsd", _promote(out, p["wo"]), p["wo"])
+    return out, (c_kv, k_rope.squeeze(2))
+
+
+def mla_decode(p, a: AttentionSpec, x, cache_c, cache_kr, pos):
+    """Weight-absorbed single-token MLA decode.  x: [B,1,d]; cache_c:
+    [B,T,R] latent; cache_kr: [B,T,Dr] rope key; ``pos``: scalar or
+    per-slot ``[B]`` absolute positions (see :func:`gqa_decode`).
+
+    score_h(t) = (W_uk,hᵀ q_nope,h) · c_t + q_rope,h · k_rope,t and
+    out_h = (Σ_t w_t c_t) W_uv,h, plain torch as the reference computes
+    it, with its roundings: the softmax weights are cast to the cache's
+    dtype and the context Σ_t w_t c_t is rounded to it (bfloat16 over a
+    bfloat16 cache).  Writes the new entries into the cache IN PLACE
+    and returns (out, (cache_c, cache_kr))."""
+    B = x.shape[0]
+    posb = _decode_pos(pos, B, x.device)
+    posv = posb[:, None]                                     # [B,1]
+    q_nope, q_rope = _mla_q(p, a, x, posv)                   # [B,1,H,*]
+    c_new = rms_norm(x @ p["w_dkv"], p["kv_norm"])           # [B,1,R]
+    kr_new = apply_rope((x @ p["w_krope"])[:, :, None, :], posv,
+                        a.rope_theta).squeeze(2)             # [B,1,Dr]
+    rows = torch.arange(B, device=x.device)
+    cache_c[rows, posb] = c_new[:, 0].to(cache_c.dtype)
+    cache_kr[rows, posb] = kr_new[:, 0].to(cache_kr.dtype)
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])  # [B,1,H,R]
+    logits = (torch.einsum("bshr,btr->bhst", q_abs.float(), cache_c.float())
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             cache_kr.float()))
+    logits = logits * _mla_scale(a)
+    T = cache_c.shape[1]
+    valid = torch.arange(T, device=x.device)[None, :] <= posb[:, None]
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1).to(cache_c.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", w.float(),
+                       cache_c.float()).to(cache_c.dtype)    # [B,1,H,R]
+    out = torch.einsum("bshr,rhk->bshk", _promote(ctx, p["w_uv"]),
+                       p["w_uv"])
+    out = torch.einsum("bshk,hkd->bsd", _promote(out, p["wo"]), p["wo"])
+    return out, (cache_c, cache_kr)

@@ -8,11 +8,14 @@ Layers are grouped into homogeneous *segments* with stacked parameters
 leaf by leaf); where the JAX package scans a segment with ``lax.scan``,
 the port loops over the stacked layer axis in Python.
 
-  dense (qwen3) : [("dense", L)]
-  rwkv6         : [("rwkv", L)]
+  dense (qwen3, nemotron; minicpm3 with MLA attention) : [("dense", L)]
+  rwkv6                                              : [("rwkv", L)]
 
-The moe and hybrid (zamba2) segments wait for later slices of the port
-and raise ``NotImplementedError``.
+The moe (dbrx, deepseek-v2) and hybrid (zamba2) segments wait for later
+slices of the port and raise ``NotImplementedError``.  A dense layer's
+attention is GQA or MLA by ``cfg.attention.kind``; MLA's decode cache
+holds the latent ``c`` [B,T,R] and the rope key ``kr`` [B,T,Dr] where
+GQA's holds ``k`` / ``v``.
 
 The decode cache is a nested dict of tensors.  ``prefill_cache`` and
 ``decode_step`` write every entry IN PLACE where the JAX package returns
@@ -53,10 +56,6 @@ def segments(cfg: ModelConfig):
         raise NotImplementedError(
             f"{cfg.name}: the moe segment is not ported yet (ROADMAP A.3, "
             f"MoE)")
-    if cfg.attention.kind != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attention.kind!r} attention is not ported "
-            f"yet (ROADMAP A.3, MLA)")
     return [Segment("dense", cfg.n_layers)]
 
 
@@ -64,12 +63,18 @@ def segments(cfg: ModelConfig):
 # parameter definitions
 # ---------------------------------------------------------------------------
 
+def _attn_defs(cfg: ModelConfig):
+    a = cfg.attention
+    return (L.mla_defs(cfg.d_model, a) if a.kind == "mla"
+            else L.gqa_defs(cfg.d_model, a))
+
+
 def _block_defs(cfg: ModelConfig, kind: str) -> dict:
     D = cfg.d_model
     norm = lambda: ParamDef((D,), (None,), init="ones")  # noqa: E731
     if kind == "dense":
         gated = cfg.activation != "relu2"
-        return {"ln1": norm(), "attn": L.gqa_defs(D, cfg.attention),
+        return {"ln1": norm(), "attn": _attn_defs(cfg),
                 "ln2": norm(), "mlp": L.mlp_defs(D, cfg.d_ff, gated)}
     if kind == "rwkv":
         return {"ln1": norm(), "tm": R6.rwkv6_defs(D, cfg.d_ff, cfg.rwkv),
@@ -118,14 +123,27 @@ def _stack_entries(ents: list):
 # block bodies (full-sequence form)
 # ---------------------------------------------------------------------------
 
+def _attention(cfg, p, x, positions):
+    if cfg.attention.kind == "mla":
+        return L.mla_attention(p, cfg.attention, x, positions)
+    return L.gqa_attention(p, cfg.attention, x, positions)
+
+
+def _kv_entry(cfg, kv):
+    """Full-sequence attention cache pieces, keyed like
+    ``_attn_cache_defs``."""
+    if cfg.attention.kind == "mla":
+        return {"c": kv[0], "kr": kv[1]}
+    return {"k": kv[0], "v": kv[1]}
+
+
 def _dense_block(cfg, p, x, positions):
-    h, (k, v) = L.gqa_attention(p["attn"], cfg.attention,
-                                L.rms_norm(x, p["ln1"], cfg.rms_eps),
-                                positions)
+    h, kv = _attention(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.rms_eps),
+                       positions)
     x = x + h
     x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.rms_eps),
                   cfg.activation)
-    return x, {"k": k, "v": v}
+    return x, _kv_entry(cfg, kv)
 
 
 def _rwkv_block(cfg, p, x):
@@ -222,6 +240,9 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False):
 def _attn_cache_defs(cfg: ModelConfig, batch: int, seq_len: int):
     a = cfg.attention
     T = min(a.window, seq_len) if a.window else seq_len
+    if a.kind == "mla":
+        return {"c": ((batch, T, a.kv_lora_rank), ("batch", "seq", None)),
+                "kr": ((batch, T, a.qk_rope_dim), ("batch", "seq", None))}
     return {"k": ((batch, T, a.n_kv_heads, a.head_dim),
                   ("batch", "seq", "kv", "hd")),
             "v": ((batch, T, a.n_kv_heads, a.head_dim),
@@ -265,11 +286,21 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     return zeros(cache_defs(cfg, batch, seq_len))
 
 
+def _attn_decode(cfg, p, x, cache, pos):
+    """One layer's decode attention; writes ``cache`` (its K/V, or MLA's
+    latent and rope key) in place."""
+    a = cfg.attention
+    if a.kind == "mla":
+        return L.mla_decode(p, a, x, cache["c"], cache["kr"], pos)[0]
+    return L.gqa_decode(p, a, x, cache["k"], cache["v"], pos)[0]
+
+
 def decode_step(cfg: ModelConfig, params, cache, token, pos):
     """token [B,1] int64; pos a scalar absolute position or a per-slot
     ``[B]`` device vector (the recurrent family ignores it; a device
     vector is used as it is, with no host copy).  Returns (logits
-    [B,1,V], cache) — every entry written in place: the attention K/V,
+    [B,1,V], cache) — every entry written in place: the attention K/V
+    (MLA: the latent and the rope key),
     the rwkv state cast to the cache's dtype and the float32 token-shift
     carries, as the JAX scan returns them."""
     x = embed_inputs(cfg, params, token)
@@ -279,10 +310,9 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
         if seg.kind == "dense":
             for p_l, c_l in zip(_layers(p_stack, seg.n),
                                 _layers(c_stack, seg.n)):
-                h, _ = L.gqa_decode(
-                    p_l["attn"], cfg.attention,
-                    L.rms_norm(x, p_l["ln1"], cfg.rms_eps),
-                    c_l["k"], c_l["v"], pos)
+                h = _attn_decode(cfg, p_l["attn"],
+                                 L.rms_norm(x, p_l["ln1"], cfg.rms_eps),
+                                 c_l, pos)
                 x = x + h
                 x = x + L.mlp(p_l["mlp"],
                               L.rms_norm(x, p_l["ln2"], cfg.rms_eps),

@@ -12,7 +12,9 @@ slot-granular: each slot owns a fixed ``max_len`` strip of every cache
 leaf.
 
 The batch axis position of every leaf comes from the logical axis names
-in ``TF.cache_defs`` (``batch_axes``), not from hard-coded layouts.
+in ``TF.cache_defs`` (``batch_axes``), not from hard-coded layouts: GQA's
+``k`` / ``v``, MLA's latent ``c`` and rope key ``kr``, rwkv's state and
+carries alike.
 """
 from __future__ import annotations
 

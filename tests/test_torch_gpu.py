@@ -1403,3 +1403,137 @@ def test_brsgd_launch_past_2_31_elements():
     mm = kern.masked_mean(G, w)
     exact(mm[d - n:], ref.masked_mean_det(G[:, d - n:], w))
     exact(kern.fused_stats(G, ("scores",))["scores"], sc.float())
+
+
+# ---------------------------------------------------------------------------
+# MLA: B6's and B6-bwd's (96, 64) instance; the zoo configs on the card
+# ---------------------------------------------------------------------------
+
+def _mla_inputs(B, H, Hkv, S, dtype, seed=0):
+    """q, k [B,H(kv),S,96], v [B,Hkv,S,64] and dO [B,H,S,64], as views of
+    [B,S,H,D] data (the model's layout)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(B, S, h, d, generator=g, device="cuda")
+                 .to(dtype).transpose(1, 2)
+                 for h, d in ((H, 96), (Hkv, 96), (Hkv, 64), (H, 64)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,win", [(2, 40, 40, 128, 0),
+                                           (1, 8, 4, 211, 0),
+                                           (2, 8, 2, 300, 48),
+                                           (1, 4, 4, 5, 0)])
+def test_flash_attention_mla_instance_matches_plain(B, H, Hkv, S, win, dtype):
+    """B6 at (D, Dv) = (96, 64): [B,H,S,64] out in q's layout, within the
+    B6 limits of the plain version, one launch."""
+    need_card()
+    q, k, v, _ = _mla_inputs(B, H, Hkv, S, dtype, seed=S)
+    ops.reset_launches()
+    got = fa_kern.flash_attention(q, k, v, win)
+    assert ops.launches()["flash_attention"] == 1
+    assert got.shape == (B, H, S, 64) and got.stride(2) == H * 64
+    want = ref.flash_attention_ref(q, k, v, win)
+    rtol, atol = (2e-4, 2e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+    err = ((got.double() - want.double()).abs()
+           - rtol * want.double().abs()).max()
+    assert float(err) <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,S,win", [(2, 40, 40, 128, 0),
+                                           (1, 8, 4, 211, 0),
+                                           (2, 8, 2, 1000, 48),
+                                           (1, 4, 4, 5, 0)])
+def test_flash_attention_mla_backward_matches_plain_gradient(B, H, Hkv, S,
+                                                             win):
+    """B6-bwd at (96, 64) through the autograd Function: dq, dk [..96],
+    dv [..64] within the per-S limit of the B6-bwd rows, one forward and
+    one backward launch, a second backward the same bits."""
+    need_card()
+    q, k, v, dO = _mla_inputs(B, H, Hkv, S, torch.float32, seed=S + 1)
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launches()
+    o = fa_kern.FlashAttentionFn.apply(*ins, win)
+    got = torch.autograd.grad(o, ins, dO)
+    assert ops.launches()["flash_attention"] == 1
+    assert ops.launches()["flash_attention_bwd"] == 1
+    want = ref.flash_attention_grads_ref(q, k, v, dO, win)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.stride() == t.stride()
+        close(g, w, flash_bwd_tol(S))
+    _, lse = fa_kern.flash_attention_lse(q, k, v, win)
+    again = fa_kern.flash_attention_bwd(q, k, v, o.detach(), lse, dO, win)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _mla_small_config():
+    """minicpm3-4b's MLA head widths (q/k 64 + 32, v 64) in a small model:
+    the reduced config with the full attention spec at 4 heads."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config("minicpm3-4b")
+    return dataclasses.replace(
+        full.reduced(), attention=dataclasses.replace(
+            full.attention, n_heads=4, n_kv_heads=4, q_lora_rank=64,
+            kv_lora_rank=32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "nemotron-4-15b", "mla"])
+def test_zoo_config_on_the_card_matches_the_cpu(arch):
+    """qwen3-1.7b and nemotron-4-15b reduced, and MLA at minicpm3's head
+    widths: the prefill's logits and 4 decode steps over a float32 cache
+    within 1e-4 of max|logit|, greedy tokens equal; the loss within 1e-5
+    and every leaf's gradient within 1e-4 of its largest |g|; one B6 a
+    layer in the prefill, none in decode, one B6 and one B6-bwd a layer
+    in the gradient."""
+    need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    cfg = _mla_small_config() if arch == "mla" else get_config(arch).reduced()
+    p_cpu = PM.init_params(TF.param_defs(cfg),
+                           torch.Generator().manual_seed(3))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 40)))
+    B, S, steps, L = 2, 40, 4, cfg.n_layers
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(p_cpu, dev)
+        cache = TF.init_cache(cfg, B, S + steps, torch.float32, dev)
+        ops.reset_launches()
+        lg, cache = TF.prefill_cache(cfg, params, toks.to(dev), cache)
+        pre = {n: c for n, c in ops.launches().items() if c}
+        logits, tok = [lg[:, -1].cpu()], lg[:, -1].argmax(-1)[:, None]
+        ops.reset_launches()
+        for i in range(steps):
+            lg, cache = TF.decode_step(cfg, params, cache, tok, S + i)
+            logits.append(lg[:, 0].cpu())
+            tok = lg.reshape(B, -1).argmax(-1)[:, None]
+        dec = {n: c for n, c in ops.launches().items() if c}
+        params = _clone(_to(p_cpu, dev))   # p_cpu never requires grad
+        leaves = _flat(params)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        ops.reset_launches()
+        loss, _ = TF.loss_fn(cfg, params, {"tokens": toks.to(dev)})
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        grad_launches = {n: c for n, c in ops.launches().items() if c}
+        out[dev] = (logits, loss.detach().cpu(), dict(zip(leaves, grads)),
+                    pre, dec, grad_launches)
+    assert out["cuda"][3:] == ({"flash_attention": L}, {},
+                               {"flash_attention": L,
+                                "flash_attention_bwd": L})
+    for g, w in zip(out["cuda"][0], out["cpu"][0]):
+        close(g, w, 1e-4)
+        exact(g.argmax(-1), w.argmax(-1))
+    close(out["cuda"][1], out["cpu"][1], 1e-5)
+    for name, g in out["cpu"][2].items():
+        close(out["cuda"][2][name], g, 1e-4)

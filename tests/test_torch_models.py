@@ -109,7 +109,8 @@ def test_param_trees_carry_across_leaf_by_leaf(arch):
     mine = TPM.init_params(tdefs, torch.Generator().manual_seed(0))
     assert _shapes(mine) == got
     seg = mine["seg_0"]
-    w = seg["attn"]["wq"] if "attn" in seg else seg["tm"]["w_r"]
+    attn = seg.get("attn", {})
+    w = attn.get("wq", attn.get("w_uq")) if attn else seg["tm"]["w_r"]
     fan_in = int(np.prod(w.shape[1:-1]))          # [L, in..., out]
     assert abs(float(w.std()) * np.sqrt(fan_in) - 1.0) < 0.05
 

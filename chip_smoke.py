@@ -65,9 +65,11 @@ session runs before every library is loaded):
      128], a ragged S = 200, window 64, D = 64 and 80, in
      bfloat16, S = 5 (below one mma tile), S one past a query and a key
      tile, groups 1, 2 and 8, every D in both types, and the model's
-     strided views against contiguous copies; B6's MLA instance (q/k 96,
-     v 64) at minicpm3-4b's prefill [4, 40, 40, 512] in both types, at
-     [1, 40, 40, 4096], a ragged S = 211 in groups of 2 and a window;
+     strided views against contiguous copies; B6's MLA instances: (q/k
+     96, v 64) at minicpm3-4b's prefill [4, 40, 40, 512] in both types,
+     at [1, 40, 40, 4096], a ragged S = 211 in groups of 2 and a window;
+     (192, 128) at deepseek-v2's prefill [4, 128, 128, 512] in both
+     types, [1, 128, 128, 300], ragged S in groups of 2 and windows;
      B7's one-chunk call at
      rwkv6-7b's [4, 64, 64, 64] with w in (e^-1, 1) and down to e^-3 (the
      clamps bite), a ragged Q = 40 and K = 32, also against the
@@ -80,9 +82,11 @@ session runs before every library is loaded):
      128, 128], one train_4k sequence [1, 16, 8, 4096, 128], the prefill
      shape, a ragged S = 200 with window 64, D = 64 and 80, S = 5, S one
      past a tile, groups 1, 2 and 8, the model's strided views against
-     contiguous copies (bit-equal), and the (96, 64) instance at
+     contiguous copies (bit-equal), the (96, 64) instance at
      minicpm3-4b's [4, 40, 40, 512], [1, 40, 40, 4096], S = 211 and a
-     window; B7 (dr, dk, dv, dw, du, dS_in) at
+     window, and the (192, 128) instance at deepseek-v2's [2, 128, 128,
+     128], [1, 16, 16, 4096], S = 211, a window, S = 5 and 65; B7 (dr,
+     dk, dv, dw, du, dS_in) at
      [2, 128, 64, 64] and [1, 4096, 64, 64], S in {1, 63, 64, 65}, K = 32,
      w in (e^-1, 1) and down to e^-3, from a nonzero state, with a given
      dS_final and without; each backward launched twice (the same bits),
@@ -183,18 +187,27 @@ session runs before every library is loaded):
      layers), minicpm3-4b (62 layers of MLA on B6's (96, 64) instance)
      and nemotron-4-15b (32 layers, 62.5 GB of weights, last: the cache
      emptied first), batch 4, prompt 512, 16 tokens, 2 passes, B6 once a
-     layer a prefill and never in decode; each card against the host CPU
-     at full width cut to 2 layers over a float32 and a bfloat16 cache
-     (nemotron at batch 1 x 32, the float32 cache alone); minicpm3-4b
-     through the serve loop (4
-     requests on 4 slots: one decode graph, 62 B6 launches an admission,
-     B6 held on the loop's own prefill inputs, tokens equal to the
-     batch-1 decode but for a near tie); qwen3-1.7b's train step at full
-     width through launch.train.main (m = 4, 2 x 128 tokens, brsgd under
-     sign_flip at 0.25, adamw: a warm-up and 3 timed steps, each 1 brsgd
-     launch, 112 B6 and 112 B6-bwd launches and nothing else, host ms,
-     split, peak memory); card = CPU steps of minicpm3-4b (the reduced
-     model with its MLA head widths) and nemotron-4-15b reduced;
+     layer a prefill and never in decode; then the MoE segment through
+     the launcher's single-shot function at full width cut to 4 layers:
+     dbrx-132b (57.08 GB of weights) and deepseek-v2-236b (its dense
+     layer and 3 moe layers, B6's (192, 128) instance, 53.21 GB), each
+     alone on the card; each card against the host CPU at full width cut
+     to 2 layers over a float32 and a bfloat16 cache (nemotron at batch 1
+     x 32, the float32 cache alone; dbrx at one layer and deepseek-v2 at
+     2, at 1 x 32 over a float32 cache, at the configs' capacity factor);
+     minicpm3-4b through the serve loop (4 requests on 4 slots: one
+     decode graph, 62 B6 launches an admission, B6 held on the loop's own
+     prefill inputs, tokens equal to the batch-1 decode but for a near
+     tie), and deepseek-v2 at 4 layers with lossless dispatch
+     (capacity_factor = E / k) the same way; qwen3-1.7b's train step at
+     full width through launch.train.main (m = 4, 2 x 128 tokens, brsgd
+     under sign_flip at 0.25, adamw: a warm-up and 3 timed steps, each 1
+     brsgd launch, 112 B6 and 112 B6-bwd launches and nothing else, host
+     ms, split, peak memory); one worker's gradient at [2, 128] of dbrx
+     at one layer and deepseek-v2 at 2 (full width; one B6 and one B6-bwd
+     launch a layer, host ms, device ms by group, peak memory); card =
+     CPU steps of minicpm3-4b and deepseek-v2 (the reduced models with
+     their MLA head widths), nemotron-4-15b and dbrx-132b reduced;
   7f. the demo twins on the card: paper.train_100m --full for 3 steps
      (the ~100M qwen3 config, m = 8 workers of 4 x 512 tokens; 1 brsgd,
      96 B6 and 96 B6-bwd launches a step; the loss falls),
@@ -211,11 +224,15 @@ session runs before every library is loaded):
      of each gram rule; B6 at
      its serve shape and at S = 4096 beside SDPA, with its FP32-pipe and
      3xTF32 tensor-core bounds, and its (96, 64) instance at minicpm3-4b's
-     prefill and at S = 4096 (SDPA on the same unequal widths); B7 per layer launch at [4, 512, 64, 64]
+     prefill and at S = 4096 and its (192, 128) instance at deepseek-v2's
+     prefill and at S = 4096 (SDPA on the same unequal widths); B7 per
+     layer launch at [4, 512, 64, 64]
      and its one-chunk call; B6's backward at [2, 16, 8, 128, 128] and
      [1, 16, 8, 4096, 128] beside the backward of SDPA (its kernels'
      registers, spills, shared memory and CTAs an SM first), and its
-     (96, 64) instance at [4, 40, 40, 512] and [1, 40, 40, 4096], B7's (its
+     (96, 64) instance at [4, 40, 40, 512] and [1, 40, 40, 4096], its
+     (192, 128) instance at [2, 128, 128, 128] and [1, 128, 128, 4096],
+     B7's (its
      four kernels, each timed too, its CTAs an SM and shared memory
      first) at [2, 128, 64, 64], [2, 128, 64, 32] and [1, 4096, 64, 64],
      with the bytes its design moves beside the bound, each with the
@@ -315,16 +332,26 @@ FLASH_CASES = ((4, 16, 8, 512, 128, 0, "float32"),
                (1, 4, 2, 65, 80, 0, "bfloat16"),
                (2, 8, 4, 300, 64, 48, "bfloat16"))
 FLASH_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}  # rtol, atol
-# B6's (D, Dv) = (96, 64) instance, MLA's (B, H, Hkv, S, D, Dv, window,
-# dtype name): minicpm3-4b's prefill [4, 40, 40, 512] in both types, one
-# train_4k sequence, a ragged S in GQA groups, a window; held to the B6
+# B6's MLA instances (B, H, Hkv, S, D, Dv, window, dtype name): (96, 64)
+# at minicpm3-4b's prefill [4, 40, 40, 512] in both types, one train_4k
+# sequence, a ragged S in GQA groups, a window; (192, 128) at
+# deepseek-v2's prefill [4, 128, 128, 512] in both types (the float32
+# instance on its own 32-row key tile), the serve loop's batch 1, a
+# ragged S past a key tile of either width, a window; held to the B6
 # rows' FLASH_TOL
 MLA_FLASH_CASES = ((4, 40, 40, 512, 96, 64, 0, "float32"),
                    (4, 40, 40, 512, 96, 64, 0, "bfloat16"),
                    (1, 40, 40, 4096, 96, 64, 0, "float32"),
                    (2, 8, 4, 211, 96, 64, 0, "float32"),
                    (2, 8, 4, 1000, 96, 64, 48, "float32"),
-                   (1, 40, 40, 200, 96, 64, 64, "bfloat16"))
+                   (1, 40, 40, 200, 96, 64, 64, "bfloat16"),
+                   (4, 128, 128, 512, 192, 128, 0, "float32"),
+                   (4, 128, 128, 512, 192, 128, 0, "bfloat16"),
+                   (1, 128, 128, 300, 192, 128, 0, "float32"),
+                   (2, 8, 4, 211, 192, 128, 0, "float32"),
+                   (2, 8, 4, 1000, 192, 128, 48, "float32"),
+                   (1, 16, 16, 97, 192, 128, 0, "bfloat16"),
+                   (1, 16, 16, 200, 192, 128, 64, "bfloat16"))
 # B7 cases (B, H, Q, K, log-decay range): rwkv6-7b's chunk with w in
 # (e^-1, 1), w down to e^-3, a ragged last chunk, K = 32
 WKV_CASES = ((4, 64, 64, 64, 1.0), (4, 64, 64, 64, 3.0),
@@ -355,13 +382,22 @@ FLASH_BWD_CASES = ((2, 16, 8, 128, 128, 0), (1, 16, 8, 4096, 128, 0),
 # bits in every run (seeded inputs, a deterministic kernel).  So each case
 # is held to 2e-5 + 2e-8 per key, never above FLASH_BWD_TOL.
 FLASH_BWD_TOL = 1e-4
-# B6-bwd's (96, 64) instance (B, H, Hkv, S, D, Dv, window), at the per-S
-# limit of the B6-bwd rows: minicpm3-4b's prefill shape, one train_4k
-# sequence, a ragged S in GQA groups, a window
+# B6-bwd's MLA instances (B, H, Hkv, S, D, Dv, window), at the per-S
+# limit of the B6-bwd rows: (96, 64) at minicpm3-4b's prefill shape, one
+# train_4k sequence, a ragged S in GQA groups, a window; (192, 128) at
+# deepseek-v2's gradient shape [2, 128, 128, 128], one train_4k sequence
+# of 16 heads, a ragged S in GQA groups, a window, S = 5 and one past a
+# CTA's 64 rows
 MLA_FLASH_BWD_CASES = ((4, 40, 40, 512, 96, 64, 0),
                        (1, 40, 40, 4096, 96, 64, 0),
                        (2, 8, 4, 211, 96, 64, 0),
-                       (2, 8, 4, 1000, 96, 64, 48))
+                       (2, 8, 4, 1000, 96, 64, 48),
+                       (2, 128, 128, 128, 192, 128, 0),
+                       (1, 16, 16, 4096, 192, 128, 0),
+                       (2, 8, 4, 211, 192, 128, 0),
+                       (2, 8, 4, 1000, 192, 128, 48),
+                       (2, 4, 4, 5, 192, 128, 0),
+                       (1, 16, 2, 65, 192, 128, 0))
 
 
 def _flash_bwd_tol(S: int) -> float:
@@ -379,16 +415,24 @@ WKV_BWD_CASES = ((2, 128, 64, 64, 1.0), (2, 128, 64, 64, 3.0),
                  (2, 130, 8, 32, 3.0))
 WKV_BWD_TOL = 2e-5            # each gradient, relative to its largest |plain|
 # B6's and B6-bwd's timing rows (label, (B, H, Hkv, S, D, Dv)): the
-# qwen3-0.6b serve / train shape and one train_4k sequence, and MLA's
-# (96, 64) instance at minicpm3-4b's prefill and at one train_4k sequence
+# qwen3-0.6b serve / train shape and one train_4k sequence, MLA's (96, 64)
+# instance at minicpm3-4b's prefill and at one train_4k sequence, and the
+# (192, 128) instance at deepseek-v2's prefill (forward), its gradient
+# shape (backward) and one train_4k sequence of its 128 heads
 FLASH_TIMING = (("serve", (4, 16, 8, 512, 128, 128)),
                 ("long", (1, 16, 8, 4096, 128, 128)),
                 ("mla", (4, 40, 40, 512, 96, 64)),
-                ("mla_long", (1, 40, 40, 4096, 96, 64)))
+                ("mla_long", (1, 40, 40, 4096, 96, 64)),
+                ("ds", (4, 128, 128, 512, 192, 128)),
+                ("ds_long", (1, 128, 128, 4096, 192, 128)))
 FLASH_BWD_TIMING = (("train", (2, 16, 8, 128, 128, 128)),
                     ("long", (1, 16, 8, 4096, 128, 128)),
                     ("mla", (4, 40, 40, 512, 96, 64)),
-                    ("mla_long", (1, 40, 40, 4096, 96, 64)))
+                    ("mla_long", (1, 40, 40, 4096, 96, 64)),
+                    ("ds", (2, 128, 128, 128, 192, 128)),
+                    ("ds_long", (1, 128, 128, 4096, 192, 128)))
+# the label prefix of each MLA instance's timing rows
+INSTANCE_LABELS = {"96x64": "mla", "192x128": "ds"}
 # B7's backward kernels by a part of their names; a tree from before the
 # chunk-parallel design (a parent's, for --kernel-times) has one kernel
 WKV_BWD_PARTS = (("wkv6_bwd_carry",), ("wkv6_bwd_scan",),
@@ -415,6 +459,7 @@ GRAD_CASES = (("qwen3-0.6b", 2, 128, False), ("qwen3-0.6b", 1, 4096, True),
 GRAD_REPS = 3                 # timed gradients per case (median), the
                               # first also checked
 GRAD_KERNELS = {"dense": ("flash_attention", "flash_attention_bwd"),
+                "moe": ("flash_attention", "flash_attention_bwd"),
                 "rwkv": ("wkv6_seq", "wkv6_seq_bwd")}
 # card = CPU at full width cut to 2 layers, batch 1 x 80 (two rwkv chunks,
 # the second ragged): the loss relative, each leaf's gradient relative to
@@ -471,7 +516,35 @@ ZOO_TRAIN_ARCH, ZOO_TRAIN_M = "qwen3-1.7b", 4
 # aggregation of G [4, D] took 74 s of the script); nemotron-4-15b
 # reduced: cut to 2 layers at full width its D is 3.9 B, and G [4, D]
 # alone (63 GB) with params and sgd's state does not fit the card
-ZOO_TRAIN_CPU_CASES = (("minicpm3-4b", "mla_heads"), ("nemotron-4-15b", None))
+# dbrx-132b reduced (head 64); deepseek-v2-236b reduced with its own MLA
+# head widths (q/k 128 + 64, v 128: its reduced widths, 48 and 32, have
+# no instance)
+ZOO_TRAIN_CPU_CASES = (("minicpm3-4b", "mla_heads"), ("nemotron-4-15b", None),
+                       ("dbrx-132b", None), ("deepseek-v2-236b", "mla_heads"))
+# the MoE configs at full width cut in depth (phase 7e): dbrx-132b's 40
+# layers and deepseek-v2-236b's 60 hold 526 GB and 943 GB of float32
+# weights; 4 layers (deepseek-v2: its dense layer and 3 moe layers) hold
+# 57.08 and 53.21 GB.  Each is served alone, the cache emptied first.
+MOE_ARCHS = ("dbrx-132b", "deepseek-v2-236b")
+MOE_SERVE_LAYERS = 4
+# card = CPU at the config's capacity factor (1.25) on the same batch, at
+# full width cut to one moe layer (deepseek-v2: with its dense layer), 17.97
+# and 21.43 GB on each device: (batch, prompt), a float32 cache
+MOE_CPU_LAYERS = {"dbrx-132b": 1, "deepseek-v2-236b": 2}
+MOE_CPU_SHAPE = (1, 32)
+# deepseek-v2 through the serve loop at 4 layers: 4 requests on 4 slots.
+# The loop decodes every slot, empty ones included, and prefills each
+# admission at batch 1 (in both packages), and a moe layer's capacity is
+# that of the tokens of its call: the loop's tokens can equal the batch-1
+# decode only where dispatch is lossless, so the loop runs at
+# capacity_factor = E / k (tests/test_moe_ssm.py's lossless setting)
+MOE_LOOP_ARCH = "deepseek-v2-236b"
+MOE_LOOP_ARGS = ("--requests", "4", "--max-batch", "4", "--prompt-len",
+                 "512", "--gen", "8")
+# one worker's gradient at full width at [2, 128]: dbrx-132b cut to 1
+# layer (~36 GB with its gradient), deepseek-v2 to 2 (~43 GB)
+MOE_GRAD_LAYERS = {"dbrx-132b": 1, "deepseek-v2-236b": 2}
+MOE_GRAD_SHAPE = (2, 128)
 # the demo twins (phase 7f): train_100m --full for DEMO_100M_STEPS steps
 DEMO_100M_STEPS = 3
 DEMO_LENET_STEPS = 20         # byzantine_lenet's table (its default is 60)
@@ -1944,19 +2017,24 @@ def _serve_profile(torch, cfg, res):
     del params, cache, state
 
 
-def _serve_full_width(torch, arch, args):
+def _serve_full_width(torch, arch, args, cfg=None):
     """serve.main at full width with the launch counters read around it:
     B6 (B7) once a layer in each prefill, nothing in decode, finite
-    logits.  Returns (result, launches over every pass, launches of one
-    prefill)."""
+    logits.  With ``cfg`` (the arch at full width cut in depth), the
+    launcher's single-shot function on it.  Returns (result, launches
+    over every pass, launches of one prefill)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    cfg = get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = serve.main(["--arch", arch, *args])
+    if cfg is None:
+        cfg = get_config(arch)
+        res = serve.main(["--arch", arch, *args])
+    else:
+        res = serve.single_shot(serve.parse_args(["--arch", arch, *args]),
+                                cfg, torch.device("cuda"))
     secs = time.perf_counter() - t0
     counts = ops.launches()
     passes, S = res["repeat"], res["prompt_len"]
@@ -1986,8 +2064,9 @@ def _serve_full_width(torch, arch, args):
 
 
 def _serve_card_vs_cpu(torch, arch, B, S, steps,
-                       dtypes=("float32", "bfloat16")):
-    """The card against the host CPU at full width cut to 2 layers: the
+                       dtypes=("float32", "bfloat16"), n_layers=2):
+    """The card against the host CPU at full width cut to ``n_layers``
+    layers: the
     prefill's logits and ``steps`` teacher-forced decode steps over the
     float32 cache (held to SERVE_TOL) and over the serve path's bfloat16
     cache (held to BF16_CACHE_TOL: decode rounds the cache entries and
@@ -1999,7 +2078,7 @@ def _serve_card_vs_cpu(torch, arch, B, S, steps,
     from repro_torch.models import params as PM
     from repro_torch.models import transformer as TF
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     p_gpu = PM.init_params(TF.param_defs(cfg), gen, device="cuda")
     p_cpu = _tree_to(p_gpu, "cpu")
@@ -2028,7 +2107,8 @@ def _serve_card_vs_cpu(torch, arch, B, S, steps,
             greedy_equal &= bool(torch.equal(
                 lg.reshape(B, -1).argmax(-1).cpu(), nxt))
             tok = nxt[:, None]
-        emit({"check": "serve_card_vs_cpu", "arch": arch, "n_layers": 2,
+        emit({"check": "serve_card_vs_cpu", "arch": arch,
+              "n_layers": n_layers,
               "d_model": cfg.d_model, "batch": B, "prompt_len": S,
               "decode_steps": steps, "cache_dtype": dt,
               "prefill_rel_err": errs[0],
@@ -3253,39 +3333,55 @@ def phase_train(torch):
 
 
 # ---------------------------------------------------------------------------
-# 7e. the dense zoo configs at full width
+# 7e. the zoo configs at full width: dense, MLA, and the MoE segment
 # ---------------------------------------------------------------------------
 
-def _zoo_serve_loop(torch, ref, worst):
-    """minicpm3-4b through serve.main --serve-loop at full width from
-    --seed: every request completes, one decode graph, B6 = 62 launches
-    per admission on the (96, 64) instance (held against its plain
-    version on the loop's own prefill inputs) and none in the decode
-    step, every request's tokens equal to its isolated batch-1
-    serve.generate decode but for a near tie (BF16_CACHE_TOL over the
-    bfloat16 cache)."""
+def _moe_cfg(arch, n_layers, lossless=False):
+    """``arch`` at full width cut to ``n_layers`` layers; ``lossless``:
+    with capacity_factor = E / k."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    if lossless:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    return cfg
+
+
+def _zoo_serve_loop(torch, ref, worst, arch, args, cfg=None):
+    """``arch`` through serve.main --serve-loop at full width from --seed
+    (with ``cfg``, the arch cut in depth, the launcher's serve-loop
+    function on it): every request completes, one decode graph, B6 once
+    a layer per admission (held against its plain version on the loop's
+    own prefill inputs) and none in the decode step, every request's
+    tokens equal to its isolated batch-1 serve.generate decode but for a
+    near tie (BF16_CACHE_TOL over the bfloat16 cache)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    cfg = get_config(ZOO_LOOP_ARCH)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
+    argv = ["--arch", arch, "--serve-loop", *args]
     with _first_inputs(torch, ops, ("flash_attention",)) as seen:
         t0 = time.perf_counter()
-        res = serve.main(["--arch", ZOO_LOOP_ARCH, "--serve-loop",
-                          *ZOO_LOOP_ARGS])
+        if cfg is None:
+            cfg = get_config(arch)
+            res = serve.main(argv)
+        else:
+            res = serve.run_serve_loop(serve.parse_args(argv), cfg,
+                                       torch.device("cuda"))
         secs = time.perf_counter() - t0
     seen["wkv6_seq"] = {}
     loop, stream, done = res["loop"], res["stream"], res["done"]
-    per = _check_loop_launches(ZOO_LOOP_ARCH, cfg, res)
+    per = _check_loop_launches(arch, cfg, res)
     if res["decode_graphs"] != 1:
-        fail(f"serve loop {ZOO_LOOP_ARCH}: {res['decode_graphs']} decode "
+        fail(f"serve loop {arch}: {res['decode_graphs']} decode "
              f"graphs (expected 1)")
     if sorted(done) != list(range(len(stream))) or any(
             len(done[r]) != g for r, (_, g) in enumerate(stream)):
-        fail(f"serve loop {ZOO_LOOP_ARCH}: not every request completed")
+        fail(f"serve loop {arch}: not every request completed")
     lat = loop.metrics.step_lat_s
-    row = {"check": "serve_loop", "arch": ZOO_LOOP_ARCH,
+    row = {"check": "serve_loop", "arch": arch,
            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "requests": res["requests"], "max_batch": res["max_batch"],
            "max_len": res["max_len"], "tokens": res["tokens"],
@@ -3297,10 +3393,12 @@ def _zoo_serve_loop(torch, ref, worst):
            "prefill_shapes": res["prefill_shapes"],
            "launches_per_admission": per, "decode_launches": "none",
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.is_moe:
+        row["capacity_factor"] = cfg.moe.capacity_factor
     row["prefill_inputs_checked"] = _check_loop_inputs(
-        torch, ref, ZOO_LOOP_ARCH, seen, worst)
+        torch, ref, arch, seen, worst)
     if not row["prefill_inputs_checked"]:
-        fail(f"serve loop {ZOO_LOOP_ARCH}: no prefill kernel input seen")
+        fail(f"serve loop {arch}: no prefill kernel input seen")
     t0 = time.perf_counter()
     row["against_generate"] = {
         "cache_dtype": cfg.dtype, "near_tie_tol": BF16_CACHE_TOL,
@@ -3316,19 +3414,27 @@ def _zoo_serve_loop(torch, ref, worst):
 def phase_zoo_serve(torch, ref, worst):
     """(a) serve.main at full width for qwen3-1.7b, minicpm3-4b (MLA, B6's
     (96, 64) instance) and nemotron-4-15b (62.5 GB of weights: the cache
-    is emptied first and nothing else stays on the card), with B6 held
-    to one launch a layer a prefill; (b) each card = CPU at full width
-    cut to 2 layers; (c) minicpm3-4b through the serve loop.  B6 only:
-    it runs while the BrSGD libraries build.  Returns the results and
-    the launches counted."""
+    is emptied first and nothing else stays on the card), then the
+    launcher's single-shot function for dbrx-132b and deepseek-v2-236b
+    (B6's (192, 128) instance) at full width cut to MOE_SERVE_LAYERS,
+    each alone on the card, with B6 held to one launch a layer a
+    prefill; (b) each card = CPU at full width cut to 2 layers (the moe
+    archs to one moe layer at the config's capacity factor, at
+    MOE_CPU_SHAPE over a float32 cache); (c) minicpm3-4b through the
+    serve loop, and deepseek-v2 at MOE_SERVE_LAYERS with lossless
+    dispatch.  B6 only: it runs while the BrSGD libraries build.  Returns
+    the results and the launches counted."""
     import gc
     out = {"serve": {}, "launches": {}, "per_prefill": {}}
     sub_s = {}
-    for arch in ZOO_SERVE_ARCHS:
+    serves = [(arch, None) for arch in ZOO_SERVE_ARCHS] + [
+        (arch, _moe_cfg(arch, MOE_SERVE_LAYERS)) for arch in MOE_ARCHS]
+    for arch, cfg in serves:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        res, total, pre = _serve_full_width(torch, arch, ZOO_SERVE_ARGS)
+        res, total, pre = _serve_full_width(torch, arch, ZOO_SERVE_ARGS,
+                                            cfg)
         sub_s[f"serve {arch}"] = time.perf_counter() - t0
         out["serve"][arch] = {k: res[k] for k in (
             "prefill_tok_s", "decode_tok_s", "prefill_s", "decode_s",
@@ -3346,10 +3452,23 @@ def phase_zoo_serve(torch, ref, worst):
         _serve_card_vs_cpu(torch, arch, B, S, ZOO_CPU_STEPS,
                            ZOO_CPU_CACHES[arch])
         sub_s[f"serve card vs CPU {arch}"] = time.perf_counter() - t0
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        _serve_card_vs_cpu(torch, arch, *MOE_CPU_SHAPE, ZOO_CPU_STEPS,
+                           ("float32",), MOE_CPU_LAYERS[arch])
+        sub_s[f"serve card vs CPU {arch}"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["serve_loop"], out["loop_per_admission"] = _zoo_serve_loop(
-        torch, ref, worst)
+        torch, ref, worst, ZOO_LOOP_ARCH, ZOO_LOOP_ARGS)
     sub_s[f"serve loop {ZOO_LOOP_ARCH}"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["moe_serve_loop"], per = _zoo_serve_loop(
+        torch, ref, worst, MOE_LOOP_ARCH, MOE_LOOP_ARGS,
+        _moe_cfg(MOE_LOOP_ARCH, MOE_SERVE_LAYERS, lossless=True))
+    out["loop_per_admission_moe"] = per
+    sub_s[f"serve loop {MOE_LOOP_ARCH}"] = time.perf_counter() - t0
     emit({"check": "zoo_serve_seconds", **sub_s})
     return out
 
@@ -3358,11 +3477,15 @@ def phase_zoo_train(torch, zoo):
     """(d) qwen3-1.7b's train step at full width through
     launch.train.main, m = ZOO_TRAIN_M, brsgd under sign_flip at 0.25,
     adamw, the plain versions refusing the card, each step 1 brsgd launch
-    and one B6 and one B6-bwd launch a layer a worker; (e) card = CPU
-    steps of minicpm3-4b and nemotron-4-15b.  Adds its results and
-    launches to ``zoo`` (phase_zoo_serve's)."""
+    and one B6 and one B6-bwd launch a layer a worker; (e) one worker's
+    gradient of dbrx-132b and deepseek-v2-236b at full width cut to
+    MOE_GRAD_LAYERS, at MOE_GRAD_SHAPE (one B6 and one B6-bwd launch a
+    layer: the (192, 128) instances for deepseek-v2); (f) card = CPU
+    steps of minicpm3-4b, nemotron-4-15b, dbrx-132b and deepseek-v2.
+    Adds its results and launches to ``zoo`` (phase_zoo_serve's)."""
     import gc
     from repro_torch.configs import get_config
+    from repro_torch.data import pipeline as PL
     from repro_torch.kernels import ops
     from repro_torch.models import params as PM
     from repro_torch.models import transformer as TF
@@ -3388,6 +3511,32 @@ def phase_zoo_train(torch, zoo):
     for got in got_each:
         for k, v in got.items():
             out["launches"][k] = out["launches"].get(k, 0) + v
+    out["moe_gradient"] = {}
+    for arch in MOE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = _moe_cfg(arch, MOE_GRAD_LAYERS[arch])
+        t0 = time.perf_counter()
+        params = PM.init_params(
+            TF.param_defs(cfg), torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        leaves = list(_flat_leaves(params).values())
+        for t in leaves:
+            t.requires_grad_(True)
+        with _plain_versions_refuse_the_card(torch):
+            res = _grad_on_card(torch, ops, TF, PL, cfg, params, leaves,
+                                "moe", *MOE_GRAD_SHAPE, False)
+        res["D"] = PM.count_params(TF.param_defs(cfg))
+        res["seconds"] = time.perf_counter() - t0
+        sub_s[f"gradient {arch}"] = res["seconds"]
+        out["moe_gradient"][arch] = {k: res[k] for k in (
+            "n_layers", "D", "batch", "seq", "host_ms", "host_ms_runs",
+            "peak_device_gb", "device_busy_ms", "device_ms_by_group",
+            "launches") if k in res}
+        out["moe_gradient"][arch]["n_layers"] = cfg.n_layers
+        for k, v in res["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        del params, leaves
     gc.collect()
     torch.cuda.empty_cache()
     for arch, n_layers in ZOO_TRAIN_CPU_CASES:
@@ -3900,7 +4049,7 @@ def phase_bwd_timing(torch, ref):
     # calculator, with the launch's dynamic shared memory)
     occ = (ctypes.c_int * 4)()
     log = _build.BUILD_LOGS.get("flash_attention_bwd")
-    for D, Dv in ((128, 128), (96, 64)):
+    for D, Dv in ((128, 128), (96, 64), (192, 128)):
         rc = _build.load("flash_attention_bwd").flash_bwd_ctas_per_sm(
             D, Dv, occ)
         if rc != 0:
@@ -4236,14 +4385,16 @@ def kernel_times(torch, src: Path, shapes=()) -> int:
 
 
 def _instance_rows(timed_rows, name) -> dict:
-    """The (96, 64) instance's timing rows of B6 / B6-bwd, by label."""
+    """The MLA instances' timing rows of B6 / B6-bwd, by instance and
+    label."""
     keys = ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "fp32_bound_ms", "library_ms", "library_backend")
-    return {"96x64": {label: {k: r[k] for k in keys if k in r}
-                      for label, r in (
-                          (key.split("/", 1)[1], r)
-                          for key, r in timed_rows.items()
-                          if key.startswith(name + "/mla"))}}
+    return {inst: {label: {k: r[k] for k in keys if k in r}
+                   for label, r in (
+                       (key.split("/", 1)[1], r)
+                       for key, r in timed_rows.items()
+                       if key.startswith(f"{name}/{prefix}"))}
+            for inst, prefix in INSTANCE_LABELS.items()}
 
 
 def main() -> int:
@@ -4407,6 +4558,8 @@ def main() -> int:
                            zoo["per_prefill"].items()},
                        zoo_serve_loop_launches_per_admission=zoo[
                            "loop_per_admission"].get(name),
+                       moe_serve_loop_launches_per_admission=zoo[
+                           "loop_per_admission_moe"].get(name),
                        demo_train_100m_launches=demos["train_100m"]
                        ["launches"].get(name, 0),
                        instances=_instance_rows(seq_t, name))
@@ -4438,6 +4591,9 @@ def main() -> int:
             "train_plain_ms": t["plain_ms"], "train_bound_ms": t["bound_ms"],
             "train_library_ms": t["library_ms"],
             **({"zoo_train_launches": zoo["launches"].get(name, 0),
+                "moe_gradient_launches": {
+                    a: r["launches"].get(name)
+                    for a, r in zoo["moe_gradient"].items()},
                 "demo_train_100m_launches": demos["train_100m"]["launches"]
                 .get(name, 0),
                 "instances": _instance_rows(bwd_t, name)}
@@ -4472,6 +4628,11 @@ def main() -> int:
                       "decode_tok_s", "step_ms_median", "tok_s", "requests",
                       "max_batch", "decode_graphs", "against_generate",
                       "peak_mem_gb")},
+                  "moe_serve_loop": {k: zoo["moe_serve_loop"][k] for k in (
+                      "arch", "n_layers", "capacity_factor", "decode_tok_s",
+                      "step_ms_median", "tok_s", "requests", "max_batch",
+                      "decode_graphs", "against_generate", "peak_mem_gb")},
+                  "moe_gradient": zoo["moe_gradient"],
                   "train": {k: zoo["train"][k] for k in (
                       "arch", "D", "workers", "batch_per_worker", "seq",
                       "host_ms", "host_ms_runs", "split_ms",

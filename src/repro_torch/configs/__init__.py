@@ -6,7 +6,8 @@ names the slice of ROADMAP.md that ports it.
 """
 from __future__ import annotations
 
-from . import minicpm3_4b, nemotron_4_15b, qwen3_0_6b, qwen3_1_7b, rwkv6_7b
+from . import (dbrx_132b, deepseek_v2_236b, minicpm3_4b, nemotron_4_15b,
+               qwen3_0_6b, qwen3_1_7b, rwkv6_7b)
 from .base import ByzantineConfig, ModelConfig, RecoveryConfig, TrainConfig
 
 ARCHS = {
@@ -15,13 +16,12 @@ ARCHS = {
     "nemotron-4-15b": nemotron_4_15b.CONFIG,
     "minicpm3-4b": minicpm3_4b.CONFIG,
     "rwkv6-7b": rwkv6_7b.CONFIG,
+    "dbrx-132b": dbrx_132b.CONFIG,
+    "deepseek-v2-236b": deepseek_v2_236b.CONFIG,
 }
 
 # the JAX package's other archs, by what they still need (ROADMAP.md A.3)
 _LATER = {
-    "dbrx-132b": "the MoE segment (ROADMAP A.3, MoE)",
-    "deepseek-v2-236b": "the MoE segment beside its MLA attention "
-                        "(ROADMAP A.3, MoE) and B6's (192, 128) instance",
     "zamba2-2.7b": "mamba2 and the hybrid segment (ROADMAP A.3)",
     "phi-3-vision-4.2b": "the vision frontend and B6's head dim 96 "
                          "(ROADMAP A.3)",

@@ -7,9 +7,9 @@ copies equal to the JAX dataclasses field by field.
 ``RecoveryConfig`` and ``TrainConfig`` are the train step's knobs
 (``training/step.py``, ``faults/supervisor.py``, ``launch/train.py``).
 
-``MoESpec`` and ``SSMSpec`` are data only here: ``ModelConfig`` names
-them, and the blocks that read them (MoE, mamba2) wait for a later
-slice of the port.
+``MoESpec`` is read by ``models/moe.py``; ``SSMSpec`` is data only
+here: ``ModelConfig`` names it, and the block that reads it (mamba2)
+waits for a later slice of the port.
 """
 from __future__ import annotations
 

@@ -63,15 +63,26 @@
 //     [B, S, H, D] activations go in as [B, H, S, D] views with no copy.
 //     The wrapper checks that every row start is 16-byte aligned.
 //   * expf and IEEE division, not the fast intrinsics.
-//   * Shared memory: 2 stages × 64 rows × (D + 8 + DV + 4) floats of K/V
+//   * Shared memory: 2 stages × BK rows × (D + 8 + DV + 4) floats of K/V
 //     and 128 × (D + 8) floats of q = 202 KB at D = DV = 128 in float32
-//     (one CTA of 8 warps per SM; 138 KB at (96, 64)), above the 48 KB
-//     default, so each instance opts in with cudaFuncSetAttribute.
+//     with BK = 64 (one CTA of 8 warps per SM; 138 KB at (96, 64)), above
+//     the 48 KB default, so each instance opts in with
+//     cudaFuncSetAttribute.  BK is 64 wherever that fits the 232,448 B a
+//     block may take, else 32 (Layout::Of::BK): only the float32 (192,
+//     128) instance takes 32.
 //
-// Value width: v and o have DV columns, q and k D.  Every instance but
-// one has DV = D; (D, DV) = (96, 64) is MLA's (minicpm3-4b: q/k are
-// qk_nope 64 + qk_rope 32, v is v_head_dim 64), whose q·kᵀ runs 12
-// k-steps and P·V 8 n-tiles, scaled by 1/√96 as the reference's
+// Value width: v and o have DV columns, q and k D.  The GQA instances
+// have DV = D; the MLA instances do not.  (D, DV) = (96, 64) is
+// minicpm3-4b's (q/k are qk_nope 64 + qk_rope 32, v is v_head_dim 64),
+// whose q·kᵀ runs 12 k-steps and P·V 8 n-tiles.  (192, 128) is
+// deepseek-v2's (qk_nope 128 + qk_rope 64, v 128): q·kᵀ runs 24 k-steps
+// and P·V 16 n-tiles.  In float32 its 64-row K/V tiles do not fit:
+// 2 stages × 64 × ((192 + 8) + (128 + 4)) × 4 B = 169,984 B of K/V and
+// 128 × 200 × 4 = 102,400 B of q make 272,384 B.  So that instance keeps
+// the 8 warps and the 128 query rows and halves the key tile: BK = 32,
+// 84,992 B of K/V, 187,392 B in all (one CTA an SM), 4 score n-tiles a
+// warp a tile; in bfloat16 it keeps BK = 64 (188,416 B).  Each MLA
+// instance is scaled by 1/√D, the reference's float32
 // 1/sqrt(qk_nope + qk_rope).  Nothing is padded to another instance.
 //
 // Plain C interface for ctypes: the entry returns cudaGetLastError() after
@@ -89,9 +100,8 @@ namespace {
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int BQ = 16 * WARPS;  // query rows per CTA
-constexpr int BK = 64;          // key rows per tile
-constexpr int NJ = BK / 8;      // score n-tiles per key tile
 constexpr int STAGES = 2;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may take
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
@@ -106,9 +116,13 @@ struct Layout {
     static constexpr int KS = D + 8;                // K row stride, elements
     static constexpr int VS = DV + (kF32 ? 4 : 8);  // V row stride
     static constexpr int QS = D + 8;                // Q row stride, floats
+    static constexpr int Q_BYTES = BQ * QS * (int)sizeof(float);
+    // key rows per tile: 64 where two stages of them fit beside q
+    static constexpr int BK =
+        STAGES * 64 * (KS + VS) * (int)sizeof(T) + Q_BYTES <= SMEM_LIMIT ? 64 : 32;
     static constexpr int STAGE = BK * (KS + VS);    // elements per stage
     static constexpr int KV_BYTES = STAGES * STAGE * (int)sizeof(T);
-    static constexpr int BYTES = KV_BYTES + BQ * QS * (int)sizeof(float);
+    static constexpr int BYTES = KV_BYTES + Q_BYTES;
     static constexpr int CHUNKS = D * (int)sizeof(T) / 16;    // per K row
     static constexpr int V_CHUNKS = DV * (int)sizeof(T) / 16;  // per V row
   };
@@ -148,6 +162,7 @@ __device__ __forceinline__ void load_tile(T* sk, T* sv, const T* kb,
                                           long long vss, int k0, int T_len,
                                           int tid) {
   using L = typename Layout<T>::template Of<D, DV>;
+  constexpr int BK = L::BK;
   constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
   for (int i = tid; i < BK * L::CHUNKS; i += THREADS) {
     const int r = i / L::CHUNKS, c = (i % L::CHUNKS) * EPC;
@@ -178,6 +193,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              int window, float scale) {
   using L = typename Layout<T>::template Of<D, DV>;
   constexpr bool EXACT = !Layout<T>::kF32;  // bf16 k, v are exact in TF32
+  constexpr int BK = L::BK;                 // key rows per tile
+  constexpr int NJ = BK / 8;                // score n-tiles per key tile
   constexpr int KK = D / 8;                 // k-steps of Q·Kᵀ
   constexpr int ND = DV / 8;                // n-tiles of P·V
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -353,6 +370,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Hkv, int S, int T_len, Strides qs, Strides ks,
            Strides vs, Strides os, int window, cudaStream_t stream) {
   constexpr int bytes = Layout<T>::template Of<D, DV>::BYTES;
+  static_assert(bytes <= SMEM_LIMIT, "shared memory");
   auto kern = flash_kernel<D, DV, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -379,6 +397,7 @@ int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
   FLASH_CASE(80, 80)
   FLASH_CASE(128, 128)
   FLASH_CASE(96, 64)
+  FLASH_CASE(192, 128)
 #undef FLASH_CASE
   return cudaErrorInvalidValue;
 }
@@ -399,7 +418,7 @@ const char* flash_error_string(int err) {
 // of the scaled logits, [B, H, S] float32 contiguous (the backward's
 // input; the serve path passes null).  Returns cudaErrorInvalidValue for
 // a (D, DV) without an instance ((64, 64), (80, 80), (128, 128), (96,
-// 64)) or a bad dtype.
+// 64), (192, 128)) or a bad dtype.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int dtype, int B, int H, int Hkv, int S,
                         int T_len, int D, int DV, long long qsb, long long qsh, long long qss,

@@ -84,13 +84,22 @@
 //     wgmma (with zero fragments) and releases the stage.
 //   * expf and IEEE arithmetic, not the fast intrinsics.
 //
-// Value width: v, o, dO, dv have DV columns, q, k, dq, dk D.  Every
-// instance but one has DV = D; (D, DV) = (96, 64) is MLA's (minicpm3-4b):
-// s = q·kᵀ runs 12 mma.sync k-steps and dp = dO·vᵀ 8, dv takes wgmma
-// m64n64k8 and dk, dq m64n96k8; the stationary v / dO rows are DV + 8
-// floats and the streamed dOᵀ / vᵀ tiles DV / 8 groups.  At (96, 64) the
-// dK/dV kernel takes 137,856 B of shared memory and the dQ kernel
-// 118,912 B (4 stages each).
+// Value width: v, o, dO, dv have DV columns, q, k, dq, dk D.  The GQA
+// instances have DV = D; the MLA instances do not.  (D, DV) = (96, 64)
+// is minicpm3-4b's: s = q·kᵀ runs 12 mma.sync k-steps and dp = dO·vᵀ 8,
+// dv takes wgmma m64n64k8 and dk, dq m64n96k8; the stationary v / dO rows
+// are DV + 8 floats and the streamed dOᵀ / vᵀ tiles DV / 8 groups.  At
+// (96, 64) the dK/dV kernel takes 137,856 B of shared memory and the dQ
+// kernel 118,912 B (4 stages each).
+//
+// (D, DV) = (192, 128) is deepseek-v2's (qk_nope 128 + qk_rope 64, v
+// 128): s runs 24 k-steps and dp 16, dk and dq take wgmma m64n192k8 and
+// dv m64n128k8.  Shared memory fits 3 stages: 224,768 B for dK/dV,
+// 196,736 B for dQ.  A dK/dV consumer thread holds dk [64 × 192] and dv
+// [64 × 128] of its warpgroup as wgmma accumulators, 96 + 64 = 160
+// registers of the 224 setmaxnreg gives it (128 at (128, 128)); ptxas
+// -v reports no spill for it, and 8 bytes of stack (4 spilled bytes) for
+// the dQ kernel.  So the instance keeps the one-pass design.
 //
 // Layout: q, o, dO, dq are [B, H, S, D] and k, v, dk, dv [B, Hkv, T, D]
 // through (batch, head, sequence) element strides with the head dimension
@@ -707,6 +716,7 @@ int flash_bwd_ctas_per_sm(int D, int DV, void* out) {
   BWD_CASE(80, 80)
   BWD_CASE(128, 128)
   BWD_CASE(96, 64)
+  BWD_CASE(192, 128)
 #undef BWD_CASE
   return cudaErrorInvalidValue;
 }
@@ -717,7 +727,7 @@ int flash_bwd_ctas_per_sm(int D, int DV, void* out) {
 // aligned (the wrapper checks); lse (the forward's) and di (scratch) [B,
 // H, S] contiguous.  Causal; window > 0 adds the sliding window.  Returns
 // cudaErrorInvalidValue for a (D, DV) without an instance ((64, 64), (80,
-// 80), (128, 128), (96, 64)).
+// 80), (128, 128), (96, 64), (192, 128)).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dO, const void* lse,
                         void* di, void* dq, void* dk, void* dv, int B, int H,
@@ -747,6 +757,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   if (D == 80 && DV == 80) return launch<80, 80>(a, st);
   if (D == 128 && DV == 128) return launch<128, 128>(a, st);
   if (D == 96 && DV == 64) return launch<96, 64>(a, st);
+  if (D == 192 && DV == 128) return launch<192, 128>(a, st);
   return cudaErrorInvalidValue;
 }
 

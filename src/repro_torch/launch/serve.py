@@ -156,7 +156,7 @@ def run_serve_loop(args, cfg, dev):
             "launches": {k: n1[k] - n0[k] for k in n0 if n1[k] != n0[k]}}
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true")
@@ -183,14 +183,13 @@ def main(argv=None):
                          "from this directory")
     ap.add_argument("--metrics-out", default=None,
                     help="[serve-loop] write the /metrics dump here")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    if args.serve_loop:
-        return run_serve_loop(args, cfg, dev)
+
+def single_shot(args, cfg, dev):
+    """Params from --seed, one prompt of [--batch, --prompt-len] tokens,
+    --repeat passes of :func:`generate`.  Returns a dict: the median
+    rates, the launches of the last pass's phases, its tokens."""
     max_len = args.max_len or (args.prompt_len + args.gen)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = PM.init_params(TF.param_defs(cfg), gen, device=dev)
@@ -222,6 +221,17 @@ def main(argv=None):
     print("sample tokens:", toks[0][:12].tolist())
     assert result["logits_finite"], "NaN in serving logits"
     return result
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.serve_loop:
+        return run_serve_loop(args, cfg, dev)
+    return single_shot(args, cfg, dev)
 
 
 if __name__ == "__main__":

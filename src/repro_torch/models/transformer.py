@@ -9,13 +9,18 @@ leaf by leaf); where the JAX package scans a segment with ``lax.scan``,
 the port loops over the stacked layer axis in Python.
 
   dense (qwen3, nemotron; minicpm3 with MLA attention) : [("dense", L)]
+  deepseek-v2 (MLA)                                  : [("dense", 1), ("moe", 59)]
+  dbrx                                               : [("moe", 40)]
   rwkv6                                              : [("rwkv", L)]
 
-The moe (dbrx, deepseek-v2) and hybrid (zamba2) segments wait for later
-slices of the port and raise ``NotImplementedError``.  A dense layer's
-attention is GQA or MLA by ``cfg.attention.kind``; MLA's decode cache
-holds the latent ``c`` [B,T,R] and the rope key ``kr`` [B,T,Dr] where
-GQA's holds ``k`` / ``v``.
+The hybrid (zamba2) segment waits for a later slice of the port and
+raises ``NotImplementedError``.  A dense or moe layer's attention is
+GQA or MLA by ``cfg.attention.kind``; MLA's decode cache holds the
+latent ``c`` [B,T,R] and the rope key ``kr`` [B,T,Dr] where GQA's
+holds ``k`` / ``v``.  A moe layer's FFN is ``moe.moe_ffn`` over the
+layer's flattened tokens (B·S in the forward and the prefill, B in a
+decode step: its capacity follows that count), and the layers' router
+losses sum into the ``aux`` that ``loss_fn`` adds to the cross-entropy.
 
 The decode cache is a nested dict of tensors.  ``prefill_cache`` and
 ``decode_step`` write every entry IN PLACE where the JAX package returns
@@ -36,12 +41,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from . import moe as MOE
 from . import rwkv6 as R6
 from .params import ParamDef, tree_map_defs
 
 
 class Segment(NamedTuple):
-    kind: str      # dense | rwkv  (moe | hybrid: later slices)
+    kind: str      # dense | moe | rwkv  (hybrid: a later slice)
     n: int         # number of stacked layers
 
 
@@ -53,9 +59,11 @@ def segments(cfg: ModelConfig):
             f"{cfg.name}: the hybrid (mamba2 + shared attention) segment "
             f"is not ported yet (ROADMAP A.3, mamba2)")
     if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the moe segment is not ported yet (ROADMAP A.3, "
-            f"MoE)")
+        segs = []
+        if cfg.n_dense_layers:
+            segs.append(Segment("dense", cfg.n_dense_layers))
+        segs.append(Segment("moe", cfg.n_layers - cfg.n_dense_layers))
+        return segs
     return [Segment("dense", cfg.n_layers)]
 
 
@@ -76,6 +84,9 @@ def _block_defs(cfg: ModelConfig, kind: str) -> dict:
         gated = cfg.activation != "relu2"
         return {"ln1": norm(), "attn": _attn_defs(cfg),
                 "ln2": norm(), "mlp": L.mlp_defs(D, cfg.d_ff, gated)}
+    if kind == "moe":
+        return {"ln1": norm(), "attn": _attn_defs(cfg), "ln2": norm(),
+                "moe": MOE.moe_defs(D, cfg.moe)}
     if kind == "rwkv":
         return {"ln1": norm(), "tm": R6.rwkv6_defs(D, cfg.d_ff, cfg.rwkv),
                 "ln2": norm()}
@@ -143,7 +154,17 @@ def _dense_block(cfg, p, x, positions):
     x = x + h
     x = x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"], cfg.rms_eps),
                   cfg.activation)
-    return x, _kv_entry(cfg, kv)
+    return x, None, _kv_entry(cfg, kv)
+
+
+def _moe_block(cfg, p, x, positions):
+    h, kv = _attention(cfg, p["attn"], L.rms_norm(x, p["ln1"], cfg.rms_eps),
+                       positions)
+    x = x + h
+    B, S, D = x.shape
+    flat = L.rms_norm(x, p["ln2"], cfg.rms_eps).reshape(B * S, D)
+    out, aux = MOE.moe_ffn(p["moe"], flat, cfg.moe, cfg.activation)
+    return x + out.reshape(B, S, D), aux, _kv_entry(cfg, kv)
 
 
 def _rwkv_block(cfg, p, x):
@@ -152,12 +173,16 @@ def _rwkv_block(cfg, p, x):
     x = x + h
     h, cm_x = R6.rwkv6_channelmix(p["tm"],
                                   L.rms_norm(x, p["ln2"], cfg.rms_eps))
-    return x + h, {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x}
+    return x + h, None, {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x}
 
 
 def _block(cfg, kind: str, p_l, x, positions):
+    """(x, aux or None, cache entries) of one layer: aux is the moe
+    layer's router loss, None for the other kinds."""
     if kind == "dense":
         return _dense_block(cfg, p_l, x, positions)
+    if kind == "moe":
+        return _moe_block(cfg, p_l, x, positions)
     if kind == "rwkv":
         return _rwkv_block(cfg, p_l, x)
     raise ValueError(kind)
@@ -165,25 +190,28 @@ def _block(cfg, kind: str, p_l, x, positions):
 
 def _run_segment(cfg, seg: Segment, p_stack, x, positions,
                  collect_cache=False, remat=False):
-    """Run a stacked segment over x, layer by layer.  Returns (x, cache
-    entries): with ``collect_cache`` (the fused prefill) each layer's
+    """Run a stacked segment over x, layer by layer.  Returns (x, the
+    sum of the layers' aux losses (None but for moe), cache entries):
+    with ``collect_cache`` (the fused prefill) each layer's
     full-sequence cache pieces stacked on a leading layer axis, in the
     ``cache_defs`` layout; else None.  ``remat`` (training) keeps only
     each layer's input for the backward and runs the layer again there
     (``torch.utils.checkpoint``, non-reentrant: the JAX package's
     ``jax.checkpoint`` of the scan body)."""
-    ents = []
+    ents, aux = [], None
     for p_l in _layers(p_stack, seg.n):
         if remat:
-            x = checkpoint(
+            x, a = checkpoint(
                 lambda x, p_l=p_l: _block(cfg, seg.kind, p_l, x,
-                                          positions)[0],
+                                          positions)[:2],
                 x, use_reentrant=False)
-            continue
-        x, ent = _block(cfg, seg.kind, p_l, x, positions)
-        if collect_cache:
-            ents.append(ent)
-    return x, (_stack_entries(ents) if collect_cache else None)
+        else:
+            x, a, ent = _block(cfg, seg.kind, p_l, x, positions)
+            if collect_cache:
+                ents.append(ent)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux, (_stack_entries(ents) if collect_cache else None)
 
 
 # ---------------------------------------------------------------------------
@@ -201,24 +229,29 @@ def _head(cfg: ModelConfig, params, x):
 
 
 def forward(cfg: ModelConfig, params, tokens, remat: bool = False):
-    """tokens [B,S] -> logits [B,S,V].  ``remat``: recompute each layer
-    in the backward instead of keeping its activations."""
+    """tokens [B,S] -> (logits [B,S,V], aux): aux the float32 sum of the
+    moe layers' router losses (0 without moe layers).  ``remat``:
+    recompute each layer in the backward instead of keeping its
+    activations."""
     x = embed_inputs(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seg in enumerate(segments(cfg)):
-        x, _ = _run_segment(cfg, seg, params[f"seg_{i}"], x, positions,
-                            remat=remat)
-    return _head(cfg, params, x)
+        x, a, _ = _run_segment(cfg, seg, params[f"seg_{i}"], x, positions,
+                               remat=remat)
+        if a is not None:
+            aux = aux + a
+    return _head(cfg, params, x), aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False):
     """Next-token cross-entropy of one worker's batch (``{"tokens":
     [B,S]}`` and optionally ``"loss_mask"`` [B,S]): the logits at
     position t predict token t+1, the log-softmax in float32.  Returns
-    (ce + aux, {"ce", "aux"}); aux (the MoE balance loss in the JAX
-    package) is 0 for the ported dense and rwkv families."""
+    (ce + aux, {"ce", "aux"}); aux is the moe layers' router loss (0
+    for the dense and rwkv families)."""
     tokens = batch["tokens"]
-    logits = forward(cfg, params, tokens, remat)
+    logits, aux = forward(cfg, params, tokens, remat)
     pred = logits[:, :-1]
     tgt = tokens[:, 1:].long()
     logp = torch.log_softmax(pred.float(), dim=-1)
@@ -229,7 +262,6 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False):
         ce = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     else:
         ce = -torch.mean(ll)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -254,7 +286,7 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     stacking."""
     out: dict = {}
     for i, seg in enumerate(segments(cfg)):
-        if seg.kind == "dense":
+        if seg.kind in ("dense", "moe"):
             out[f"seg_{i}"] = {
                 k: ((seg.n,) + s, ("layers",) + ax)
                 for k, (s, ax) in _attn_cache_defs(cfg, batch,
@@ -307,16 +339,21 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
     pos = L._decode_pos(pos, x.shape[0], x.device)
     for i, seg in enumerate(segments(cfg)):
         p_stack, c_stack = params[f"seg_{i}"], cache[f"seg_{i}"]
-        if seg.kind == "dense":
+        if seg.kind in ("dense", "moe"):
             for p_l, c_l in zip(_layers(p_stack, seg.n),
                                 _layers(c_stack, seg.n)):
                 h = _attn_decode(cfg, p_l["attn"],
                                  L.rms_norm(x, p_l["ln1"], cfg.rms_eps),
                                  c_l, pos)
                 x = x + h
-                x = x + L.mlp(p_l["mlp"],
-                              L.rms_norm(x, p_l["ln2"], cfg.rms_eps),
-                              cfg.activation)
+                hin = L.rms_norm(x, p_l["ln2"], cfg.rms_eps)
+                if seg.kind == "moe":
+                    B = x.shape[0]
+                    out, _ = MOE.moe_ffn(p_l["moe"], hin.reshape(B, -1),
+                                         cfg.moe, cfg.activation)
+                    x = x + out.reshape(B, 1, -1)
+                else:
+                    x = x + L.mlp(p_l["mlp"], hin, cfg.activation)
         elif seg.kind == "rwkv":
             for p_l, c_l in zip(_layers(p_stack, seg.n),
                                 _layers(c_stack, seg.n)):
@@ -357,7 +394,7 @@ def _seq_write(buf, ent, window: int):
 
 
 def _write_entries(cfg, seg: Segment, bufs, ent):
-    if seg.kind == "dense":
+    if seg.kind in ("dense", "moe"):
         return {k: _seq_write(bufs[k], ent[k], cfg.attention.window)
                 for k in bufs}
     if seg.kind == "rwkv":
@@ -379,7 +416,7 @@ def prefill_cache(cfg: ModelConfig, params, tokens, cache):
     x = embed_inputs(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     for i, seg in enumerate(segments(cfg)):
-        x, ent = _run_segment(cfg, seg, params[f"seg_{i}"], x, positions,
-                              collect_cache=True)
+        x, _, ent = _run_segment(cfg, seg, params[f"seg_{i}"], x,
+                                 positions, collect_cache=True)
         cache[f"seg_{i}"] = _write_entries(cfg, seg, cache[f"seg_{i}"], ent)
     return _head(cfg, params, x), cache

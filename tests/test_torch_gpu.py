@@ -1406,16 +1406,17 @@ def test_brsgd_launch_past_2_31_elements():
 
 
 # ---------------------------------------------------------------------------
-# MLA: B6's and B6-bwd's (96, 64) instance; the zoo configs on the card
+# MLA: B6's and B6-bwd's (96, 64) and (192, 128) instances; the zoo
+# configs on the card
 # ---------------------------------------------------------------------------
 
-def _mla_inputs(B, H, Hkv, S, dtype, seed=0):
-    """q, k [B,H(kv),S,96], v [B,Hkv,S,64] and dO [B,H,S,64], as views of
+def _mla_inputs(B, H, Hkv, S, dtype, seed=0, D=96, Dv=64):
+    """q, k [B,H(kv),S,D], v [B,Hkv,S,Dv] and dO [B,H,S,Dv], as views of
     [B,S,H,D] data (the model's layout)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     return tuple(torch.randn(B, S, h, d, generator=g, device="cuda")
                  .to(dtype).transpose(1, 2)
-                 for h, d in ((H, 96), (Hkv, 96), (Hkv, 64), (H, 64)))
+                 for h, d in ((H, D), (Hkv, D), (Hkv, Dv), (H, Dv)))
 
 
 @pytest.mark.gpu
@@ -1467,18 +1468,71 @@ def test_flash_attention_mla_backward_matches_plain_gradient(B, H, Hkv, S,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,win", [(2, 128, 128, 128, 0),
+                                           (1, 8, 4, 211, 0),
+                                           (2, 8, 2, 300, 48),
+                                           (1, 4, 4, 5, 0)])
+def test_flash_attention_192_128_instance_matches_plain(B, H, Hkv, S, win,
+                                                        dtype):
+    """B6 at (D, Dv) = (192, 128), deepseek-v2's (float32 on 32-row key
+    tiles): [B,H,S,128] out in q's layout, within the B6 limits of the
+    plain version, one launch."""
+    need_card()
+    q, k, v, _ = _mla_inputs(B, H, Hkv, S, dtype, seed=S, D=192, Dv=128)
+    ops.reset_launches()
+    got = fa_kern.flash_attention(q, k, v, win)
+    assert ops.launches()["flash_attention"] == 1
+    assert got.shape == (B, H, S, 128) and got.stride(2) == H * 128
+    want = ref.flash_attention_ref(q, k, v, win)
+    rtol, atol = (2e-4, 2e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+    err = ((got.double() - want.double()).abs()
+           - rtol * want.double().abs()).max()
+    assert float(err) <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,S,win", [(2, 128, 128, 128, 0),
+                                           (1, 8, 4, 211, 0),
+                                           (2, 8, 2, 1000, 48),
+                                           (1, 4, 4, 5, 0)])
+def test_flash_attention_192_128_backward_matches_plain_gradient(
+        B, H, Hkv, S, win):
+    """B6-bwd at (192, 128) through the autograd Function: dq, dk [..192],
+    dv [..128] within the per-S limit of the B6-bwd rows, one forward and
+    one backward launch, a second backward the same bits."""
+    need_card()
+    q, k, v, dO = _mla_inputs(B, H, Hkv, S, torch.float32, seed=S + 1,
+                              D=192, Dv=128)
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    ops.reset_launches()
+    o = fa_kern.FlashAttentionFn.apply(*ins, win)
+    got = torch.autograd.grad(o, ins, dO)
+    assert ops.launches()["flash_attention"] == 1
+    assert ops.launches()["flash_attention_bwd"] == 1
+    want = ref.flash_attention_grads_ref(q, k, v, dO, win)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.stride() == t.stride()
+        close(g, w, flash_bwd_tol(S))
+    _, lse = fa_kern.flash_attention_lse(q, k, v, win)
+    again = fa_kern.flash_attention_bwd(q, k, v, o.detach(), lse, dO, win)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
     return tree.clone()
 
 
-def _mla_small_config():
-    """minicpm3-4b's MLA head widths (q/k 64 + 32, v 64) in a small model:
-    the reduced config with the full attention spec at 4 heads."""
+def _mla_small_config(arch="minicpm3-4b"):
+    """An MLA arch's head widths (minicpm3-4b: q/k 64 + 32, v 64;
+    deepseek-v2-236b: 128 + 64, v 128) in a small model: the reduced
+    config with the full attention spec at 4 heads."""
     import dataclasses
     from repro_torch.configs import get_config
-    full = get_config("minicpm3-4b")
+    full = get_config(arch)
     return dataclasses.replace(
         full.reduced(), attention=dataclasses.replace(
             full.attention, n_heads=4, n_kv_heads=4, q_lora_rank=64,
@@ -1486,10 +1540,13 @@ def _mla_small_config():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "nemotron-4-15b", "mla"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "nemotron-4-15b", "mla",
+                                  "dbrx-132b", "deepseek-v2-236b"])
 def test_zoo_config_on_the_card_matches_the_cpu(arch):
-    """qwen3-1.7b and nemotron-4-15b reduced, and MLA at minicpm3's head
-    widths: the prefill's logits and 4 decode steps over a float32 cache
+    """qwen3-1.7b, nemotron-4-15b and dbrx-132b reduced, MLA at
+    minicpm3's head widths and deepseek-v2 reduced at its own (the moe
+    layers route on each device alike): the prefill's logits and 4
+    decode steps over a float32 cache
     within 1e-4 of max|logit|, greedy tokens equal; the loss within 1e-5
     and every leaf's gradient within 1e-4 of its largest |g|; one B6 a
     layer in the prefill, none in decode, one B6 and one B6-bwd a layer
@@ -1498,7 +1555,9 @@ def test_zoo_config_on_the_card_matches_the_cpu(arch):
     from repro_torch.configs import get_config
     from repro_torch.models import params as PM
     from repro_torch.models import transformer as TF
-    cfg = _mla_small_config() if arch == "mla" else get_config(arch).reduced()
+    cfg = (_mla_small_config() if arch == "mla"
+           else _mla_small_config(arch) if arch == "deepseek-v2-236b"
+           else get_config(arch).reduced())
     p_cpu = PM.init_params(TF.param_defs(cfg),
                            torch.Generator().manual_seed(3))
     toks = torch.from_numpy(np.random.default_rng(4).integers(

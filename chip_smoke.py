@@ -14,8 +14,9 @@ compare kernels on one card.
 
 Phases (any failure exits non-zero; nothing is caught and carried on),
 in this order: 1, 2's start, B6 / B7 of 3, 3b, 7 but its profile, 7e's
-serve (their libraries build in seconds), 2's end, 3, 4, 5, 6, 7's
-profile, 7b, 7c, 7d, 7e's train step, 7f, 8, 9 (the BrSGD libraries
+and 7g's serve (their libraries build in seconds), 2's end, 3, 4, 5, 6,
+7's profile, 7b, 7c, 7d, 7e's and 7g's train steps, 7f, 8, 9 (the BrSGD
+libraries
 take minutes to build, which the first phases use; no torch.profiler
 session runs before every library is loaded):
   1. device: name, count, versions, nvidia-smi name and power limit;
@@ -70,6 +71,9 @@ session runs before every library is loaded):
      at [1, 40, 40, 4096], a ragged S = 211 in groups of 2 and a window;
      (192, 128) at deepseek-v2's prefill [4, 128, 128, 512] in both
      types, [1, 128, 128, 300], ragged S in groups of 2 and windows;
+     the (96, 96) instance at phi-3-vision-4.2b's prefill with its 576
+     patches [4, 32, 32, 1088] in both types, a ragged S = 211 in
+     groups of 2, a window and batch 1 at S = 600;
      B7's one-chunk call at
      rwkv6-7b's [4, 64, 64, 64] with w in (e^-1, 1) and down to e^-3 (the
      clamps bite), a ragged Q = 40 and K = 32, also against the
@@ -85,7 +89,9 @@ session runs before every library is loaded):
      contiguous copies (bit-equal), the (96, 64) instance at
      minicpm3-4b's [4, 40, 40, 512], [1, 40, 40, 4096], S = 211 and a
      window, and the (192, 128) instance at deepseek-v2's [2, 128, 128,
-     128], [1, 16, 16, 4096], S = 211, a window, S = 5 and 65; B7 (dr,
+     128], [1, 16, 16, 4096], S = 211, a window, S = 5 and 65, and the
+     (96, 96) instance at phi-3-vision-4.2b's gradient shape [2, 32, 32,
+     704], S = 5, 65 and 129 and a window; B7 (dr,
      dk, dv, dw, du, dS_in) at
      [2, 128, 64, 64] and [1, 4096, 64, 64], S in {1, 63, 64, 65}, K = 32,
      w in (e^-1, 1) and down to e^-3, from a nonzero state, with a given
@@ -208,6 +214,30 @@ session runs before every library is loaded):
      launch a layer, host ms, device ms by group, peak memory); card =
      CPU steps of minicpm3-4b and deepseek-v2 (the reduced models with
      their MLA head widths), nemotron-4-15b and dbrx-132b reduced;
+  7g. mamba2 and the hybrid segment, and the prefix frontends, at full
+     width and full depth: zamba2-2.7b (54 mamba2 layers in 9 units, the
+     shared block on B6's (80, 80) instance once a unit) through
+     serve.main, phi-3-vision-4.2b (B6's (96, 96) instance) and
+     musicgen-large through serve.generate with their seeded prefix (576
+     / 64 embeddings), batch 4, prompt 512, 16 tokens, 2 passes, B6 once
+     an attention application a prefill and never in decode; card = CPU
+     over a float32 cache with 4 decode steps (zamba2 cut to one unit at
+     [1, 300]: a 256-token chunk and a ragged tail; the frontends at 2
+     layers, [1, 32] with the prefix); zamba2's prefill == its
+     sequential decode on the card (reduced); zamba2 through the serve
+     loop (4 requests on 4 slots, one decode graph, tokens equal to the
+     batch-1 decode but for a near tie); then, after the BrSGD libraries
+     are built, one worker's gradient at full width, every leaf finite
+     (zamba2 at [2, 128], where the reference's mamba2 gradient is NaN,
+     and at [1, 4096] with remat; the frontends at [2, 128] with their
+     prefix; one B6 and one B6-bwd launch an attention application, two
+     B6 with remat), host ms, device ms by group, the SSD's device time
+     a layer, peak memory; zamba2's train step through launch.train.main
+     (m = 4 workers of 2 x 128, brsgd under sign_flip at 0.25, sgd: a
+     warm-up and 3 timed steps, each 1 brsgd launch and 36 B6 and 36
+     B6-bwd launches, the launch held on column blocks); card = CPU
+     steps of the three at reduced() (the frontends with their 8 prefix
+     embeddings);
   7f. the demo twins on the card: paper.train_100m --full for 3 steps
      (the ~100M qwen3 config, m = 8 workers of 4 x 512 tokens; 1 brsgd,
      96 B6 and 96 B6-bwd launches a step; the loss falls),
@@ -224,14 +254,17 @@ session runs before every library is loaded):
      of each gram rule; B6 at
      its serve shape and at S = 4096 beside SDPA, with its FP32-pipe and
      3xTF32 tensor-core bounds, and its (96, 64) instance at minicpm3-4b's
-     prefill and at S = 4096 and its (192, 128) instance at deepseek-v2's
-     prefill and at S = 4096 (SDPA on the same unequal widths); B7 per
+     prefill and at S = 4096, its (192, 128) instance at deepseek-v2's
+     prefill and at S = 4096 (SDPA on the same unequal widths) and its
+     (96, 96) instance at phi-3-vision's prefill [4, 32, 32, 1088] and
+     at S = 4096; B7 per
      layer launch at [4, 512, 64, 64]
      and its one-chunk call; B6's backward at [2, 16, 8, 128, 128] and
      [1, 16, 8, 4096, 128] beside the backward of SDPA (its kernels'
      registers, spills, shared memory and CTAs an SM first), and its
      (96, 64) instance at [4, 40, 40, 512] and [1, 40, 40, 4096], its
      (192, 128) instance at [2, 128, 128, 128] and [1, 128, 128, 4096],
+     its (96, 96) instance at [2, 32, 32, 704] and [1, 32, 32, 4096],
      B7's (its
      four kernels, each timed too, its CTAs an SM and shared memory
      first) at [2, 128, 64, 64], [2, 128, 64, 32] and [1, 4096, 64, 64],
@@ -240,6 +273,7 @@ session runs before every library is loaded):
      16, 32, 33, 63 and 64 (12, 33 and 63 on bucket instances) at d =
      61706 and 8388608;
   9. the {"gradient": [...]}, {"train": {...}}, {"zoo": ..., "demos": ...},
+     {"hybrid_frontends": {...}},
      {"phase_seconds": {...}} and {"kernels": [...]} lines (a
      {"phase": ..., "seconds": ...} line also ends each phase), the
      nvidia-smi line, and last the {"ok": true, "device": {...}} line.
@@ -316,7 +350,9 @@ SEQ_KERNELS = {
 }
 # B6 cases (B, H, Hkv, S, D, window, dtype name): the qwen3-0.6b prefill
 # (batch 4 single shot; batch 1 at the serve loop's 512 and 256 buckets),
-# a ragged S, a window, D = 64 and 80, bfloat16
+# a ragged S, a window, D = 64 and 80, bfloat16; D = 96 (phi-3-vision-
+# 4.2b) at its prefill of 576 patches and 512 tokens in both types, a
+# ragged S in GQA groups, a window, batch 1
 FLASH_CASES = ((4, 16, 8, 512, 128, 0, "float32"),
                (1, 16, 8, 512, 128, 0, "float32"),
                (1, 16, 8, 256, 128, 0, "float32"),
@@ -330,7 +366,12 @@ FLASH_CASES = ((4, 16, 8, 512, 128, 0, "float32"),
                (1, 16, 2, 129, 128, 0, "float32"),
                (1, 8, 1, 191, 128, 100, "float32"),
                (1, 4, 2, 65, 80, 0, "bfloat16"),
-               (2, 8, 4, 300, 64, 48, "bfloat16"))
+               (2, 8, 4, 300, 64, 48, "bfloat16"),
+               (4, 32, 32, 1088, 96, 0, "float32"),
+               (4, 32, 32, 1088, 96, 0, "bfloat16"),
+               (2, 8, 4, 211, 96, 0, "float32"),
+               (2, 8, 4, 1000, 96, 48, "float32"),
+               (1, 32, 32, 600, 96, 0, "float32"))
 FLASH_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (1e-2, 1e-2)}  # rtol, atol
 # B6's MLA instances (B, H, Hkv, S, D, Dv, window, dtype name): (96, 64)
 # at minicpm3-4b's prefill [4, 40, 40, 512] in both types, one train_4k
@@ -366,13 +407,18 @@ WKV_TOL = (2e-5, 1e-5)        # y, S_out: relative to the largest |plain|
 # B6's backward (B, H, Hkv, S, D, window): the launcher's train shape, one
 # train_4k sequence, the prefill shape, a ragged S with a window, D = 64
 # and 80, S = 5, S one past two streamed tiles of 16 rows (33), one past a
-# CTA's 64 rows (65) and two (129), groups 1, 2 and 8
+# CTA's 64 rows (65) and two (129), groups 1, 2 and 8; D = 96 at
+# phi-3-vision-4.2b's gradient shape (2 x 128 tokens after 576 patches),
+# S = 5, 65, 129 and a window
 FLASH_BWD_CASES = ((2, 16, 8, 128, 128, 0), (1, 16, 8, 4096, 128, 0),
                    (4, 16, 8, 512, 128, 0), (1, 16, 8, 200, 128, 64),
                    (2, 8, 4, 300, 64, 0), (1, 8, 8, 256, 80, 0),
                    (2, 4, 4, 5, 64, 0), (1, 4, 2, 33, 64, 0),
                    (1, 16, 2, 65, 128, 0), (1, 8, 1, 129, 128, 100),
-                   (1, 16, 16, 97, 80, 0))
+                   (1, 16, 16, 97, 80, 0),
+                   (2, 32, 32, 704, 96, 0), (2, 4, 4, 5, 96, 0),
+                   (1, 16, 2, 65, 96, 0), (1, 8, 1, 129, 96, 0),
+                   (1, 8, 4, 300, 96, 64))
 # dq, dk, dv: relative to the largest |plain| of each (3xTF32 against the
 # plain float32 autograd).  The error grows with the keys a row sums over:
 # on an H100 80GB HBM3 the first (mma.sync) kernel's largest of the three
@@ -418,21 +464,28 @@ WKV_BWD_TOL = 2e-5            # each gradient, relative to its largest |plain|
 # qwen3-0.6b serve / train shape and one train_4k sequence, MLA's (96, 64)
 # instance at minicpm3-4b's prefill and at one train_4k sequence, and the
 # (192, 128) instance at deepseek-v2's prefill (forward), its gradient
-# shape (backward) and one train_4k sequence of its 128 heads
+# shape (backward) and one train_4k sequence of its 128 heads; the
+# (96, 96) instance at phi-3-vision's prefill (forward), its gradient
+# shape (backward) and one train_4k sequence
 FLASH_TIMING = (("serve", (4, 16, 8, 512, 128, 128)),
                 ("long", (1, 16, 8, 4096, 128, 128)),
                 ("mla", (4, 40, 40, 512, 96, 64)),
                 ("mla_long", (1, 40, 40, 4096, 96, 64)),
                 ("ds", (4, 128, 128, 512, 192, 128)),
-                ("ds_long", (1, 128, 128, 4096, 192, 128)))
+                ("ds_long", (1, 128, 128, 4096, 192, 128)),
+                ("phi", (4, 32, 32, 1088, 96, 96)),
+                ("phi_long", (1, 32, 32, 4096, 96, 96)))
 FLASH_BWD_TIMING = (("train", (2, 16, 8, 128, 128, 128)),
                     ("long", (1, 16, 8, 4096, 128, 128)),
                     ("mla", (4, 40, 40, 512, 96, 64)),
                     ("mla_long", (1, 40, 40, 4096, 96, 64)),
                     ("ds", (2, 128, 128, 128, 192, 128)),
-                    ("ds_long", (1, 128, 128, 4096, 192, 128)))
-# the label prefix of each MLA instance's timing rows
-INSTANCE_LABELS = {"96x64": "mla", "192x128": "ds"}
+                    ("ds_long", (1, 128, 128, 4096, 192, 128)),
+                    ("phi", (2, 32, 32, 704, 96, 96)),
+                    ("phi_long", (1, 32, 32, 4096, 96, 96)))
+# the label prefix of each added instance's timing rows (MLA's, and
+# phi-3-vision's (96, 96))
+INSTANCE_LABELS = {"96x64": "mla", "192x128": "ds", "96x96": "phi"}
 # B7's backward kernels by a part of their names; a tree from before the
 # chunk-parallel design (a parent's, for --kernel-times) has one kernel
 WKV_BWD_PARTS = (("wkv6_bwd_carry",), ("wkv6_bwd_scan",),
@@ -460,6 +513,7 @@ GRAD_REPS = 3                 # timed gradients per case (median), the
                               # first also checked
 GRAD_KERNELS = {"dense": ("flash_attention", "flash_attention_bwd"),
                 "moe": ("flash_attention", "flash_attention_bwd"),
+                "hybrid": ("flash_attention", "flash_attention_bwd"),
                 "rwkv": ("wkv6_seq", "wkv6_seq_bwd")}
 # card = CPU at full width cut to 2 layers, batch 1 x 80 (two rwkv chunks,
 # the second ragged): the loss relative, each leaf's gradient relative to
@@ -545,6 +599,27 @@ MOE_LOOP_ARGS = ("--requests", "4", "--max-batch", "4", "--prompt-len",
 # layer (~36 GB with its gradient), deepseek-v2 to 2 (~43 GB)
 MOE_GRAD_LAYERS = {"dbrx-132b": 1, "deepseek-v2-236b": 2}
 MOE_GRAD_SHAPE = (2, 128)
+# mamba2 / the hybrid segment and the prefix frontends at full width and
+# full depth (phase 7g): 9.69, 15.28 and 12.92 GB of float32 weights
+HYBRID_ARCH = "zamba2-2.7b"
+PREFIX_ARCHS = ("phi-3-vision-4.2b", "musicgen-large")
+# card = CPU over a float32 cache, 4 decode steps: (layers, batch,
+# prompt); zamba2 cut to one unit (6 mamba2 layers and the shared block)
+# at 300 tokens, a 256-token chunk and a ragged tail
+HF_CPU_CASES = {"zamba2-2.7b": (6, 1, 300), "phi-3-vision-4.2b": (2, 1, 32),
+                "musicgen-large": (2, 1, 32)}
+HF_LOOP_ARGS = ("--requests", "4", "--max-batch", "4", "--prompt-len",
+                "512", "--gen", "8")
+# one worker's gradient (arch, batch, seq, remat): [2, 128] each (the
+# frontends with their prefix, 704 / 192 positions), zamba2 also one
+# train_4k sequence with remat (16 chunks of 256)
+HF_GRAD_CASES = (("zamba2-2.7b", 2, 128, False), ("zamba2-2.7b", 1, 4096, True),
+                 ("phi-3-vision-4.2b", 2, 128, False),
+                 ("musicgen-large", 2, 128, False))
+# zamba2's train step: m = 4 (params 9.69 + G 38.76 + the aggregate and
+# one worker's gradient, 9.69 GB each), sgd (adamw's m and v, 19.4 GB
+# more, do not fit beside them)
+HF_TRAIN_M, HF_TRAIN_OPTIMIZER = 4, "sgd"
 # the demo twins (phase 7f): train_100m --full for DEMO_100M_STEPS steps
 DEMO_100M_STEPS = 3
 DEMO_LENET_STEPS = 20         # byzantine_lenet's table (its default is 60)
@@ -1939,10 +2014,18 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
+def _attn_apps(cfg) -> int:
+    """Attention applications of one forward: one a layer, one a unit
+    for hybrid (the shared block)."""
+    if cfg.hybrid_attn_every:
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
+
+
 def _expected_prefill(cfg, S):
     if cfg.rwkv is not None:
         return {"wkv6_seq": cfg.n_layers}        # one launch a layer
-    return {"flash_attention": cfg.n_layers}
+    return {"flash_attention": _attn_apps(cfg)}
 
 
 def _device_ms(torch, fn):
@@ -2066,7 +2149,8 @@ def _serve_full_width(torch, arch, args, cfg=None):
 def _serve_card_vs_cpu(torch, arch, B, S, steps,
                        dtypes=("float32", "bfloat16"), n_layers=2):
     """The card against the host CPU at full width cut to ``n_layers``
-    layers: the
+    layers (with the config's seeded prefix before the prompt where it
+    has one): the
     prefill's logits and ``steps`` teacher-forced decode steps over the
     float32 cache (held to SERVE_TOL) and over the serve path's bfloat16
     cache (held to BF16_CACHE_TOL: decode rounds the cache entries and
@@ -2075,6 +2159,7 @@ def _serve_card_vs_cpu(torch, arch, B, S, steps,
     bfloat16 step, 2^-8, apart), and the greedy tokens."""
     import dataclasses
     from repro_torch.configs import get_config
+    from repro_torch.data import pipeline as PL
     from repro_torch.models import params as PM
     from repro_torch.models import transformer as TF
     t0 = time.perf_counter()
@@ -2084,31 +2169,35 @@ def _serve_card_vs_cpu(torch, arch, B, S, steps,
     p_cpu = _tree_to(p_gpu, "cpu")
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                            device="cuda").cpu()
+    P = cfg.n_prefix_tokens
+    pfx = (torch.from_numpy(PL.prefix_embeddings(cfg, 0, (B,))) if P
+           else None)
     for dt in dtypes:
         dtype = getattr(torch, dt)
         tol = SERVE_TOL if dt == "float32" else BF16_CACHE_TOL
-        caches = {d: TF.init_cache(cfg, B, S + steps, dtype, d)
+        caches = {d: TF.init_cache(cfg, B, P + S + steps, dtype, d)
                   for d in ("cpu", "cuda")}
         lc, caches["cpu"] = TF.prefill_cache(cfg, p_cpu, tokens,
-                                             caches["cpu"])
-        lg, caches["cuda"] = TF.prefill_cache(cfg, p_gpu, tokens.cuda(),
-                                              caches["cuda"])
+                                             caches["cpu"], pfx)
+        lg, caches["cuda"] = TF.prefill_cache(
+            cfg, p_gpu, tokens.cuda(), caches["cuda"],
+            None if pfx is None else pfx.cuda())
         errs = [_err(lg.cpu(), lc) / float(lc.abs().max())]
         greedy_equal = bool(torch.equal(lg[:, -1].argmax(-1).cpu(),
                                         lc[:, -1].argmax(-1)))
         tok = lc[:, -1].argmax(-1)[:, None]
         for i in range(steps):
             lc, caches["cpu"] = TF.decode_step(cfg, p_cpu, caches["cpu"],
-                                               tok, S + i)
+                                               tok, P + S + i)
             lg, caches["cuda"] = TF.decode_step(cfg, p_gpu, caches["cuda"],
-                                                tok.cuda(), S + i)
+                                                tok.cuda(), P + S + i)
             errs.append(_err(lg.cpu(), lc) / float(lc.abs().max()))
             nxt = lc.reshape(B, -1).argmax(-1)
             greedy_equal &= bool(torch.equal(
                 lg.reshape(B, -1).argmax(-1).cpu(), nxt))
             tok = nxt[:, None]
         emit({"check": "serve_card_vs_cpu", "arch": arch,
-              "n_layers": n_layers,
+              "n_layers": n_layers, "prefix_tokens": P,
               "d_model": cfg.d_model, "batch": B, "prompt_len": S,
               "decode_steps": steps, "cache_dtype": dt,
               "prefill_rel_err": errs[0],
@@ -2728,11 +2817,12 @@ def _gradient(torch, TF, cfg, params, leaves, batch, remat):
 
 def _grad_on_card(torch, ops, TF, PL, cfg, params, leaves, kind, B, S,
                   remat):
-    """The full-width gradient at [B, S]: launch counts, the loss against
+    """The full-width gradient at [B, S] (after the pipeline's prefix
+    where the config has one): launch counts, the loss against
     the no_grad forward's (bit for bit), finite gradients, host ms
     (median of GRAD_REPS), peak memory and device ms by group."""
-    toks = PL.LMWorkerPipeline(cfg, 2, B, S, seed=0).batch(0)["tokens"][0]
-    batch = {"tokens": torch.from_numpy(toks).to("cuda")}
+    batch = {k: torch.from_numpy(v[0]).to("cuda") for k, v in
+             PL.LMWorkerPipeline(cfg, 2, B, S, seed=0).batch(0).items()}
     fwd, bwd = GRAD_KERNELS[kind]
     with torch.no_grad():
         ops.reset_launches()
@@ -2760,9 +2850,10 @@ def _grad_on_card(torch, ops, TF, PL, cfg, params, leaves, kind, B, S,
             finite = bool(torch.isfinite(loss)) and all(
                 bool(torch.isfinite(g).all()) for g in grads)
         del grads
-    L = cfg.n_layers
+    L = _attn_apps(cfg)
     want = {fwd: 2 * L if remat else L, bwd: L}
     res = {"check": "gradient", "arch": cfg.name, "batch": B, "seq": S,
+           "prefix_tokens": cfg.n_prefix_tokens,
            "remat": remat, "loss": float(loss0), "no_grad_loss":
            float(ng_loss), "loss_equals_no_grad_bits":
            _same_bits(torch, loss0, ng_loss), "finite": finite,
@@ -2919,7 +3010,11 @@ def _step_probe(torch, threat, engine):
 def _train_step_timed(torch, ops, step, args, seen):
     """One step: launches and copies, host ms ending in a synchronize,
     and its split by CUDA events (gradients, attack, aggregate, the norm
-    and update with the metrics' reads)."""
+    and update with the metrics' reads).  The probe's copies of the step
+    before are dropped first: its aggregate (one D-sized buffer) would
+    otherwise stay alive through this step's gradients."""
+    for k in ("G", "result", "agg_blocks"):
+        seen.pop(k, None)
     seen["events"].clear()
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -3002,7 +3097,8 @@ def _hold_launch_on_blocks(torch, G, st, agg_blocks, beta, threshold) -> dict:
     return res
 
 
-def _train_full_width(torch, ops, cfg, m, want, ckpt_dir=None):
+def _train_full_width(torch, ops, cfg, m, want, ckpt_dir=None,
+                      optimizer="adamw"):
     """``launch.train.main`` at full width for TRAIN_STEPS + 1 steps (the
     first a warm-up), its checkpoint and telemetry into ``ckpt_dir`` (none
     without one).  The
@@ -3044,7 +3140,7 @@ def _train_full_width(torch, ops, cfg, m, want, ckpt_dir=None):
             "--steps", str(TRAIN_STEPS + 1),
             "--batch-per-worker", str(TRAIN_B), "--seq", str(TRAIN_S),
             "--attack", TRAIN_ATTACK["attack"],
-            "--alpha", str(TRAIN_ATTACK["alpha"]), "--optimizer", "adamw"]
+            "--alpha", str(TRAIN_ATTACK["alpha"]), "--optimizer", optimizer]
     if ckpt_dir is not None:
         argv += ["--ckpt-dir", str(ckpt_dir)]
     torch.cuda.reset_peak_memory_stats()
@@ -3196,7 +3292,7 @@ def _train_card_vs_cpu(torch, arch, n_layers):
                                 byz=bcfg).batch(0)
     shapes = [tuple(p.shape) for p in p0]
     fwd, bwd = GRAD_KERNELS[TF.segments(cfg)[0].kind]
-    n = m * cfg.n_layers
+    n = m * _attn_apps(cfg)
     want_launches = {"brsgd_aggregate": 1, fwd: n, bwd: n}
     out = {}
     with _step_probe(torch, threat, engine) as seen, \
@@ -3545,6 +3641,279 @@ def phase_zoo_train(torch, zoo):
         sub_s[f"train card vs CPU {arch}"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
     emit({"check": "zoo_train_seconds", **sub_s})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 7g. mamba2 and the hybrid segment; the prefix frontends
+# ---------------------------------------------------------------------------
+
+def _serve_prefix_full_width(torch, arch, B, S, gen, repeat):
+    """serve.generate at full width with the config's seeded prefix
+    (``pipeline.prefix_embeddings``) before a [B, S] prompt, ``repeat``
+    passes: B6 once a layer in each prefill (over P + S positions),
+    nothing in decode, finite logits.  Returns (result, launches over
+    every pass, launches of one prefill)."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline as PL
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    cfg = get_config(arch)
+    P = cfg.n_prefix_tokens
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = PM.init_params(TF.param_defs(cfg), g, device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=g, device="cuda")
+    prefix = torch.from_numpy(PL.prefix_embeddings(cfg, 0, (B,))).to("cuda")
+    ops.reset_launches()
+    runs = [serve.generate(cfg, params, prompt, gen, P + S + gen,
+                           prefix_embed=prefix) for _ in range(repeat)]
+    secs = time.perf_counter() - t0
+    total = {k: n for k, n in ops.launches().items() if n}
+    want = _expected_prefill(cfg, P + S)
+    for r in runs:
+        pre = {k: n for k, n in r[4]["prefill"].items() if n}
+        dec = {k: n for k, n in r[4]["decode"].items() if n}
+        if pre != want or dec:
+            fail(f"serve {arch}: prefill launched {pre} (expected {want}), "
+                 f"decode launched {dec} (expected none)")
+    if total != {k: n * repeat for k, n in want.items()}:
+        fail(f"serve {arch}: {repeat} passes launched {total}")
+    logits = runs[-1][1]
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"serve {arch}: non-finite logits")
+    t_pre = statistics.median(r[2] for r in runs)
+    t_dec = statistics.median(r[3] for r in runs)
+    res = {"prefill_tok_s": B * S / t_pre,
+           "prefill_positions_s": B * (P + S) / t_pre,
+           "decode_tok_s": B * gen / t_dec, "prefill_s": t_pre,
+           "decode_s": t_dec, "n_layers": cfg.n_layers, "batch": B,
+           "prompt_len": S, "prefix_tokens": P, "gen": gen,
+           "repeat": repeat,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit({"check": "serve", "arch": arch, "entry": "serve.generate",
+          "d_model": cfg.d_model, **res, "prefill_launches": pre,
+          "decode_launches": "none", "launches_all_passes": total,
+          "seconds": secs, "logits_finite": True})
+    del params, runs, logits
+    return res, total, pre
+
+
+def _prefill_equals_decode_reduced(torch, arch):
+    """The reduced config's fused prefill against its sequential decode
+    on the card (logits and every cache leaf, SERVE_TOL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    cfg = get_config(arch).reduced()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = PM.init_params(TF.param_defs(cfg), gen, device="cuda")
+    B, S, T = 2, 40, 44                  # past a 32-token chunk
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda")
+    lf, cf = TF.prefill_cache(cfg, params, tokens,
+                              TF.init_cache(cfg, B, T, torch.float32, "cuda"))
+    cache = TF.init_cache(cfg, B, T, torch.float32, "cuda")
+    ls = []
+    for i in range(S):
+        lg, cache = TF.decode_step(cfg, params, cache, tokens[:, i:i + 1], i)
+        ls.append(lg[:, 0])
+    ls = torch.stack(ls, dim=1)
+    err = _err(lf, ls) / float(ls.abs().max())
+    a, b = _flat_leaves(cf), _flat_leaves(cache)
+    leaf = max(_err(a[k], b[k]) / max(float(b[k].abs().max()), 1e-30)
+               for k in a)
+    emit({"check": "prefill_equals_sequential_decode", "arch": cfg.name,
+          "seq": S, "logits_rel_err": err, "cache_rel_err": leaf,
+          "rel_tol": SERVE_TOL})
+    if err > SERVE_TOL or leaf > SERVE_TOL:
+        fail(f"{cfg.name}: prefill differs from sequential decode on the "
+             f"card (logits {err}, cache {leaf})")
+
+
+def phase_hybrid_serve(torch, ref, worst):
+    """(a) zamba2-2.7b through serve.main at full width (B6's (80, 80)
+    instance once a unit: 9 a prefill), phi-3-vision-4.2b (B6's (96, 96)
+    instance) and musicgen-large through serve.generate with their
+    seeded prefix, each alone on the card; (b) card = CPU over a float32
+    cache (HF_CPU_CASES); (c) zamba2's reduced prefill == its sequential
+    decode; (d) zamba2 through the serve loop.  B6 only: it runs while
+    the BrSGD libraries build.  Returns the results and launches."""
+    import gc
+    out = {"serve": {}, "launches": {}, "per_prefill": {}}
+    sub_s = {}
+    args = dict(zip(ZOO_SERVE_ARGS[::2], ZOO_SERVE_ARGS[1::2]))
+    for arch in (HYBRID_ARCH,) + PREFIX_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if arch == HYBRID_ARCH:
+            res, total, pre = _serve_full_width(torch, arch, ZOO_SERVE_ARGS)
+        else:
+            res, total, pre = _serve_prefix_full_width(
+                torch, arch, int(args["--batch"]), int(args["--prompt-len"]),
+                int(args["--gen"]), int(args["--repeat"]))
+        sub_s[f"serve {arch}"] = time.perf_counter() - t0
+        out["serve"][arch] = {k: res[k] for k in (
+            "prefill_tok_s", "decode_tok_s", "prefill_s", "decode_s",
+            "n_layers", "batch", "prompt_len", "gen", "repeat",
+            "peak_mem_gb") if k in res}
+        out["serve"][arch]["prefix_tokens"] = res.get("prefix_tokens", 0)
+        for k, n in total.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        out["per_prefill"][arch] = pre
+        del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, (n_layers, B, S) in HF_CPU_CASES.items():
+        t0 = time.perf_counter()
+        _serve_card_vs_cpu(torch, arch, B, S, ZOO_CPU_STEPS, ("float32",),
+                           n_layers)
+        sub_s[f"serve card vs CPU {arch}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _prefill_equals_decode_reduced(torch, HYBRID_ARCH)
+    sub_s["prefill == decode zamba2 reduced"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["serve_loop"], out["loop_per_admission"] = _zoo_serve_loop(
+        torch, ref, worst, HYBRID_ARCH, HF_LOOP_ARGS)
+    sub_s[f"serve loop {HYBRID_ARCH}"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"check": "hybrid_frontends_serve_seconds", **sub_s})
+    return out
+
+
+def _ssd_device_ms(torch, cfg, B, S) -> dict:
+    """Device ms of one mamba2 layer's SSD (``mamba2._ssd_chunked``: its
+    batched products, the decays, the chunk recurrence) at the layer's
+    shapes for [B, S], forward alone and forward + backward, on seeded
+    inputs (dt a softplus of a normal, A = -1)."""
+    import torch.nn.functional as F
+    from repro_torch.models import mamba2 as M2
+    di, H = M2.dims(cfg.d_model, cfg.ssm)
+    N, Pd = cfg.ssm.state_dim, di // H
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xh = torch.randn(B, S, H, Pd, generator=g, device="cuda")
+    dt = F.softplus(torch.randn(B, S, H, generator=g, device="cuda"))
+    Bc, Cc = (torch.randn(B, S, N, generator=g, device="cuda")
+              for _ in range(2))
+    A = -torch.ones(H, device="cuda")
+    ins = [t.requires_grad_(True) for t in (xh, dt, Bc, Cc)]
+
+    def fwd():
+        with torch.no_grad():
+            M2._ssd_chunked(xh, dt, A, Bc, Cc, cfg.ssm.chunk)
+
+    def fwd_bwd():
+        y, st = M2._ssd_chunked(xh, dt, A, Bc, Cc, cfg.ssm.chunk)
+        torch.autograd.grad(y.sum() + st.sum(), ins)
+    fwd()
+    fwd_bwd()
+    return {"forward": sum(_device_ms(torch, fwd).values()),
+            "forward_backward": sum(_device_ms(torch, fwd_bwd).values())}
+
+
+def phase_hybrid_train(torch, hf):
+    """(e) one worker's gradient at full width of zamba2-2.7b ([2, 128],
+    and [1, 4096] with remat), phi-3-vision-4.2b and musicgen-large
+    ([2, 128] after their prefix), the plain versions refusing the card,
+    every leaf finite, one B6 and one B6-bwd launch an attention
+    application (two B6 with remat), and zamba2's SSD device time a
+    layer; (f) zamba2's train step through launch.train.main at m =
+    HF_TRAIN_M, brsgd under sign_flip at 0.25, sgd, the launch held on
+    column blocks; (g) card = CPU steps of the three at reduced().  Adds
+    its results and launches to ``hf`` (phase_hybrid_serve's)."""
+    import gc
+    from repro_torch.configs import ByzantineConfig, get_config
+    from repro_torch.data import pipeline as PL
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    out, sub_s = hf, {}
+    out["gradient"] = []
+    for arch in dict.fromkeys(a for a, *_ in HF_GRAD_CASES):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        params = PM.init_params(
+            TF.param_defs(cfg), torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        leaves = list(_flat_leaves(params).values())
+        for t in leaves:
+            t.requires_grad_(True)
+        with _plain_versions_refuse_the_card(torch):
+            for a, B, S, remat in HF_GRAD_CASES:
+                if a != arch:
+                    continue
+                t0 = time.perf_counter()
+                res = _grad_on_card(torch, ops, TF, PL, cfg, params, leaves,
+                                    TF.segments(cfg)[0].kind, B, S, remat)
+                if cfg.ssm is not None:
+                    ssd = _ssd_device_ms(torch, cfg, B, S)
+                    res["ssd_device_ms_per_layer"] = ssd
+                    res["ssd_device_ms_all_layers"] = {
+                        "forward": ssd["forward"] * cfg.n_layers,
+                        "forward_backward": ssd["forward_backward"]
+                        * cfg.n_layers,
+                        "note": "one layer's SSD timed alone, times "
+                                "n_layers; inside the gemm / other groups "
+                                "of device_ms_by_group"}
+                    emit({"check": "gradient_ssd", "arch": arch,
+                          "batch": B, "seq": S, "per_layer": ssd,
+                          **res["ssd_device_ms_all_layers"]})
+                res["seconds"] = time.perf_counter() - t0
+                sub_s[f"gradient {arch} [{B},{S}]"
+                      f"{' remat' if remat else ''}"] = res["seconds"]
+                out["gradient"].append({k: res[k] for k in (
+                    "arch", "batch", "seq", "remat", "prefix_tokens",
+                    "host_ms", "host_ms_runs", "peak_device_gb",
+                    "device_busy_ms", "device_ms_by_group", "launches",
+                    "finite", "ssd_device_ms_per_layer") if k in res})
+                for k, v in res["launches"].items():
+                    out["launches"][k] = out["launches"].get(k, 0) + v
+        del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(HYBRID_ARCH)
+    bcfg = ByzantineConfig(**TRAIN_ATTACK)
+    m = HF_TRAIN_M
+    n = m * _attn_apps(cfg)
+    want = {"brsgd_aggregate": 1, "flash_attention": n,
+            "flash_attention_bwd": n}
+    with _plain_versions_refuse_the_card(torch):
+        t0 = time.perf_counter()
+        params, opt_state, res, probe, got_each = _train_full_width(
+            torch, ops, cfg, m, want, optimizer=HF_TRAIN_OPTIMIZER)
+        res["D"] = PM.count_params(TF.param_defs(cfg))
+        res["optimizer"] = HF_TRAIN_OPTIMIZER
+        res["seconds"] = time.perf_counter() - t0
+        del params, opt_state
+        t0 = time.perf_counter()
+        res["launch_held_on_blocks"] = _hold_launch_on_blocks(
+            torch, probe["G"], probe["result"][1], probe["agg_blocks"],
+            bcfg.beta, bcfg.threshold)
+        res["launch_check_seconds"] = time.perf_counter() - t0
+        sub_s[f"train {HYBRID_ARCH}"] = res["seconds"]
+        emit(res)
+        out["train"] = res
+        del probe
+    for got in got_each:
+        for k, v in got.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in (HYBRID_ARCH,) + PREFIX_ARCHS:
+        t0 = time.perf_counter()
+        _train_card_vs_cpu(torch, arch, None)
+        sub_s[f"train card vs CPU {arch}"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    emit({"check": "hybrid_frontends_train_seconds", **sub_s})
     return out
 
 
@@ -4049,7 +4418,7 @@ def phase_bwd_timing(torch, ref):
     # calculator, with the launch's dynamic shared memory)
     occ = (ctypes.c_int * 4)()
     log = _build.BUILD_LOGS.get("flash_attention_bwd")
-    for D, Dv in ((128, 128), (96, 64), (192, 128)):
+    for D, Dv in ((128, 128), (96, 64), (192, 128), (96, 96)):
         rc = _build.load("flash_attention_bwd").flash_bwd_ctas_per_sm(
             D, Dv, occ)
         if rc != 0:
@@ -4063,6 +4432,14 @@ def phase_bwd_timing(torch, ref):
                          for fn, r in _ptxas_entries(log).items()
                          if f"ILi{D}ELi{Dv}E" in fn}
                         if log else "not measured (library reused)")})
+    # B6's forward instance at (96, 96): registers, spills, shared memory
+    flog = _build.BUILD_LOGS.get("flash_attention")
+    emit({"check": "flash_attention_resources", "D": 96, "Dv": 96,
+          "ptxas": ({fn: {k: r[k] for k in ("registers", "smem",
+                                            "spill_bytes")}
+                     for fn, r in _ptxas_entries(flog).items()
+                     if "flash_kernelILi96ELi96E" in fn}
+                    if flog else "not measured (library reused)")})
     for label, (B, H, Hkv, S, D, Dv) in FLASH_BWD_TIMING:
         q, k, v, dO = _flash_inputs(torch, B, H, Hkv, S, D, Dv, "float32",
                                     with_do=True)
@@ -4429,6 +4806,7 @@ def main() -> int:
     serve_res, serve_launches, per_prefill = timed("serve", phase_serve,
                                                    torch)
     zoo = timed("zoo_serve", phase_zoo_serve, torch, ref, worst)
+    hf = timed("hybrid_serve", phase_hybrid_serve, torch, ref, worst)
     timed("build", phase_build, builds, t_build)
     worst.update(timed("kernels", phase_kernels, torch, kern, ref))
     timed("loop", phase_loop, torch, kern, ref)
@@ -4441,6 +4819,7 @@ def main() -> int:
     grad_res, grad_launches = timed("grad", phase_grad, torch)
     train_res, train_launches = timed("train", phase_train, torch)
     zoo = timed("zoo_train", phase_zoo_train, torch, zoo)
+    hf = timed("hybrid_train", phase_hybrid_train, torch, hf)
     demos = timed("demos", phase_demos, torch)
     main_t = timed("timing_main", phase_timing, torch, kern, ref, MAIN_SHAPE,
                    reps=200, plain_reps=20, worst=worst)
@@ -4562,6 +4941,12 @@ def main() -> int:
                            "loop_per_admission_moe"].get(name),
                        demo_train_100m_launches=demos["train_100m"]
                        ["launches"].get(name, 0),
+                       hybrid_frontends_launches=hf["launches"].get(name, 0),
+                       hybrid_frontends_launches_per_prefill={
+                           a: p.get(name) for a, p in
+                           hf["per_prefill"].items()},
+                       zamba2_serve_loop_launches_per_admission=hf[
+                           "loop_per_admission"].get(name),
                        instances=_instance_rows(seq_t, name))
         else:
             row.update(per="layer launch", chunk_ms=t["chunk_ms"],
@@ -4596,6 +4981,13 @@ def main() -> int:
                     for a, r in zoo["moe_gradient"].items()},
                 "demo_train_100m_launches": demos["train_100m"]["launches"]
                 .get(name, 0),
+                "hybrid_frontends_launches": hf["launches"].get(name, 0),
+                "hybrid_frontends_launches_per_gradient": {
+                    f"{r['arch']} [{r['batch']},{r['seq']}]"
+                    f"{' remat' if r['remat'] else ''}": r["launches"].get(
+                        name) for r in hf["gradient"]},
+                "zamba2_train_launches_per_step": hf["train"][
+                    "launches_per_step"].get(name),
                 "instances": _instance_rows(bwd_t, name)}
                if name == "flash_attention_bwd" else {}),
             **({"design_mbytes": lt["design_mbytes"],
@@ -4638,6 +5030,17 @@ def main() -> int:
                       "host_ms", "host_ms_runs", "split_ms",
                       "peak_device_gb", "launches_per_step")}},
           "demos": {k: v for k, v in demos.items()}})
+    emit({"hybrid_frontends": {
+        "serve": hf["serve"],
+        "serve_loop": {k: hf["serve_loop"][k] for k in (
+            "arch", "n_layers", "decode_tok_s", "step_ms_median", "tok_s",
+            "requests", "max_batch", "decode_graphs", "against_generate",
+            "peak_mem_gb")},
+        "gradient": hf["gradient"],
+        "train": {k: hf["train"][k] for k in (
+            "arch", "D", "workers", "batch_per_worker", "seq", "optimizer",
+            "host_ms", "host_ms_runs", "split_ms", "peak_device_gb",
+            "launches_per_step")}}})
     emit({"phase_seconds": phase_s})
     emit({"serve": {a: {k: r[k] for k in ("prefill_tok_s", "decode_tok_s",
                                           "prefill_s", "decode_s",

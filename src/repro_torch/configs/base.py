@@ -7,9 +7,9 @@ copies equal to the JAX dataclasses field by field.
 ``RecoveryConfig`` and ``TrainConfig`` are the train step's knobs
 (``training/step.py``, ``faults/supervisor.py``, ``launch/train.py``).
 
-``MoESpec`` is read by ``models/moe.py``; ``SSMSpec`` is data only
-here: ``ModelConfig`` names it, and the block that reads it (mamba2)
-waits for a later slice of the port.
+``MoESpec`` is read by ``models/moe.py``, ``SSMSpec`` by
+``models/mamba2.py``; ``InputShape`` is the assigned input shapes'
+record (``configs/shapes.py``).
 """
 from __future__ import annotations
 
@@ -220,6 +220,14 @@ class ModelConfig:
             n_prefix_tokens=min(self.n_prefix_tokens, 8),
             dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                     # "train" | "prefill" | "decode"
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,20 @@
+"""The assigned input shapes and their registry (the port's copy of the
+JAX package's ``configs/shapes.py``, pinned equal to it by
+``tests/test_torch_frontends.py``)."""
+from __future__ import annotations
+
+from .base import InputShape
+
+TRAIN_4K = InputShape("train_4k", seq_len=4_096, global_batch=256, mode="train")
+PREFILL_32K = InputShape("prefill_32k", seq_len=32_768, global_batch=32,
+                         mode="prefill")
+DECODE_32K = InputShape("decode_32k", seq_len=32_768, global_batch=128,
+                        mode="decode")
+LONG_500K = InputShape("long_500k", seq_len=524_288, global_batch=1,
+                       mode="decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def get_shape(name: str) -> InputShape:
+    return SHAPES[name]

@@ -120,16 +120,13 @@ class LMWorkerPipeline:
     ``TokenStream`` draw of m·b sequences per step, split by worker.  A
     data-scope attack (label_flip) corrupts the byzantine workers' token
     streams, per ``batch(step)``, from the config's membership mask.
-    Configs with prefix embeddings (vision / audio frontends) are not
-    ported yet."""
+    Configs with a (stub) vision / audio frontend also get
+    ``"prefix_embed"`` [m, b, P, d] float32, drawn as the JAX package
+    draws it (``default_rng(step)``, normal(0, 0.02)): the same bits."""
 
     def __init__(self, cfg: ModelConfig, n_workers: int,
                  batch_per_worker: int, seq_len: int, seed: int = 0,
                  byz: Optional[ByzantineConfig] = None):
-        if cfg.n_prefix_tokens:
-            raise NotImplementedError(
-                f"{cfg.name}: prefix embeddings are not ported yet "
-                f"(ROADMAP A.3)")
         self.cfg = cfg
         self.m = n_workers
         self.b = batch_per_worker
@@ -144,7 +141,20 @@ class LMWorkerPipeline:
         if spec is not None:
             mask = threat.data_membership(self.byz, self.m, step)
             toks[mask] = spec.corrupt_labels(toks[mask], self.cfg.vocab)
-        return {"tokens": toks}
+        out = {"tokens": toks}
+        if self.cfg.n_prefix_tokens:
+            out["prefix_embed"] = prefix_embeddings(
+                self.cfg, step, (self.m, self.b))
+        return out
+
+
+def prefix_embeddings(cfg: ModelConfig, step: int, lead: tuple) -> np.ndarray:
+    """The stub frontend's precomputed embeddings [*lead, P, d] float32
+    of ``step``: ``default_rng(step).normal(0, 0.02)``, the JAX
+    pipeline's draw."""
+    rng = np.random.default_rng(step)
+    return rng.normal(0, 0.02, size=(*lead, cfg.n_prefix_tokens,
+                                     cfg.d_model)).astype(np.float32)
 
 
 class ImageWorkerPipeline:

@@ -72,7 +72,10 @@
 //     128) instance takes 32.
 //
 // Value width: v and o have DV columns, q and k D.  The GQA instances
-// have DV = D; the MLA instances do not.  (D, DV) = (96, 64) is
+// have DV = D (64, 80, 128, and 96 for phi-3-vision-4.2b: q·kᵀ runs 12
+// k-steps, P·V 12 n-tiles; 2 stages × 64 × ((96 + 8) + (96 + 4)) × 4 B
+// = 104,448 B of K/V and 128 × 104 × 4 = 53,248 B of q in float32,
+// 157,696 B in all, so BK = 64); the MLA instances do not.  (D, DV) = (96, 64) is
 // minicpm3-4b's (q/k are qk_nope 64 + qk_rope 32, v is v_head_dim 64),
 // whose q·kᵀ runs 12 k-steps and P·V 8 n-tiles.  (192, 128) is
 // deepseek-v2's (qk_nope 128 + qk_rope 64, v 128): q·kᵀ runs 24 k-steps
@@ -395,6 +398,7 @@ int dispatch_d(int D, int DV, const void* q, const void* k, const void* v,
                              vs, os, window, st);
   FLASH_CASE(64, 64)
   FLASH_CASE(80, 80)
+  FLASH_CASE(96, 96)
   FLASH_CASE(128, 128)
   FLASH_CASE(96, 64)
   FLASH_CASE(192, 128)
@@ -417,8 +421,8 @@ const char* flash_error_string(int err) {
 // sliding window.  lse, when not null, receives each row's log-sum-exp
 // of the scaled logits, [B, H, S] float32 contiguous (the backward's
 // input; the serve path passes null).  Returns cudaErrorInvalidValue for
-// a (D, DV) without an instance ((64, 64), (80, 80), (128, 128), (96,
-// 64), (192, 128)) or a bad dtype.
+// a (D, DV) without an instance ((64, 64), (80, 80), (96, 96), (128,
+// 128), (96, 64), (192, 128)) or a bad dtype.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, int dtype, int B, int H, int Hkv, int S,
                         int T_len, int D, int DV, long long qsb, long long qsh, long long qss,

@@ -92,6 +92,11 @@
 // (96, 64) the dK/dV kernel takes 137,856 B of shared memory and the dQ
 // kernel 118,912 B (4 stages each).
 //
+// (D, DV) = (96, 96) is phi-3-vision-4.2b's (GQA, head dim 96): s and dp
+// run 12 k-steps each, dv, dk and dq take wgmma m64n96k8; a dK/dV
+// consumer thread holds dk and dv at 48 + 48 = 96 accumulator registers.
+// By Shape<96, 96> 4 stages fit: 164,480 B for dK/dV, 136,320 B for dQ.
+//
 // (D, DV) = (192, 128) is deepseek-v2's (qk_nope 128 + qk_rope 64, v
 // 128): s runs 24 k-steps and dp 16, dk and dq take wgmma m64n192k8 and
 // dv m64n128k8.  Shared memory fits 3 stages: 224,768 B for dK/dV,
@@ -714,6 +719,7 @@ int flash_bwd_ctas_per_sm(int D, int DV, void* out) {
                  Shape<DD, VV>::KV_BYTES, Shape<DD, VV>::DQ_BYTES);
   BWD_CASE(64, 64)
   BWD_CASE(80, 80)
+  BWD_CASE(96, 96)
   BWD_CASE(128, 128)
   BWD_CASE(96, 64)
   BWD_CASE(192, 128)
@@ -727,7 +733,7 @@ int flash_bwd_ctas_per_sm(int D, int DV, void* out) {
 // aligned (the wrapper checks); lse (the forward's) and di (scratch) [B,
 // H, S] contiguous.  Causal; window > 0 adds the sliding window.  Returns
 // cudaErrorInvalidValue for a (D, DV) without an instance ((64, 64), (80,
-// 80), (128, 128), (96, 64), (192, 128)).
+// 80), (96, 96), (128, 128), (96, 64), (192, 128)).
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dO, const void* lse,
                         void* di, void* dq, void* dk, void* dv, int B, int H,
@@ -755,6 +761,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64 && DV == 64) return launch<64, 64>(a, st);
   if (D == 80 && DV == 80) return launch<80, 80>(a, st);
+  if (D == 96 && DV == 96) return launch<96, 96>(a, st);
   if (D == 128 && DV == 128) return launch<128, 128>(a, st);
   if (D == 96 && DV == 64) return launch<96, 64>(a, st);
   if (D == 192 && DV == 128) return launch<192, 128>(a, st);

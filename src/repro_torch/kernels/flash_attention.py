@@ -21,7 +21,8 @@ in float32 and bfloat16.
 
 Head widths: q and k have D columns, v and the output Dv.  The kernels
 have an instance for each (D, Dv) of :data:`SUPPORTED_PAIRS`: D = Dv for
-the GQA configs (:data:`SUPPORTED_D`), and for MLA (96, 64) (minicpm3-4b:
+the GQA configs (:data:`SUPPORTED_D`: 96 is phi-3-vision-4.2b's), and for
+MLA (96, 64) (minicpm3-4b:
 q/k are qk_nope 64 + qk_rope 32, v is 64) and (192, 128) (deepseek-v2:
 qk_nope 128 + qk_rope 64, v 128), scaled by 1/√D.  Any other pair
 raises.
@@ -43,7 +44,7 @@ import torch
 
 from ._build import aligned, error_string, load
 
-SUPPORTED_D = (64, 80, 128)     # the instances with Dv = D
+SUPPORTED_D = (64, 80, 96, 128)     # the instances with Dv = D
 # (D of q and k, Dv of v and the output): csrc FLASH_CASE / BWD_CASE
 SUPPORTED_PAIRS = tuple((d, d) for d in SUPPORTED_D) + ((96, 64), (192, 128))
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}

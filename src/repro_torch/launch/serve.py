@@ -53,18 +53,23 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def generate(cfg, params, prompt, gen: int, max_len: int):
-    """One prefill + ``gen`` greedy decode steps.  Returns (tokens
-    [B, gen], last logits, prefill seconds, decode seconds, launches of
-    each phase)."""
+def generate(cfg, params, prompt, gen: int, max_len: int,
+             prefix_embed=None):
+    """One prefill + ``gen`` greedy decode steps.  ``prefix_embed``
+    [B, P, d]: a stub frontend's embeddings before the prompt (the cache
+    then holds P + S + gen positions).  Returns (tokens [B, gen], last
+    logits, prefill seconds, decode seconds, launches of each phase)."""
     dev = prompt.device
-    B, S = prompt.shape
+    B = prompt.shape[0]
+    S = prompt.shape[1] + (0 if prefix_embed is None
+                           else prefix_embed.shape[1])
     dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
     cache = TF.init_cache(cfg, B, max_len, dtype, dev)
     _sync(dev)
     n0 = ops.launches()
     t0 = time.perf_counter()
-    logits, cache = TF.prefill_cache(cfg, params, prompt, cache)
+    logits, cache = TF.prefill_cache(cfg, params, prompt, cache,
+                                     prefix_embed)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     n1 = ops.launches()

@@ -12,9 +12,14 @@ the port loops over the stacked layer axis in Python.
   deepseek-v2 (MLA)                                  : [("dense", 1), ("moe", 59)]
   dbrx                                               : [("moe", 40)]
   rwkv6                                              : [("rwkv", L)]
+  zamba2                                             : [("hybrid", 9 units)]
 
-The hybrid (zamba2) segment waits for a later slice of the port and
-raises ``NotImplementedError``.  A dense or moe layer's attention is
+A hybrid unit is ``hybrid_attn_every`` mamba2 blocks (stacked
+``[units, sub, ...]`` under ``seg_0``) followed by the one SHARED dense
+block, whose parameters sit under the top-level ``shared_attn`` key
+(after ``seg_0`` in sorted key order, as in the reference's flattened
+gradient) and are applied after every unit: their gradient sums over
+the units.  A dense or moe layer's attention is
 GQA or MLA by ``cfg.attention.kind``; MLA's decode cache holds the
 latent ``c`` [B,T,R] and the rope key ``kr`` [B,T,Dr] where GQA's
 holds ``k`` / ``v``.  A moe layer's FFN is ``moe.moe_ffn`` over the
@@ -30,7 +35,15 @@ the same addresses on every replay.  The rwkv token-shift carries
 (``tm_x``, ``cm_x``) are float32 buffers whatever the cache dtype: the
 JAX decode scan returns them in their computed dtype (float32), so they
 can be written in place without a rounding, and the prefill rounds them
-through the cache dtype first, as the JAX prefill stores them.
+through the cache dtype first, as the JAX prefill stores them.  The
+mamba2 convolution state (``conv``) is such a carry too: the reference's
+decode concatenates the cached state with the float32 input, so its
+decode cache holds it in float32 whatever the cache dtype.
+
+The vision / audio frontends are stubs, as in the reference: a caller
+passes precomputed prefix embeddings [B, P, D] (``prefix_embed``), cast
+to the embedding's dtype and put before the token embeddings; the loss
+reads the logits from position P on (the prefix is context only).
 """
 from __future__ import annotations
 
@@ -41,23 +54,26 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from . import mamba2 as M2
 from . import moe as MOE
 from . import rwkv6 as R6
 from .params import ParamDef, tree_map_defs
 
 
 class Segment(NamedTuple):
-    kind: str      # dense | moe | rwkv  (hybrid: a later slice)
-    n: int         # number of stacked layers
+    kind: str      # dense | moe | rwkv | hybrid
+    n: int         # number of stacked layers (units for hybrid)
 
 
 def segments(cfg: ModelConfig):
     if cfg.arch_type == "ssm" and cfg.rwkv is not None:
         return [Segment("rwkv", cfg.n_layers)]
     if cfg.hybrid_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid (mamba2 + shared attention) segment "
-            f"is not ported yet (ROADMAP A.3, mamba2)")
+        if cfg.n_layers % cfg.hybrid_attn_every:
+            raise ValueError(
+                f"{cfg.name}: n_layers={cfg.n_layers} is not a multiple of "
+                f"hybrid_attn_every={cfg.hybrid_attn_every}")
+        return [Segment("hybrid", cfg.n_layers // cfg.hybrid_attn_every)]
     if cfg.is_moe:
         segs = []
         if cfg.n_dense_layers:
@@ -90,6 +106,8 @@ def _block_defs(cfg: ModelConfig, kind: str) -> dict:
     if kind == "rwkv":
         return {"ln1": norm(), "tm": R6.rwkv6_defs(D, cfg.d_ff, cfg.rwkv),
                 "ln2": norm()}
+    if kind == "mamba":
+        return {"ln": norm(), "m": M2.mamba2_defs(D, cfg.ssm)}
     raise ValueError(kind)
 
 
@@ -108,7 +126,13 @@ def param_defs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((D, cfg.vocab), ("embed", "vocab"))
     for i, seg in enumerate(segments(cfg)):
-        defs[f"seg_{i}"] = _stack(_block_defs(cfg, seg.kind), seg.n)
+        if seg.kind == "hybrid":
+            unit = _stack(_block_defs(cfg, "mamba"), cfg.hybrid_attn_every,
+                          "sub")
+            defs[f"seg_{i}"] = _stack(unit, seg.n, "units")
+            defs["shared_attn"] = _block_defs(cfg, "dense")
+        else:
+            defs[f"seg_{i}"] = _stack(_block_defs(cfg, seg.kind), seg.n)
     return defs
 
 
@@ -176,37 +200,62 @@ def _rwkv_block(cfg, p, x):
     return x + h, None, {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x}
 
 
-def _block(cfg, kind: str, p_l, x, positions):
-    """(x, aux or None, cache entries) of one layer: aux is the moe
-    layer's router loss, None for the other kinds."""
+def _mamba_block(cfg, p, x):
+    h, (conv, ssm) = M2.mamba2_forward(p["m"], cfg.ssm,
+                                       L.rms_norm(x, p["ln"], cfg.rms_eps))
+    return x + h, {"conv": conv, "ssm": ssm}
+
+
+def _hybrid_unit(cfg, p_u, shared, x, positions, collect):
+    """One hybrid unit: its ``hybrid_attn_every`` mamba2 blocks, then the
+    shared dense block.  Cache entries (with ``collect``): the mamba
+    states stacked on a leading sub axis, and the shared block's K/V."""
+    ents = []
+    for p_m in _layers(p_u, cfg.hybrid_attn_every):
+        x, ent = _mamba_block(cfg, p_m, x)
+        if collect:
+            ents.append(ent)
+    x, _, a_ent = _dense_block(cfg, shared, x, positions)
+    return x, None, ({"mamba": _stack_entries(ents), "attn": a_ent}
+                     if collect else None)
+
+
+def _block(cfg, kind: str, p_l, x, positions, shared=None, collect=True):
+    """(x, aux or None, cache entries) of one layer (of one unit for
+    hybrid, with the shared block's parameters ``shared``): aux is the
+    moe layer's router loss, None for the other kinds."""
     if kind == "dense":
         return _dense_block(cfg, p_l, x, positions)
     if kind == "moe":
         return _moe_block(cfg, p_l, x, positions)
     if kind == "rwkv":
         return _rwkv_block(cfg, p_l, x)
+    if kind == "hybrid":
+        return _hybrid_unit(cfg, p_l, shared, x, positions, collect)
     raise ValueError(kind)
 
 
 def _run_segment(cfg, seg: Segment, p_stack, x, positions,
-                 collect_cache=False, remat=False):
-    """Run a stacked segment over x, layer by layer.  Returns (x, the
+                 collect_cache=False, remat=False, shared=None):
+    """Run a stacked segment over x, layer by layer (unit by unit for
+    hybrid, ``shared`` the shared block's parameters).  Returns (x, the
     sum of the layers' aux losses (None but for moe), cache entries):
     with ``collect_cache`` (the fused prefill) each layer's
     full-sequence cache pieces stacked on a leading layer axis, in the
     ``cache_defs`` layout; else None.  ``remat`` (training) keeps only
-    each layer's input for the backward and runs the layer again there
-    (``torch.utils.checkpoint``, non-reentrant: the JAX package's
+    each layer's (unit's) input for the backward and runs it again
+    there (``torch.utils.checkpoint``, non-reentrant: the JAX package's
     ``jax.checkpoint`` of the scan body)."""
     ents, aux = [], None
     for p_l in _layers(p_stack, seg.n):
         if remat:
             x, a = checkpoint(
-                lambda x, p_l=p_l: _block(cfg, seg.kind, p_l, x,
-                                          positions)[:2],
+                lambda x, p_l=p_l: _block(cfg, seg.kind, p_l, x, positions,
+                                          shared, False)[:2],
                 x, use_reentrant=False)
         else:
-            x, a, ent = _block(cfg, seg.kind, p_l, x, positions)
+            x, a, ent = _block(cfg, seg.kind, p_l, x, positions, shared,
+                               collect_cache)
             if collect_cache:
                 ents.append(ent)
         if a is not None:
@@ -218,8 +267,13 @@ def _run_segment(cfg, seg: Segment, p_stack, x, positions,
 # public forward
 # ---------------------------------------------------------------------------
 
-def embed_inputs(cfg: ModelConfig, params, tokens):
-    return params["embed"][tokens]
+def embed_inputs(cfg: ModelConfig, params, tokens, prefix_embed=None):
+    """Token embeddings [B,S,D], after the prefix embeddings [B,P,D]
+    (cast to the embedding's dtype) when given."""
+    x = params["embed"][tokens]
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(x.dtype), x], dim=1)
+    return x
 
 
 def _head(cfg: ModelConfig, params, x):
@@ -228,17 +282,18 @@ def _head(cfg: ModelConfig, params, x):
     return x @ head
 
 
-def forward(cfg: ModelConfig, params, tokens, remat: bool = False):
-    """tokens [B,S] -> (logits [B,S,V], aux): aux the float32 sum of the
-    moe layers' router losses (0 without moe layers).  ``remat``:
-    recompute each layer in the backward instead of keeping its
-    activations."""
-    x = embed_inputs(cfg, params, tokens)
+def forward(cfg: ModelConfig, params, tokens, prefix_embed=None,
+            remat: bool = False):
+    """tokens [B,S_tok] (+ optional prefix [B,P,D]) -> (logits
+    [B,P+S_tok,V], aux): aux the float32 sum of the moe layers' router
+    losses (0 without moe layers).  ``remat``: recompute each layer in
+    the backward instead of keeping its activations."""
+    x = embed_inputs(cfg, params, tokens, prefix_embed)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seg in enumerate(segments(cfg)):
         x, a, _ = _run_segment(cfg, seg, params[f"seg_{i}"], x, positions,
-                               remat=remat)
+                               remat=remat, shared=params.get("shared_attn"))
         if a is not None:
             aux = aux + a
     return _head(cfg, params, x), aux
@@ -246,13 +301,16 @@ def forward(cfg: ModelConfig, params, tokens, remat: bool = False):
 
 def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False):
     """Next-token cross-entropy of one worker's batch (``{"tokens":
-    [B,S]}`` and optionally ``"loss_mask"`` [B,S]): the logits at
-    position t predict token t+1, the log-softmax in float32.  Returns
-    (ce + aux, {"ce", "aux"}); aux is the moe layers' router loss (0
-    for the dense and rwkv families)."""
+    [B,S]}``, optionally ``"prefix_embed"`` [B,P,D] and ``"loss_mask"``
+    [B,S]): the logits at position P+t predict token t+1 (the prefix is
+    context only), the log-softmax in float32.  Returns (ce + aux,
+    {"ce", "aux"}); aux is the moe layers' router loss (0 for the other
+    families)."""
     tokens = batch["tokens"]
-    logits, aux = forward(cfg, params, tokens, remat)
-    pred = logits[:, :-1]
+    logits, aux = forward(cfg, params, tokens, batch.get("prefix_embed"),
+                          remat)
+    pfx = logits.shape[1] - tokens.shape[1]
+    pred = logits[:, pfx:-1]
     tgt = tokens[:, 1:].long()
     logp = torch.log_softmax(pred.float(), dim=-1)
     ll = torch.gather(logp, -1, tgt[..., None])[..., 0]
@@ -281,6 +339,14 @@ def _attn_cache_defs(cfg: ModelConfig, batch: int, seq_len: int):
                   ("batch", "seq", "kv", "hd"))}
 
 
+def _mamba_cache_defs(cfg: ModelConfig, batch: int):
+    di, H = M2.dims(cfg.d_model, cfg.ssm)
+    N, W = cfg.ssm.state_dim, cfg.ssm.conv_width
+    Pd = di // H
+    return {"conv": ((batch, W - 1, di + 2 * N), ("batch", None, "inner")),
+            "ssm": ((batch, H, N, Pd), ("batch", "heads", None, None))}
+
+
 def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     """Shapes + logical axes of the decode cache, mirroring the param
     stacking."""
@@ -302,10 +368,20 @@ def cache_defs(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
                 "cm_x": ((seg.n, batch, 1, D),
                          ("layers", "batch", None, None)),
             }
+        elif seg.kind == "hybrid":
+            sub = {k: ((seg.n, cfg.hybrid_attn_every) + s,
+                       ("units", "sub") + ax)
+                   for k, (s, ax) in _mamba_cache_defs(cfg, batch).items()}
+            attn = {k: ((seg.n,) + s, ("units",) + ax)
+                    for k, (s, ax) in _attn_cache_defs(cfg, batch,
+                                                       seq_len).items()}
+            out[f"seg_{i}"] = {"mamba": sub, "attn": attn}
     return out
 
 
-_CARRIES = ("tm_x", "cm_x")     # rwkv token-shift carries: float32
+# carries the reference's decode returns in float32 whatever the cache
+# dtype: rwkv's token shifts and mamba2's convolution state
+_CARRIES = ("tm_x", "cm_x", "conv")
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -329,12 +405,12 @@ def _attn_decode(cfg, p, x, cache, pos):
 
 def decode_step(cfg: ModelConfig, params, cache, token, pos):
     """token [B,1] int64; pos a scalar absolute position or a per-slot
-    ``[B]`` device vector (the recurrent family ignores it; a device
+    ``[B]`` device vector (the recurrent families ignore it; a device
     vector is used as it is, with no host copy).  Returns (logits
     [B,1,V], cache) — every entry written in place: the attention K/V
-    (MLA: the latent and the rope key),
-    the rwkv state cast to the cache's dtype and the float32 token-shift
-    carries, as the JAX scan returns them."""
+    (MLA: the latent and the rope key), the rwkv and mamba2 states cast
+    to the cache's dtype and the float32 carries (rwkv's token shifts,
+    mamba2's convolution state), as the JAX scan returns them."""
     x = embed_inputs(cfg, params, token)
     pos = L._decode_pos(pos, x.shape[0], x.device)
     for i, seg in enumerate(segments(cfg)):
@@ -369,6 +445,27 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
                 c_l["wkv"].copy_(wkv)
                 c_l["tm_x"].copy_(tm_x)
                 c_l["cm_x"].copy_(cm_x)
+        elif seg.kind == "hybrid":
+            shared = params["shared_attn"]
+            for p_u, c_u in zip(_layers(p_stack, seg.n),
+                                _layers(c_stack, seg.n)):
+                for p_m, c_m in zip(
+                        _layers(p_u, cfg.hybrid_attn_every),
+                        _layers(c_u["mamba"], cfg.hybrid_attn_every)):
+                    h, (conv, ssm) = M2.mamba2_decode(
+                        p_m["m"], cfg.ssm,
+                        L.rms_norm(x, p_m["ln"], cfg.rms_eps),
+                        c_m["conv"], c_m["ssm"].float())
+                    x = x + h
+                    c_m["conv"].copy_(conv)
+                    c_m["ssm"].copy_(ssm)
+                h = _attn_decode(cfg, shared["attn"],
+                                 L.rms_norm(x, shared["ln1"], cfg.rms_eps),
+                                 c_u["attn"], pos)
+                x = x + h
+                x = x + L.mlp(shared["mlp"],
+                              L.rms_norm(x, shared["ln2"], cfg.rms_eps),
+                              cfg.activation)
         else:
             raise ValueError(seg.kind)
     return _head(cfg, params, x), cache
@@ -402,21 +499,32 @@ def _write_entries(cfg, seg: Segment, bufs, ent):
         for k in bufs:
             bufs[k].copy_(ent[k].to(dtype))
         return bufs
+    if seg.kind == "hybrid":
+        dtype = bufs["mamba"]["ssm"].dtype   # the cache dtype
+        for k, b in bufs["mamba"].items():
+            b.copy_(ent["mamba"][k].to(dtype))
+        for k, b in bufs["attn"].items():
+            _seq_write(b, ent["attn"][k], cfg.attention.window)
+        return bufs
     raise ValueError(seg.kind)
 
 
-def prefill_cache(cfg: ModelConfig, params, tokens, cache):
-    """Fused prefill: one forward over the prompt computes the
-    full-sequence logits AND writes the whole prompt's K/V (or the
-    final rwkv state) into the decode cache.
+def prefill_cache(cfg: ModelConfig, params, tokens, cache,
+                  prefix_embed=None):
+    """Fused prefill: one forward over the prompt (after the prefix
+    embeddings [B,P,D], when given) computes the full-sequence logits
+    AND writes the whole prompt's K/V (or the final rwkv / mamba2
+    states) into the decode cache.
 
     tokens: [B,S] with B matching the cache batch.  Returns (logits
-    [B,S,V], cache) positioned so ``decode_step`` continues at pos = S.
+    [B,P+S,V], cache) positioned so ``decode_step`` continues at
+    pos = P + S.
     """
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, prefix_embed)
     positions = torch.arange(x.shape[1], device=x.device)
     for i, seg in enumerate(segments(cfg)):
         x, _, ent = _run_segment(cfg, seg, params[f"seg_{i}"], x,
-                                 positions, collect_cache=True)
+                                 positions, collect_cache=True,
+                                 shared=params.get("shared_attn"))
         cache[f"seg_{i}"] = _write_entries(cfg, seg, cache[f"seg_{i}"], ent)
     return _head(cfg, params, x), cache

@@ -754,7 +754,8 @@ def test_standalone_gram_pass_within_its_gate(m, d):
 # (B, H, Hkv, S, D, window, dtype): the qwen3-0.6b prefill (batch 4, and
 # batch 1 at the serve loop's 512 and 256 buckets), a ragged S, a window, D = 64 and 80, and bfloat16; S = 5 (below one mma tile), S one
 # past a 128-row query tile and a 64-row key tile, groups 1, 2 and 8, and
-# every D in both types
+# every D in both types (96: phi-3-vision-4.2b's prefill of 576 patches
+# and 512 tokens)
 FLASH_CASES = [(4, 16, 8, 512, 128, 0, torch.float32),
                (1, 16, 8, 512, 128, 0, torch.float32),
                (1, 16, 8, 256, 128, 0, torch.float32),
@@ -768,7 +769,9 @@ FLASH_CASES = [(4, 16, 8, 512, 128, 0, torch.float32),
                (1, 16, 2, 129, 128, 0, torch.float32),
                (1, 8, 1, 191, 128, 100, torch.float32),
                (1, 4, 2, 65, 80, 0, torch.bfloat16),
-               (2, 8, 4, 300, 64, 48, torch.bfloat16)]
+               (2, 8, 4, 300, 64, 48, torch.bfloat16),
+               (4, 32, 32, 1088, 96, 0, torch.float32),
+               (2, 8, 4, 211, 96, 48, torch.bfloat16)]
 # (B, H, Q, K, log-decay range): rwkv6-7b's chunk with w in (e^-1, 1),
 # w down to e^-3 (the clamps bite), a ragged last chunk, K = 32
 WKV_CASES = [(4, 64, 64, 64, 1.0), (4, 64, 64, 64, 3.0),
@@ -1094,11 +1097,12 @@ def _neg(tree):
 # ---------------------------------------------------------------------------
 
 # (B, H, Hkv, S, D, window): the launcher's train shape, a ragged S with a
-# window, D = 64 and 80, S = 5, S one past a tile, groups 1, 2 and 8
+# window, D = 64 and 80, S = 5, S one past a tile, groups 1, 2 and 8;
+# D = 96 at phi-3-vision-4.2b's gradient shape
 FLASH_BWD_CASES = [(2, 16, 8, 128, 128, 0), (1, 16, 8, 200, 128, 64),
                    (2, 8, 4, 300, 64, 0), (1, 8, 8, 256, 80, 0),
                    (2, 4, 4, 5, 64, 0), (1, 16, 2, 65, 128, 0),
-                   (1, 8, 1, 129, 128, 100)]
+                   (1, 8, 1, 129, 128, 100), (2, 32, 32, 704, 96, 0)]
 # (B, S, H, K, log-decay range): rwkv6-7b's train shape, S around one
 # chunk, K = 32, w down to e^-3 where the clamps bite
 WKV_BWD_CASES = [(2, 128, 64, 64, 1.0), (2, 128, 64, 64, 3.0),
@@ -1140,7 +1144,7 @@ def flash_bwd_tol(S):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("D", [64, 80, 96, 128])
 @pytest.mark.parametrize("win", [0, 48])
 @pytest.mark.parametrize("S", [211, 1000])
 def test_flash_attention_backward_at_every_head_dim(D, win, S):

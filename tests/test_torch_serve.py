@@ -23,7 +23,7 @@ from repro.configs import get_config as j_get_config
 from repro.models import params as JPM
 from repro.models import transformer as JTF
 from repro_torch.configs import get_config
-from repro_torch.configs.base import AttentionSpec, ModelConfig
+from repro_torch.configs.base import AttentionSpec, ModelConfig, SSMSpec
 from repro_torch.launch import serve
 from repro_torch.models import params as TPM
 from repro_torch.models import transformer as TTF
@@ -151,8 +151,14 @@ def test_serve_defaults_to_the_card():
 
 
 def test_unported_segments_raise():
+    """The hybrid segment is ported; a hybrid config whose n_layers is
+    not a multiple of hybrid_attn_every raises, as the reference
+    asserts."""
     att = AttentionSpec(n_heads=4, n_kv_heads=2, head_dim=16)
-    hyb = ModelConfig("h", "hybrid", 4, 64, 128, 64, att,
+    hyb = ModelConfig("h", "hybrid", 5, 64, 128, 64, att,
+                      ssm=SSMSpec(state_dim=8, head_dim=8),
                       hybrid_attn_every=2)
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    with pytest.raises(ValueError, match="not a multiple"):
         TTF.param_defs(hyb)
+    defs = TTF.param_defs(dataclasses.replace(hyb, n_layers=4))
+    assert defs["seg_0"]["m"]["w_x"].shape == (2, 2, 64, 128)

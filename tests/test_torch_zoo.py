@@ -307,9 +307,9 @@ def test_wrapper_refuses_a_pair_without_an_instance():
     """The pairs with a kernel instance; any other (D, Dv) raises before
     the device is looked at, a listed pair on the CPU names the plain
     path."""
-    assert fa_kern.SUPPORTED_PAIRS == ((64, 64), (80, 80), (128, 128),
-                                       (96, 64), (192, 128))
-    for D, Dv in ((96, 96), (48, 32), (64, 32), (128, 64), (192, 192)):
+    assert fa_kern.SUPPORTED_PAIRS == ((64, 64), (80, 80), (96, 96),
+                                       (128, 128), (96, 64), (192, 128))
+    for D, Dv in ((112, 112), (48, 32), (64, 32), (128, 64), (192, 192)):
         q = torch.zeros(1, 2, 8, D)
         with pytest.raises(ValueError, match="no kernel instance"):
             fa_kern.flash_attention(q, q, torch.zeros(1, 2, 8, Dv))

@@ -15,7 +15,7 @@ compare kernels on one card.
 Phases (any failure exits non-zero; nothing is caught and carried on),
 in this order: 1, 2's start, B6 / B7 of 3, 3b, 7 but its profile, 7e's
 and 7g's serve (their libraries build in seconds), 2's end, 3, 4, 5, 6,
-7's profile, 7b, 7c, 7d, 7e's and 7g's train steps, 7f, 8, 9 (the BrSGD
+7's profile, 7b, 7c, 7d, 7h, 7e's and 7g's train steps, 7f, 8, 9 (the BrSGD
 libraries
 take minutes to build, which the first phases use; no torch.profiler
 session runs before every library is loaded):
@@ -238,6 +238,33 @@ session runs before every library is loaded):
      B6-bwd launches, the launch held on column blocks); card = CPU
      steps of the three at reduced() (the frontends with their 8 prefix
      embeddings);
+  7h. the blocked scope on one card (training/step.py, agg_scope
+     "blocked": every bucket aggregated inside one layer-major backward,
+     core/blocked.py): qwen3-0.6b at full width through
+     launch.train.main (m = 20 workers of 2 x 128, brsgd under sign_flip
+     at 0.25, adamw, --agg-scope blocked --remat block): a warm-up and 3
+     timed steps, each 29 brsgd launches (28 layer buckets and the top),
+     1,120 B6 (remat) and 560 B6-bwd launches and nothing else, every
+     aggregate finite, at most two buckets' rows live at once (the top
+     one and one layer's: the lockstep of the layer-major backward), the
+     plain versions of B6 / B7 and of the aggregation refusing the card;
+     host ms (median), the timed steps'
+     peak memory (below phase 7d's global-scope peak), n_selected and
+     n_selected_min; on the warm-up, the last layer's bucket held against
+     the plain brsgd on its rows (scores, 𝔗, masks exact, l1 within
+     1e-5, the aggregate bit-equal) and the top bucket's [20, 155.6M]
+     launch on column blocks as in 7d; rwkv6-7b at full width (m = 4,
+     sgd): a warm-up and 1 timed step, 33 brsgd, 256 B7 and 128 B7-bwd
+     launches a step, every aggregate finite, host ms and peak memory;
+     card = CPU at m = 4 (qwen3-0.6b cut to 2 layers under brsgd, reduced
+     under median and krum; rwkv6-7b reduced under brsgd): every bucket's
+     selection, n_selected and n_selected_min exact, the loss within
+     1e-5, params within 1e-4 of the largest |Δp|, one aggregation
+     launch a bucket;
+     a guarded blocked step under the supervisor (qwen3-0.6b cut to 2
+     layers, m = 8, a nan_burst on worker 7): held with params the
+     input's bits and worker 7 evicted, then ok on 7 workers, one masked
+     combine a bucket; each sub-phase's seconds;
   7f. the demo twins on the card: paper.train_100m --full for 3 steps
      (the ~100M qwen3 config, m = 8 workers of 4 x 512 tokens; 1 brsgd,
      96 B6 and 96 B6-bwd launches a step; the loss falls),
@@ -272,7 +299,8 @@ session runs before every library is loaded):
      plain versions' autograd backward; every BrSGD kernel's device time at m = 10, 12,
      16, 32, 33, 63 and 64 (12, 33 and 63 on bucket instances) at d =
      61706 and 8388608;
-  9. the {"gradient": [...]}, {"train": {...}}, {"zoo": ..., "demos": ...},
+  9. the {"gradient": [...]}, {"train": {...}}, {"blocked": {...}},
+     {"zoo": ..., "demos": ...},
      {"hybrid_frontends": {...}},
      {"phase_seconds": {...}} and {"kernels": [...]} lines (a
      {"phase": ..., "seconds": ...} line also ends each phase), the
@@ -3429,6 +3457,439 @@ def phase_train(torch):
 
 
 # ---------------------------------------------------------------------------
+# 7h. the blocked scope on one card: every bucket aggregated in the backward
+# ---------------------------------------------------------------------------
+
+# qwen3-0.6b at phase 7d's configuration (m = 20 of 2 x 128, brsgd under
+# sign_flip at 0.25, adamw) and rwkv6-7b at full width (m = 4, sgd), both
+# with --agg-scope blocked --remat block through launch.train.main
+BLOCKED_ARGS = ("--agg-scope", "blocked", "--remat", "block")
+BLOCKED_RWKV_ARCH, BLOCKED_RWKV_M, BLOCKED_RWKV_STEPS = "rwkv6-7b", 4, 1
+# card = CPU at m = 4 from the same params and tokens, sgd at lr 1, with
+# remat: qwen3-0.6b at full width cut to 2 layers under brsgd, and reduced
+# (2 layers, d 256) under median and krum: at full width the CPU's plain
+# statistics over the 155.6M-column top bucket took 13-19 s a rule, and
+# the script went past 800 s on a slower host; rwkv6-7b reduced under
+# brsgd (at full width its 2 layers hold 0.98 B params, too many for the
+# CPU's plain statistics, as in phase 7d)
+BLOCKED_CPU_CASES = (("qwen3-0.6b", 2, "brsgd"), ("qwen3-0.6b", None, "median"),
+                     ("qwen3-0.6b", None, "krum"), ("rwkv6-7b", None, "brsgd"))
+# the guarded blocked step under the supervisor: qwen3-0.6b at full width
+# cut to 2 layers, m = 8 (worker TRAIN_FAULT_WORKER's NaN burst)
+BLOCKED_SUP_LAYERS, BLOCKED_SUP_M = 2, 8
+# the card's plain aggregation versions, made to raise during a blocked step
+AGG_PLAIN = ("brsgd_aggregate_plain", "select_aggregate_plain",
+             "fused_stats_ref", "masked_mean_det", "cwise_median_ref",
+             "trimmed_mean_ref", "brsgd_stats_ref")
+
+
+@contextlib.contextmanager
+def _blocked_probe(torch, holds=None):
+    """Wraps every bucket's aggregation in the blocked step: the
+    aggregate's finiteness (a device flag, read by the caller), each
+    call's bucket and n_selected, and, while ``holds`` is set, the
+    plain versions of the aggregation made to raise on the card.
+    ``holds`` maps a bucket (name, layer) to a check run on its rows and
+    result right after the launch (the plain versions allowed there)."""
+    from repro_torch.core import blocked
+    from repro_torch.kernels import ref
+    seen = {"finite": None, "calls": [], "held": {}, "guard": True,
+            "rounds": {}}
+    saved_plain = {n: getattr(ref, n) for n in AGG_PLAIN}
+    agg_rows, finish = blocked.aggregate_rows, blocked._Bucket.finish
+
+    def guard(name, fn):
+        def call(*args, **kw):
+            if seen["guard"] and any(torch.is_tensor(a) and a.is_cuda
+                                     for a in args):
+                raise RuntimeError(f"{name}: the plain version was called "
+                                   f"on the card")
+            return fn(*args, **kw)
+        return call
+
+    def finish_probe(self):
+        seen["bucket"] = (self.name, self.layer)
+        seen["rounds"][id(self.rnd)] = self.rnd
+        return finish(self)
+
+    def aggregate(rows, bcfg, valid=None):
+        agg, st = agg_rows(rows, bcfg, valid)
+        ok = torch.isfinite(agg).all()
+        seen["finite"] = ok if seen["finite"] is None else seen["finite"] & ok
+        seen["calls"].append(seen["bucket"])
+        check = (holds or {}).get(seen["bucket"])
+        if check is not None and seen["bucket"] not in seen["held"]:
+            seen["guard"] = False
+            try:
+                seen["held"][seen["bucket"]] = check(rows, agg, st, bcfg)
+            finally:
+                seen["guard"] = True
+        return agg, st
+    for n, fn in saved_plain.items():
+        setattr(ref, n, guard(n, fn))
+    blocked.aggregate_rows, blocked._Bucket.finish = aggregate, finish_probe
+    try:
+        yield seen
+    finally:
+        blocked.aggregate_rows, blocked._Bucket.finish = agg_rows, finish
+        for n, fn in saved_plain.items():
+            setattr(ref, n, fn)
+
+
+def _hold_layer_bucket(torch, rows, agg, st, bcfg) -> dict:
+    """One layer bucket's brsgd launch against the plain version on the
+    same rows, whole: scores, 𝔗, the masks and the weights exact, l1
+    within REL_TOL (summed in another order), the aggregate bit-equal."""
+    from repro_torch.kernels import ref
+    plain = ref.brsgd_aggregate_plain(rows, bcfg.beta, bcfg.threshold)
+    res = {"shape": list(rows.shape),
+           "scores_equal": bool(torch.equal(st.scores, plain.scores)),
+           "l1_rel_err": float((st.l1 - plain.l1).abs().max()
+                               / plain.l1.abs().max()),
+           "threshold_equal": bool(torch.equal(st.threshold.float(),
+                                               plain.threshold.float())),
+           "masks_equal": bool(torch.equal(st.selected, plain.selected)
+                               and torch.equal(st.c1, plain.c1)
+                               and torch.equal(st.c2, plain.c2)),
+           "aggregate_equal": bool(torch.equal(agg, plain.agg)),
+           "n_selected": int(st.selected.sum())}
+    if not (res["scores_equal"] and res["l1_rel_err"] <= REL_TOL
+            and res["threshold_equal"] and res["masks_equal"]
+            and res["aggregate_equal"]):
+        fail(f"blocked step: the layer bucket's brsgd launch disagrees with "
+             f"its plain version: {res}")
+    return res
+
+
+def _hold_top_bucket(torch, rows, agg, st, bcfg) -> dict:
+    """The top bucket's launch held on column blocks, as phase 7d holds
+    the global launch (``_hold_launch_on_blocks``)."""
+    blocks = {a: agg[a:a + TRAIN_SAMPLE_COLUMNS]
+              for a in _sample_starts(torch, agg.numel())}
+    return _hold_launch_on_blocks(torch, rows, st, blocks, bcfg.beta,
+                                  bcfg.threshold)
+
+
+def _blocked_full_width(torch, ops, arch, m, optimizer, steps, want,
+                        holds=None):
+    """``launch.train.main`` with --agg-scope blocked --remat block at
+    full width for ``steps`` + 1 steps (the first a warm-up, where the
+    ``holds`` run), each held to ``want`` launches and to finite
+    aggregates with no plain version on the card; host ms (median of the
+    timed steps), the peak memory of the timed steps, n_selected and
+    n_selected_min."""
+    from repro_torch.launch import train
+    from repro_torch.training import step as step_mod
+    res = {"check": "blocked_train_step", "entry": "launch.train.main",
+           "arch": arch, "workers": m, "batch_per_worker": TRAIN_B,
+           "seq": TRAIN_S, "optimizer": optimizer}
+    rows, last = [], {}
+    build = step_mod.build_train_step
+
+    def build_timed(*args, **kw):
+        bundle = build(*args, **kw)
+        last["bundle"] = bundle
+
+        def step_fn(*a):
+            s = len(rows)
+            seen["finite"] = None
+            seen["calls"].clear()
+            seen["rounds"].clear()
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            if s:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = bundle.step_fn(*a)
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            _check_step_launches(f"blocked {arch} step {s}", ops.launches(),
+                                 ops.copies(), want)
+            met = out[2]
+            finite = bool(seen["finite"])
+            if not (finite and all(math.isfinite(met[k])
+                                   for k in ("loss", "gnorm"))):
+                fail(f"blocked {arch} step {s}: aggregates finite {finite}, "
+                     f"metrics {met}")
+            (rnd,) = seen["rounds"].values()
+            live = sorted(f"{n}/{l}" for n, l in rnd.peak_live)
+            if len(live) != 2 or "top/0" not in live:
+                fail(f"blocked {arch} step {s}: the backward held the rows "
+                     f"of {live} at once (lockstep: the top bucket and one "
+                     f"layer)")
+            rows.append({"step": s, "host_ms": host, "loss": met["loss"],
+                         "gnorm": met["gnorm"],
+                         "n_selected": met["n_selected"],
+                         "n_selected_min": met["n_selected_min"],
+                         "buckets": len(seen["calls"]), "peak_live": live,
+                         "peak_device_gb": torch.cuda.max_memory_allocated()
+                         / 1e9})
+            return out
+        return bundle._replace(step_fn=step_fn)
+    argv = ["--arch", arch, "--workers", str(m), "--steps", str(steps + 1),
+            "--batch-per-worker", str(TRAIN_B), "--seq", str(TRAIN_S),
+            "--attack", TRAIN_ATTACK["attack"],
+            "--alpha", str(TRAIN_ATTACK["alpha"]), "--optimizer", optimizer,
+            *BLOCKED_ARGS]
+    torch.cuda.empty_cache()
+    step_mod.build_train_step = build_timed
+    try:
+        with _plain_versions_refuse_the_card(torch), \
+                _blocked_probe(torch, holds) as seen:
+            history = train.main(argv)
+    finally:
+        step_mod.build_train_step = build
+    bundle = last.pop("bundle")
+    timed = sorted(rows[1:], key=lambda r: r["host_ms"])
+    res.update(argv=argv, scope=bundle.scope, layout=bundle.layout,
+               host_ms=timed[len(timed) // 2]["host_ms"],
+               host_ms_runs=[r["host_ms"] for r in rows[1:]],
+               warmup_host_ms=rows[0]["host_ms"],
+               peak_device_gb=max(r["peak_device_gb"] for r in rows[1:]),
+               card_gb=torch.cuda.get_device_properties(0).total_memory / 1e9,
+               steps=rows, launches_per_step=want, held=dict(
+                   (f"{n}/{l}", v) for (n, l), v in seen["held"].items()))
+    if (bundle.scope != "blocked" or len(rows) != steps + 1
+            or [h["step"] for h in history] != list(range(steps + 1))
+            or any(r["n_selected_min"] > r["n_selected"] for r in rows)
+            or (holds and set(seen["held"]) != set(holds))):
+        fail(f"blocked {arch}: {res}")
+    del bundle
+    torch.cuda.empty_cache()
+    return res
+
+
+def _blocked_card_vs_cpu(torch, arch, n_layers, rule) -> dict:
+    """The blocked step of ``arch`` at full width cut to ``n_layers``
+    (None: reduced) at TRAIN_CPU_M workers under ``rule``, sgd at lr 1,
+    remat, on the card and on the host CPU from the same params and
+    batch: every bucket's selection and n_selected exact, the loss within
+    GRAD_CPU_TOL, the params within TRAIN_CPU_PARAM_TOL of the largest
+    |Δp|; the card's step held to one aggregation launch a bucket."""
+    import dataclasses
+    from repro_torch.configs import ByzantineConfig, TrainConfig, get_config
+    from repro_torch.data import pipeline as PL
+    from repro_torch.kernels import ops
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import build_train_step
+    cfg = get_config(arch)
+    cfg = (cfg.reduced() if n_layers is None
+           else dataclasses.replace(cfg, n_layers=n_layers))
+    bcfg = ByzantineConfig(aggregator=rule, **TRAIN_ATTACK)
+    tcfg = TrainConfig(model=cfg, byzantine=bcfg, optimizer="sgd", lr=1.0,
+                       agg_scope="blocked", remat="block")
+    m = TRAIN_CPU_M
+    p_gpu = PM.init_params(TF.param_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(2), device="cuda")
+    p_cpu = _tree_to(p_gpu, "cpu")
+    p0 = [p.clone() for p in PM.tree_leaves(p_cpu)]
+    batch = PL.LMWorkerPipeline(cfg, m, 1, GRAD_CPU_SEQ, seed=4,
+                                byz=bcfg).batch(0)
+    fwd, bwd = GRAD_KERNELS[TF.segments(cfg)[0].kind]
+    n_b = sum(s.n for s in TF.segments(cfg)) + 1
+    agg_kernel = {"brsgd": "brsgd_aggregate", "median": "cwise_median",
+                  "krum": "select_aggregate"}[rule]
+    n = m * _attn_apps(cfg)
+    want = {agg_kernel: n_b, fwd: 2 * n, bwd: n}
+    out = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        sel = []
+        with _plain_versions_refuse_the_card(torch), \
+                _blocked_probe(torch) as seen:
+            from repro_torch.core import blocked
+            agg_rows = blocked.aggregate_rows
+
+            def record(rows, bcfg, valid=None):
+                agg, st = agg_rows(rows, bcfg, valid)
+                sel.append(st.selected.cpu())
+                return agg, st
+            blocked.aggregate_rows = record
+            try:
+                bundle = build_train_step(tcfg, m, dev)
+                ops.reset_launches()
+                _, _, met = bundle.step_fn(p, (), batch, 0, None)
+            finally:
+                blocked.aggregate_rows = agg_rows
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                _check_step_launches(f"blocked card vs CPU {cfg.name} {rule}",
+                                     ops.launches(), ops.copies(), want)
+        out[dev] = {"met": met, "sel": sel, "calls": list(seen["calls"]),
+                    "params": [t.cpu() for t in PM.tree_leaves(p)]}
+        del bundle
+    c, g = out["cpu"], out["cuda"]
+    dp = max(float((q - p).abs().max()) for q, p in zip(c["params"], p0))
+    perr = max(float((q - p).abs().max())
+               for q, p in zip(g["params"], c["params"]))
+    res = {"check": "blocked_card_vs_cpu", "arch": cfg.name, "rule": rule,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "workers": m,
+           "seq": GRAD_CPU_SEQ, "buckets": len(c["calls"]),
+           "calls_equal": c["calls"] == g["calls"],
+           "selections_equal": len(c["sel"]) == len(g["sel"]) == n_b and all(
+               torch.equal(a, b) for a, b in zip(c["sel"], g["sel"])),
+           "n_selected": [c["met"]["n_selected"], g["met"]["n_selected"]],
+           "n_selected_min": [c["met"]["n_selected_min"],
+                              g["met"]["n_selected_min"]],
+           "loss_rel_err": abs(g["met"]["loss"] - c["met"]["loss"])
+           / abs(c["met"]["loss"]),
+           "params_err_over_max_dp": perr / dp, "card_launches": want,
+           "tol": {"loss": GRAD_CPU_TOL[0], "params": TRAIN_CPU_PARAM_TOL}}
+    if not (res["calls_equal"] and res["selections_equal"]
+            and res["n_selected"][0] == res["n_selected"][1]
+            and res["n_selected_min"][0] == res["n_selected_min"][1]
+            and res["loss_rel_err"] <= GRAD_CPU_TOL[0]
+            and res["params_err_over_max_dp"] <= TRAIN_CPU_PARAM_TOL):
+        fail(f"blocked step card vs CPU {cfg.name} {rule}: {res}")
+    return res
+
+
+def _blocked_supervised(torch, ops) -> dict:
+    """The guarded blocked step under the supervisor, qwen3-0.6b at full
+    width cut to BLOCKED_SUP_LAYERS layers, m = BLOCKED_SUP_M (quorum m),
+    a nan_burst on worker TRAIN_FAULT_WORKER: the first step held (params
+    the input's bits) and the worker evicted, the second ok on the rest
+    (a quorum shrink).  Launches: every worker's forward and backward
+    launch a layer on the held step, the evicted worker's forward alone
+    on the next, and one masked combine (B3) a bucket."""
+    import dataclasses
+    from repro_torch.configs import (ByzantineConfig, RecoveryConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.data import pipeline as PL
+    from repro_torch.faults import (ChaosPlan, FaultEvent, Supervisor,
+                                    Trigger)
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import build_train_step, step_generator
+    m, L = BLOCKED_SUP_M, BLOCKED_SUP_LAYERS
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=L)
+    bcfg = ByzantineConfig(max_m=m, quorum=m, **TRAIN_ATTACK)
+    tcfg = TrainConfig(model=cfg, byzantine=bcfg, optimizer="sgd",
+                       agg_scope="blocked",
+                       recovery=RecoveryConfig(guard=True))
+    params = PM.init_params(TF.param_defs(cfg), torch.Generator(
+        device="cuda").manual_seed(3), device="cuda")
+    bundle = build_train_step(tcfg, m, "cuda")
+    sup = Supervisor(bundle.step_fn, bcfg, tcfg.recovery, m, like=params)
+    plan = ChaosPlan([FaultEvent("nan_burst", Trigger(at=0, duration=2),
+                                 workers=(TRAIN_FAULT_WORKER,))], m, 2)
+    pipe = PL.LMWorkerPipeline(cfg, m, TRAIN_B, TRAIN_S, seed=tcfg.seed,
+                               byz=bcfg)
+    rows, opt_state = [], bundle.opt_init(params)
+    with _plain_versions_refuse_the_card(torch), \
+            _blocked_probe(torch) as seen:
+        for s in range(2):
+            before = [p.clone() for p in PM.tree_leaves(params)]
+            seen["calls"].clear()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            params, opt_state, met = sup.run_step(
+                params, opt_state, pipe.batch(s), s,
+                step_generator(0, s, "cuda"), faults=plan.grad_faults(s))
+            torch.cuda.synchronize()
+            rows.append({"step": s, "host_ms": (time.perf_counter() - t0)
+                         * 1e3, "held": met.get("held"),
+                         "step_ok": met["step_ok"],
+                         "n_active": met["n_active"],
+                         "n_selected": met["n_selected"],
+                         "n_selected_min": met["n_selected_min"],
+                         "buckets": len(seen["calls"]),
+                         "params_unchanged": all(torch.equal(a, b) for a, b
+                                                 in zip(before,
+                                                        PM.tree_leaves(
+                                                            params))),
+                         "launches": {k: v for k, v in
+                                      ops.launches().items() if v}})
+            del before
+    a, b = rows
+    want_a = {"flash_attention": m * L, "flash_attention_bwd": m * L,
+              "masked_mean": L + 1}
+    want_b = {"flash_attention": m * L, "flash_attention_bwd": (m - 1) * L,
+              "masked_mean": L + 1}
+    res = {"check": "blocked_supervised", "arch": cfg.name, "n_layers": L,
+           "workers": m, "rows": rows,
+           "summary": {k: v for k, v in sup.summary().items()
+                       if k != "events"}}
+    if not (a["held"] == "nonfinite" and a["params_unchanged"]
+            and a["launches"] == want_a
+            and sup.evicted[TRAIN_FAULT_WORKER] and sup.evictions == 1
+            and b["step_ok"] == 1.0 and not b["params_unchanged"]
+            and b["n_active"] == m - 1 and sup.quorum_shrinks == 1
+            and b["launches"] == want_b
+            and b["n_selected_min"] <= b["n_selected"]):
+        fail(f"blocked step under the supervisor: {res} (launches should be "
+             f"{want_a}, then {want_b})")
+    del bundle, params, opt_state, sup
+    return res
+
+
+def phase_blocked(torch, global_peak_gb):
+    """Phase 7h: the blocked scope on one card.  qwen3-0.6b at full width
+    with m = TRAIN_M through launch.train.main (--agg-scope blocked
+    --remat block): 29 brsgd launches a step (28 layer buckets and the
+    top), B6 twice a layer a worker (remat) and B6-bwd once, no plain
+    version on the card, its peak below phase 7d's global-scope peak
+    ``global_peak_gb``; a layer bucket's launch held against the plain
+    version on its rows and the top bucket's on column blocks (warm-up
+    step).  rwkv6-7b at full width with m = BLOCKED_RWKV_M, sgd: 33 brsgd
+    launches a step, B7 twice a layer a worker and B7-bwd once, every
+    aggregate finite.  Then card = CPU and the supervisor.  Returns the
+    results and the launches of the full-width steps and the supervised
+    ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    sub = {}
+    cfg = get_config(TRAIN_ARCH)
+    L, m = cfg.n_layers, TRAIN_M
+    want = {"brsgd_aggregate": L + 1, "flash_attention": 2 * m * L,
+            "flash_attention_bwd": m * L}
+    t0 = time.perf_counter()
+    qwen = _blocked_full_width(
+        torch, ops, TRAIN_ARCH, m, "adamw", TRAIN_STEPS, want,
+        holds={("seg_0", L - 1): lambda *a: _hold_layer_bucket(torch, *a),
+               ("top", 0): lambda *a: _hold_top_bucket(torch, *a)})
+    qwen["global_scope_peak_device_gb"] = global_peak_gb
+    sub["qwen3_full_width"] = time.perf_counter() - t0
+    if qwen["peak_device_gb"] >= global_peak_gb:
+        fail(f"blocked qwen3 peak {qwen['peak_device_gb']} GB is not below "
+             f"the global scope's {global_peak_gb} GB")
+    emit(qwen)
+    rcfg = get_config(BLOCKED_RWKV_ARCH)
+    Lr, mr = rcfg.n_layers, BLOCKED_RWKV_M
+    want_r = {"brsgd_aggregate": Lr + 1, "wkv6_seq": 2 * mr * Lr,
+              "wkv6_seq_bwd": mr * Lr}
+    t0 = time.perf_counter()
+    rwkv = _blocked_full_width(torch, ops, BLOCKED_RWKV_ARCH, mr, "sgd",
+                               BLOCKED_RWKV_STEPS, want_r)
+    sub["rwkv6_full_width"] = time.perf_counter() - t0
+    emit(rwkv)
+    cpu = []
+    t0 = time.perf_counter()
+    for arch, n_layers, rule in BLOCKED_CPU_CASES:
+        r = _blocked_card_vs_cpu(torch, arch, n_layers, rule)
+        emit(r)
+        cpu.append(r)
+        torch.cuda.empty_cache()
+    sub["card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sup = _blocked_supervised(torch, ops)
+    sub["supervised"] = time.perf_counter() - t0
+    emit(sup)
+    torch.cuda.empty_cache()
+    emit({"phase": "blocked", "sub_seconds": sub})
+    launches = {}
+    for per_step, n in ((want, TRAIN_STEPS + 1),
+                        (want_r, BLOCKED_RWKV_STEPS + 1)):
+        for k, v in per_step.items():
+            launches[k] = launches.get(k, 0) + v * n
+    for r in sup["rows"]:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"qwen3": qwen, "rwkv6": rwkv, "card_vs_cpu": cpu,
+            "supervised": sup, "sub_seconds": sub}, launches
+
+
+# ---------------------------------------------------------------------------
 # 7e. the zoo configs at full width: dense, MLA, and the MoE segment
 # ---------------------------------------------------------------------------
 
@@ -4818,6 +5279,8 @@ def main() -> int:
         "serve_loop", phase_serve_loop, torch, ref, worst)
     grad_res, grad_launches = timed("grad", phase_grad, torch)
     train_res, train_launches = timed("train", phase_train, torch)
+    blocked_res, blocked_launches = timed(
+        "blocked", phase_blocked, torch, train_res[0]["peak_device_gb"])
     zoo = timed("zoo_train", phase_zoo_train, torch, zoo)
     hf = timed("hybrid_train", phase_hybrid_train, torch, hf)
     demos = timed("demos", phase_demos, torch)
@@ -4849,7 +5312,8 @@ def main() -> int:
                "hbm_bound_ms": h["bound_ms"], "hbm_plain_ms": h["plain_ms"],
                "hbm_library_ms": h["library_ms"],
                "worker_counts_device_ms": bucket_t[key],
-               "train_launches": train_launches.get(name, 0)}
+               "train_launches": train_launches.get(name, 0),
+               "blocked_launches": blocked_launches.get(name, 0)}
         if name == "brsgd_aggregate":
             row.update(also_replaces=ALSO_REPLACES[name],
                        grid=t["grid"], resident=t["resident"],
@@ -4917,6 +5381,7 @@ def main() -> int:
                "serve_loop_launches": loop_launches[name],
                "serve_loop_launches_per_admission": per_admission[name],
                "train_launches": train_launches.get(name, 0),
+               "blocked_launches": blocked_launches.get(name, 0),
                "max_abs_err": worst[name], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -4959,6 +5424,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": grad_launches[name],
             "train_launches": train_launches.get(name, 0),
+            "blocked_launches": blocked_launches.get(name, 0),
             "launches_per_gradient": {
                 f"{r['arch']} [{r['batch']},{r['seq']}]"
                 f"{' remat' if r['remat'] else ''}": r["launches"].get(name)
@@ -5015,6 +5481,22 @@ def main() -> int:
                         "held", "step_ok", "n_active", "host_ms")}
                         for r in sup["rows"]],
                     "supervised_peak_device_gb": sup["peak_device_gb"]}})
+    q, r = blocked_res["qwen3"], blocked_res["rwkv6"]
+    emit({"blocked": {
+        a: {k: x[k] for k in ("arch", "workers", "optimizer", "host_ms",
+                              "host_ms_runs", "warmup_host_ms",
+                              "peak_device_gb", "launches_per_step")}
+        | {"n_selected": [s["n_selected"] for s in x["steps"]],
+           "n_selected_min": [s["n_selected_min"] for s in x["steps"]]}
+        for a, x in (("qwen3", q), ("rwkv6", r))}
+        | {"global_scope_peak_device_gb": q["global_scope_peak_device_gb"],
+           "card_vs_cpu": [{k: c[k] for k in (
+               "arch", "rule", "n_layers", "n_selected", "loss_rel_err",
+               "params_err_over_max_dp")} for c in blocked_res["card_vs_cpu"]],
+           "supervised": [{k: x[k] for k in ("held", "step_ok", "n_active",
+                                             "n_selected", "host_ms")}
+                          for x in blocked_res["supervised"]["rows"]],
+           "sub_seconds": blocked_res["sub_seconds"]}})
     emit({"zoo": {"serve": zoo["serve"],
                   "serve_loop": {k: zoo["serve_loop"][k] for k in (
                       "decode_tok_s", "step_ms_median", "tok_s", "requests",

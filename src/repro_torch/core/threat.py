@@ -257,7 +257,25 @@ def _column_blocks(d: int, block: int):
     return [(a, min(a + block, d)) for a in range(0, d, block)]
 
 
-def apply_dense_(G, generator, cfg: ByzantineConfig, active=None):
+def step_membership(cfg: ByzantineConfig, m: int, generator, active=None,
+                    device=None):
+    """The [m] byzantine mask of one step, drawn once (from ``generator``
+    under "resample"; over the active set in an elastic round), or None
+    when no gradient attack fires: the blocked scope hands it to every
+    bucket's :func:`apply_dense_` so that all buckets corrupt the same
+    workers, as the reference's ``membership_key`` does."""
+    if not is_gradient_attack(cfg):
+        return None
+    if active is None:
+        if n_byzantine(cfg, m) == 0:
+            return None
+        return membership_mask(cfg, m, generator, device=device)
+    return membership_mask(cfg, m, generator,
+                           active=torch.as_tensor(active).to(device))
+
+
+def apply_dense_(G, generator, cfg: ByzantineConfig, active=None,
+                 membership=None):
     """Corrupt the byzantine rows of the dense worker-gradient matrix
     G [m, d] in place and return G.  Data- and timing-scope attacks and
     alpha=0 leave G as it is (data corruption happens in the pipeline,
@@ -265,6 +283,10 @@ def apply_dense_(G, generator, cfg: ByzantineConfig, active=None):
     ``torch.Generator`` on G's device) drives gaussian noise and
     "resample" membership.  ``active`` ([m] 0/1) scopes an elastic
     round: membership and knowledge are drawn over the active set only.
+    ``membership`` ([m] bool, :func:`step_membership`) gives the
+    byzantine set instead of drawing it: the bucket form of the
+    reference's ``inject``, whose noise and membership have keys of
+    their own.
 
     No [m, d] temporary is made: the honest moments of a knowledge rule
     are taken over blocks of :data:`KNOWLEDGE_BLOCK` columns, and its evil row
@@ -280,12 +302,14 @@ def apply_dense_(G, generator, cfg: ByzantineConfig, active=None):
         n_byz = n_byzantine(cfg, m)
         if n_byz == 0:
             return G
-        mask = membership_mask(cfg, m, generator, device=G.device)
+        mask = (membership_mask(cfg, m, generator, device=G.device)
+                if membership is None else membership.to(G.device))
         n_honest = m - n_byz
     else:
         active = torch.as_tensor(active).to(G.device)
         na = (active > 0).sum()
-        mask = membership_mask(cfg, m, generator, active=active)
+        mask = (membership_mask(cfg, m, generator, active=active)
+                if membership is None else membership.to(G.device))
         n_honest = na - n_byzantine(cfg, m, na)
     rows = torch.nonzero(mask).flatten().tolist()
     if not rows:

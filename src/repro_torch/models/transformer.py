@@ -235,24 +235,39 @@ def _block(cfg, kind: str, p_l, x, positions, shared=None, collect=True):
     raise ValueError(kind)
 
 
+def _train_block(cfg, kind: str, p_l, x, positions, shared, remat):
+    """(x, aux or None) of one layer (unit) in training: with ``remat``
+    only its input is kept for the backward, which runs it again
+    (``torch.utils.checkpoint``, non-reentrant: the JAX package's
+    ``jax.checkpoint`` of the scan body).  ``p_l`` comes in already
+    hooked, so a recompute never runs a hook again."""
+    if remat:
+        return checkpoint(
+            lambda x: _block(cfg, kind, p_l, x, positions, shared,
+                             False)[:2], x, use_reentrant=False)
+    return _block(cfg, kind, p_l, x, positions, shared, False)[:2]
+
+
 def _run_segment(cfg, seg: Segment, p_stack, x, positions,
-                 collect_cache=False, remat=False, shared=None):
+                 collect_cache=False, remat=False, shared=None,
+                 param_hook=None):
     """Run a stacked segment over x, layer by layer (unit by unit for
     hybrid, ``shared`` the shared block's parameters).  Returns (x, the
     sum of the layers' aux losses (None but for moe), cache entries):
     with ``collect_cache`` (the fused prefill) each layer's
     full-sequence cache pieces stacked on a leading layer axis, in the
     ``cache_defs`` layout; else None.  ``remat`` (training) keeps only
-    each layer's (unit's) input for the backward and runs it again
-    there (``torch.utils.checkpoint``, non-reentrant: the JAX package's
-    ``jax.checkpoint`` of the scan body)."""
+    each layer's (unit's) input for the backward (:func:`_train_block`).
+    ``param_hook(p_layer, layer_idx)`` is applied to each layer slice
+    (unit slice for hybrid) before the layer runs, outside the
+    checkpoint: the blocked scope's barrier."""
     ents, aux = [], None
-    for p_l in _layers(p_stack, seg.n):
+    for idx, p_l in enumerate(_layers(p_stack, seg.n)):
+        if param_hook is not None:
+            p_l = param_hook(p_l, idx)
         if remat:
-            x, a = checkpoint(
-                lambda x, p_l=p_l: _block(cfg, seg.kind, p_l, x, positions,
-                                          shared, False)[:2],
-                x, use_reentrant=False)
+            x, a = _train_block(cfg, seg.kind, p_l, x, positions, shared,
+                                True)
         else:
             x, a, ent = _block(cfg, seg.kind, p_l, x, positions, shared,
                                collect_cache)
@@ -282,33 +297,41 @@ def _head(cfg: ModelConfig, params, x):
     return x @ head
 
 
+def _top(params) -> dict:
+    """The top-level bucket: every key not under ``seg_`` (embed,
+    final_norm, lm_head, shared_attn)."""
+    return {k: v for k, v in params.items() if not k.startswith("seg_")}
+
+
 def forward(cfg: ModelConfig, params, tokens, prefix_embed=None,
-            remat: bool = False):
+            remat: bool = False, seg_hooks=None, top_hook=None):
     """tokens [B,S_tok] (+ optional prefix [B,P,D]) -> (logits
     [B,P+S_tok,V], aux): aux the float32 sum of the moe layers' router
     losses (0 without moe layers).  ``remat``: recompute each layer in
-    the backward instead of keeping its activations."""
+    the backward instead of keeping its activations.
+
+    Blocked-aggregation hooks, as in the reference:
+    ``seg_hooks["seg_i"](p_layer, layer_idx)`` is applied to each layer
+    slice of segment i (each unit slice of a hybrid segment), and
+    ``top_hook`` once to the top-level bucket (:func:`_top`)."""
+    if top_hook is not None:
+        params = {**params, **top_hook(_top(params))}
     x = embed_inputs(cfg, params, tokens, prefix_embed)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, seg in enumerate(segments(cfg)):
         x, a, _ = _run_segment(cfg, seg, params[f"seg_{i}"], x, positions,
-                               remat=remat, shared=params.get("shared_attn"))
+                               remat=remat, shared=params.get("shared_attn"),
+                               param_hook=(seg_hooks or {}).get(f"seg_{i}"))
         if a is not None:
             aux = aux + a
     return _head(cfg, params, x), aux
 
 
-def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False):
-    """Next-token cross-entropy of one worker's batch (``{"tokens":
-    [B,S]}``, optionally ``"prefix_embed"`` [B,P,D] and ``"loss_mask"``
-    [B,S]): the logits at position P+t predict token t+1 (the prefix is
-    context only), the log-softmax in float32.  Returns (ce + aux,
-    {"ce", "aux"}); aux is the moe layers' router loss (0 for the other
-    families)."""
+def _ce_loss(logits, batch, aux):
+    """The loss tail of one worker: next-token cross-entropy of
+    ``logits`` against ``batch`` plus ``aux`` (:func:`loss_fn`)."""
     tokens = batch["tokens"]
-    logits, aux = forward(cfg, params, tokens, batch.get("prefix_embed"),
-                          remat)
     pfx = logits.shape[1] - tokens.shape[1]
     pred = logits[:, pfx:-1]
     tgt = tokens[:, 1:].long()
@@ -321,6 +344,66 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False):
     else:
         ce = -torch.mean(ll)
     return ce + aux, {"ce": ce, "aux": aux}
+
+
+def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False,
+            seg_hooks=None, top_hook=None):
+    """Next-token cross-entropy of one worker's batch (``{"tokens":
+    [B,S]}``, optionally ``"prefix_embed"`` [B,P,D] and ``"loss_mask"``
+    [B,S]): the logits at position P+t predict token t+1 (the prefix is
+    context only), the log-softmax in float32.  Returns (ce + aux,
+    {"ce", "aux"}); aux is the moe layers' router loss (0 for the other
+    families).  ``seg_hooks`` / ``top_hook`` as in :func:`forward`."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          batch.get("prefix_embed"), remat, seg_hooks,
+                          top_hook)
+    return _ce_loss(logits, batch, aux)
+
+
+def loss_fn_workers(cfg: ModelConfig, params, batches, remat: bool = False,
+                    seg_hooks=None, top_hook=None):
+    """:func:`loss_fn` of several workers at once, run LAYER-MAJOR: every
+    worker passes layer l before any worker enters layer l+1.  Torch's
+    autograd engine runs the ready node of the highest sequence number
+    first, so the backward of this graph takes the layers in lockstep
+    across the workers, top layer first; a worker-major graph would run
+    one worker's whole backward before the next's.
+
+    ``batches``: one batch dict per worker.  The hooks hand each worker
+    its own view of a bucket: ``seg_hooks["seg_i"](p_layer, layer_idx)``
+    returns one layer slice (unit slice for hybrid) per worker, and
+    ``top_hook(sub)`` one dict per worker for ``sub``, the part of the
+    top-level bucket a use site reads: ``embed`` at the embedding
+    lookup, ``shared_attn`` at each hybrid unit, ``final_norm`` and the
+    head's matrix at the head.  Without hooks every worker reads the
+    parameters themselves.  Returns (losses, metric dicts), one each a
+    worker."""
+    n = len(batches)
+    same = lambda p: [p] * n  # noqa: E731
+    top = top_hook or same
+    emb = top({"embed": params["embed"]})
+    xs = [embed_inputs(cfg, emb[w], b["tokens"], b.get("prefix_embed"))
+          for w, b in enumerate(batches)]
+    positions = torch.arange(xs[0].shape[1], device=xs[0].device)
+    auxs = [torch.zeros((), dtype=torch.float32, device=xs[0].device)
+            for _ in range(n)]
+    for i, seg in enumerate(segments(cfg)):
+        hook = (seg_hooks or {}).get(f"seg_{i}")
+        for idx, p_l in enumerate(_layers(params[f"seg_{i}"], seg.n)):
+            views = same(p_l) if hook is None else hook(p_l, idx)
+            shared = (top({"shared_attn": params["shared_attn"]})
+                      if seg.kind == "hybrid" else same({}))
+            for w in range(n):
+                xs[w], a = _train_block(cfg, seg.kind, views[w], xs[w],
+                                        positions,
+                                        shared[w].get("shared_attn"), remat)
+                if a is not None:
+                    auxs[w] = auxs[w] + a
+    head = top({k: params[k] for k in
+                ("final_norm", "embed" if cfg.tie_embeddings else "lm_head")})
+    out = [_ce_loss(_head(cfg, head[w], xs[w]), b, auxs[w])
+           for w, b in enumerate(batches)]
+    return [o[0] for o in out], [o[1] for o in out]
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
 """The BrSGD train step: m simulated workers on one device.
 
-Port of the JAX package's ``training/step.py``, global scope.  The
+Port of the JAX package's ``training/step.py``, both scopes.  The
 reference runs one worker per mesh device: a ``vmap`` of
 ``value_and_grad`` over the worker axis, the attack and the robust
 aggregation inside a shard_map, the optimizer update outside.  Here one
 device holds every worker, as the port's paper loop does
-(``core/simulate.py``):
+(``core/simulate.py``).  The global scope:
 
 1. each worker's ``loss_fn`` and its gradient over every parameter
    (``torch.autograd.grad``; B6 / B6-bwd or B7 / B7-bwd on the card),
@@ -31,11 +31,17 @@ aggregate's norm before clipping), ``n_selected`` and
 adds ``worker_ok`` ([m] numpy), ``step_ok``, ``grad_finite`` and
 ``loss_spike``.  Scalars come back as Python floats.
 
+The blocked scope (``agg_scope="blocked"``, or "auto" above 20e9
+parameters; :func:`_build_blocked_step`) aggregates each bucket (a layer
+slice, a hybrid unit, or the top-level rest) inside one layer-major
+backward of every worker (``core.blocked``), so no [m, D] buffer
+exists; its selections are per bucket, ``n_selected`` is the mean over
+the bucket calls and ``n_selected_min`` their smallest count.  The
+update then runs on the aggregated leaves exactly as in the global
+scope (clipped by the aggregate's global norm).
+
 The guard's hold is decided on the host before the update: a held step
 never touches params or optimizer state, so they are the input's bits.
-
-The blocked scope (per-bucket aggregation inside the backward, ROADMAP
-A.4) and the a2a layout wait for the port's distributed layouts.
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import TrainConfig
-from ..core import engine, threat
+from ..core import blocked, engine, threat
 from ..models import params as PM
 from ..models import transformer as TF
 from ..optim import get_optimizer, global_norm
@@ -59,7 +65,9 @@ def resolve_strategy(tcfg: TrainConfig) -> tuple:
     """(scope, layout) with ``agg_scope="auto"`` resolved by model size:
     blocked above 20e9 parameters, else global.  ``agg_layout="auto"``
     stays "auto" in the global scope (one device holds all of G, so the
-    local executor runs it) and becomes "a2a" in the blocked one."""
+    local executor runs it) and becomes "a2a" in the blocked one, as in
+    the reference; on one device every blocked layout runs the same
+    code."""
     n = PM.count_params(TF.param_defs(tcfg.model))
     scope = tcfg.agg_scope
     if scope == "auto":
@@ -176,22 +184,137 @@ def _build_global_step(tcfg: TrainConfig, m: int, device):
             n_sel = float((act > 0).sum()) if elastic else float(m)
         agg_leaves = [agg[a:b].view(s)
                       for a, b, s in zip(offs[:-1], offs[1:], shapes)]
-        loss_v, ce_v = torch.stack(losses), torch.stack(ces)
         metrics = {"gnorm": float(global_norm(agg_leaves))}
-        if guard:
-            ok_i = torch.isfinite(loss_v)
-            w = torch.from_numpy((act > 0).astype(np.float32)).to(device) \
-                * ok_i.to(torch.float32)
-            denom = torch.clamp(w.sum(), min=1.0)
-            metrics["loss"] = float(torch.sum(
-                w * torch.where(ok_i, loss_v, 0.0)) / denom)
-            metrics["ce"] = float(torch.sum(
-                w * torch.where(torch.isfinite(ce_v), ce_v, 0.0)) / denom)
-            metrics["worker_ok"] = ok_i.to(torch.float32).cpu().numpy()
-        else:
-            metrics["loss"] = float(loss_v.mean())
-            metrics["ce"] = float(ce_v.mean())
+        _loss_metrics(metrics, losses, ces, act, guard, device)
         metrics["n_selected"] = metrics["n_selected_min"] = n_sel
+        return leaves, agg_leaves, metrics
+
+    return round_
+
+
+def _loss_metrics(metrics, losses, ces, act, guard: bool, device):
+    """``loss`` and ``ce`` into ``metrics``: means over the workers, or
+    with the guard over the active, finite ones (exact where-masking, so
+    one NaN worker cannot keep the run's loss NaN), and ``worker_ok``."""
+    loss_v, ce_v = torch.stack(losses), torch.stack(ces)
+    if guard:
+        ok_i = torch.isfinite(loss_v)
+        w = torch.from_numpy((act > 0).astype(np.float32)).to(device) \
+            * ok_i.to(torch.float32)
+        denom = torch.clamp(w.sum(), min=1.0)
+        metrics["loss"] = float(torch.sum(
+            w * torch.where(ok_i, loss_v, 0.0)) / denom)
+        metrics["ce"] = float(torch.sum(
+            w * torch.where(torch.isfinite(ce_v), ce_v, 0.0)) / denom)
+        metrics["worker_ok"] = ok_i.to(torch.float32).cpu().numpy()
+    else:
+        metrics["loss"] = float(loss_v.mean())
+        metrics["ce"] = float(ce_v.mean())
+    return metrics
+
+
+def _build_blocked_step(tcfg: TrainConfig, m: int, device):
+    """The blocked-scope round: (params, batch, step, key, active,
+    faults) -> (param leaves, aggregate leaves, metrics), each bucket
+    aggregated inside the backward (``core.blocked``); the update is the
+    caller's.
+
+    The active workers run layer-major through
+    ``transformer.loss_fn_workers`` with one barrier a layer slice (unit
+    slice for hybrid) and one for the top-level bucket, and one backward
+    (``torch.autograd.grad`` of their losses with respect to the buckets'
+    selection tokens: the parameters take no gradient).  Each bucket's
+    gate writes its aggregate into the aggregate leaves, allocated once
+    per ``build_train_step`` call; no [m, D] buffer exists.  An inactive
+    worker's loss is taken without its gradient: its rows stay zero, as
+    the reference's ``where`` leaves them.  The byzantine membership is
+    drawn once a step from the step's generator, so every bucket
+    corrupts the same workers; noise is drawn per (bucket, layer)."""
+    cfg, bcfg = tcfg.model, tcfg.byzantine
+    remat = tcfg.remat == "block"
+    elastic, guard = bcfg.elastic, tcfg.recovery.guard
+    shapes = [tuple(d.shape) for d in PM.tree_leaves(TF.param_defs(cfg))]
+    segs = TF.segments(cfg)
+    cache = {}
+
+    def agg_buffers():
+        if "agg" not in cache:
+            cache["agg"] = [torch.empty(s, dtype=torch.float32,
+                                        device=device) for s in shapes]
+        return cache["agg"]
+
+    def round_(params, batch, step_idx, key, act, flt):
+        leaves = PM.tree_leaves(params)
+        if [tuple(p.shape) for p in leaves] != shapes:
+            raise ValueError(f"params do not have {cfg.name}'s leaves")
+        wbatch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        if wbatch["tokens"].shape[0] != m:
+            raise ValueError(f"batch has {wbatch['tokens'].shape[0]} "
+                             f"workers, the step {m}")
+        workers = [i for i in range(m) if not elastic or act[i] > 0]
+        if not workers:
+            raise ValueError("no active worker in the round")
+        gen = (key if isinstance(key, torch.Generator)
+               else step_generator(tcfg.seed, step_idx, device))
+        vf = torch.from_numpy(act).to(device) if elastic else None
+        rnd = blocked.BlockedRound(
+            bcfg, m, workers, gen.initial_seed(),
+            threat.step_membership(bcfg, m, gen, active=vf, device=device),
+            vf)
+        agg_leaves = agg_buffers()
+        agg_tree = _unflatten(params, agg_leaves)
+        toks = {k: blocked.selection_token(m, device)
+                for k in [f"seg_{i}" for i in range(len(segs))] + ["top"]}
+        barriers = {k: blocked.make_agg_barrier(rnd, k) for k in toks}
+        outs = {f"seg_{i}": TF._layers(agg_tree[f"seg_{i}"], seg.n)
+                for i, seg in enumerate(segs)}
+
+        def seg_hook(k):
+            return lambda p_l, idx: barriers[k](
+                p_l, toks[k], idx, PM.tree_leaves(outs[k][idx])).workers()
+        top_views = barriers["top"](TF._top(params), toks["top"], 0,
+                                    PM.tree_leaves(TF._top(agg_tree)))
+        nan = torch.tensor(float("nan"), device=device)
+        losses, ces = [None] * m, [None] * m
+        with torch.enable_grad():
+            run, mets = TF.loss_fn_workers(
+                cfg, params, [{k: v[i] for k, v in wbatch.items()}
+                              for i in workers],
+                remat=remat, seg_hooks={k: seg_hook(k) for k in outs},
+                top_hook=lambda sub: top_views.workers(sub))
+            for j, i in enumerate(workers):
+                # the guard's fault rides the loss: the worker's whole
+                # gradient turns NaN, as a blow-up on its device would
+                if guard and flt[i] > 0:
+                    run[j] = run[j] * nan
+            grads = torch.autograd.grad(run, list(toks.values()),
+                                        allow_unused=True)
+        for j, i in enumerate(workers):
+            losses[i], ces[i] = run[j].detach(), mets[j]["ce"].detach()
+        del run, mets, top_views
+        for i in range(m):
+            if losses[i] is None:
+                with torch.no_grad():
+                    loss, met = TF.loss_fn(cfg, params,
+                                           {k: v[i] for k, v in
+                                            wbatch.items()})
+                    if guard and flt[i] > 0:
+                        loss = loss * nan
+                losses[i], ces[i] = loss, met["ce"]
+        want = sum(seg.n for seg in segs) + 1
+        if len(rnd.calls) != want:
+            raise RuntimeError(f"{len(rnd.calls)} bucket aggregations in "
+                               f"the backward, expected {want}")
+        # each token's gradient is one_hot(n_selected) per gate call;
+        # summed, a histogram over the counts 0..m
+        hist = sum(g for g in grads if g is not None).cpu().numpy()
+        counts = np.arange(m + 1, dtype=np.float32)
+        n_sel = np.float32(np.sum(counts * hist, dtype=np.float32)) \
+            / np.float32(max(np.sum(hist, dtype=np.float32), 1.0))
+        metrics = {"gnorm": float(global_norm(agg_leaves)),
+                   "n_selected": float(n_sel),
+                   "n_selected_min": float(np.argmax(hist > 0))}
+        _loss_metrics(metrics, losses, ces, act, guard, device)
         return leaves, agg_leaves, metrics
 
     return round_
@@ -201,6 +324,13 @@ def build_train_step(tcfg: TrainConfig, m: int,
                      device="cuda") -> StepBundle:
     """The train step of ``tcfg`` for ``m`` simulated workers on
     ``device`` (the card unless the caller asks for the CPU).
+
+    ``tcfg.agg_scope`` picks the scope (:func:`resolve_strategy`).  The
+    blocked scope takes every layout the reference's does ("gather",
+    "a2a", "auto"): with every worker on one device they all run the
+    same code, the bucket aggregate on the bucket's rows.  The global
+    scope refuses "a2a", which waits for the torch.distributed layouts
+    (ROADMAP A.4).
 
     ``step_fn(params, opt_state, batch, step, key)`` takes the parameter
     tree, the optimizer state (``opt_init(params)``), ``{"tokens": [m,
@@ -218,16 +348,16 @@ def build_train_step(tcfg: TrainConfig, m: int,
     ``step_ok``, ``grad_finite`` and ``loss_spike``; a non-finite or
     spiking step leaves params and optimizer state as they were."""
     scope, layout = resolve_strategy(tcfg)
-    if scope != "global":
+    if scope not in ("global", "blocked"):
+        raise ValueError(f"unknown agg_scope {scope!r}")
+    if scope == "global" and layout not in ("gather", "auto"):
         raise ValueError(
-            f"agg_scope={scope!r} is not ported yet: the blocked scope "
-            f"waits for ROADMAP A.4 (the distributed layouts); use "
-            f"agg_scope='global'")
-    if layout not in ("gather", "auto"):
-        raise ValueError(
-            f"agg_layout={layout!r} is not ported yet: it waits for ROADMAP "
-            f"A.4 (the distributed layouts); one device holds all of G, so "
-            f"'gather' and 'auto' run the local executor")
+            f"agg_layout={layout!r} is not ported yet in the global scope: "
+            f"it waits for ROADMAP A.4's torch.distributed layouts; one "
+            f"device holds all of G, so 'gather' and 'auto' run the local "
+            f"executor")
+    if scope == "blocked" and layout not in ("gather", "a2a", "auto"):
+        raise ValueError(f"unknown agg_layout {layout!r}")
     bcfg, rcfg = tcfg.byzantine, tcfg.recovery
     if rcfg.guard and not bcfg.elastic:
         raise ValueError(
@@ -245,7 +375,8 @@ def build_train_step(tcfg: TrainConfig, m: int,
                 f"{m} worker slots for scope={scope!r}")
     dev = resolve_device(device)
     opt = get_optimizer(tcfg)
-    round_ = _build_global_step(tcfg, m, dev)
+    build = _build_blocked_step if scope == "blocked" else _build_global_step
+    round_ = build(tcfg, m, dev)
 
     def opt_init(params):
         return opt.init(PM.tree_leaves(params))

@@ -1600,3 +1600,171 @@ def test_zoo_config_on_the_card_matches_the_cpu(arch):
     close(out["cuda"][1], out["cpu"][1], 1e-5)
     for name, g in out["cpu"][2].items():
         close(out["cuda"][2][name], g, 1e-4)
+
+
+def _blocked_round_recorder(monkeypatch):
+    """Every ``BlockedRound`` the blocked step makes, kept for the test."""
+    from repro_torch.core import blocked
+    rounds = []
+
+    class Recording(blocked.BlockedRound):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rounds.append(self)
+    monkeypatch.setattr(blocked, "BlockedRound", Recording)
+    return rounds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b", "dbrx-132b",
+                                  "zamba2-2.7b"])
+def test_blocked_step_on_the_card_matches_the_cpu(arch, monkeypatch):
+    """The blocked scope (``agg_scope="blocked"``, remat), reduced config,
+    8 workers of 2 x 32 tokens, brsgd under sign_flip at 0.25, sgd at lr
+    1, on the card and on the CPU from the same params, two steps: every
+    bucket's selection and n_selected exact, the loss within 1e-5, params
+    within 1e-4 of the largest |Δp|; on the card one brsgd launch a
+    bucket (a layer, a hybrid unit, the top) and two forward launches
+    (remat) and one backward launch an attention application (a layer
+    for rwkv) a worker; on both, the layer-major backward's lockstep: the
+    rows of the top bucket and of one layer bucket live at most."""
+    need_card()
+    from repro_torch.configs import ByzantineConfig, TrainConfig, get_config
+    from repro_torch.core import blocked
+    from repro_torch.data.pipeline import LMWorkerPipeline
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import build_train_step
+    rounds = _blocked_round_recorder(monkeypatch)
+    sels = []
+    agg_rows = blocked.aggregate_rows
+
+    def record(rows, bcfg, valid=None):
+        agg, st = agg_rows(rows, bcfg, valid)
+        sels.append(st.selected.cpu())
+        return agg, st
+    monkeypatch.setattr(blocked, "aggregate_rows", record)
+    m = 8
+    cfg = get_config(arch).reduced()
+    bcfg = ByzantineConfig(attack="sign_flip", alpha=0.25)
+    tcfg = TrainConfig(model=cfg, byzantine=bcfg, optimizer="sgd", lr=1.0,
+                       agg_scope="blocked", remat="block")
+    p_cpu = PM.init_params(TF.param_defs(cfg),
+                           torch.Generator().manual_seed(0))
+    p0 = [p.clone() for p in PM.tree_leaves(p_cpu)]
+    pipe = LMWorkerPipeline(cfg, m, 2, 32, seed=1, byz=bcfg)
+    segs = TF.segments(cfg)
+    n_b = sum(s.n for s in segs) + 1
+    apps = sum(s.n for s in segs)            # a layer, or a unit's shared block
+    fwd, bwd = (("wkv6_seq", "wkv6_seq_bwd") if arch == "rwkv6-7b"
+                else ("flash_attention", "flash_attention_bwd"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = _copy(p_cpu, dev)
+        bundle = build_train_step(tcfg, m, dev)
+        mets, start = [], len(sels)
+        for s in range(2):
+            ops.reset_launches()
+            params, _, met = bundle.step_fn(params, (), pipe.batch(s), s,
+                                            None)
+            launched = {n: c for n, c in ops.launches().items() if c}
+            if dev == "cuda":
+                assert launched == {"brsgd_aggregate": n_b,
+                                    fwd: 2 * m * apps, bwd: m * apps}
+            rnd = rounds[-1]
+            assert len(rnd.calls) == n_b and rnd.live == set()
+            assert len(rnd.peak_live) == 2 and ("top", 0) in rnd.peak_live
+            mets.append(met)
+        out[dev] = (mets, sels[start:],
+                    [p.cpu() for p in PM.tree_leaves(params)])
+    (cm, cs, cp), (gm, gs, gp) = out["cpu"], out["cuda"]
+    assert len(cs) == len(gs) == 2 * n_b
+    assert all(torch.equal(a, b) for a, b in zip(cs, gs))
+    for c, g in zip(cm, gm):
+        assert abs(g["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"])
+        assert g["n_selected"] == c["n_selected"]
+        assert g["n_selected_min"] == c["n_selected_min"]
+    dp = max(float((q - p).abs().max()) for q, p in zip(cp, p0))
+    err = max(float((q - p).abs().max()) for q, p in zip(gp, cp))
+    assert err <= 1e-4 * dp, (err, dp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fixed", "elastic"])
+@pytest.mark.parametrize("rule", ["brsgd", "geomedian", "krum", "mean",
+                                  "median", "multi_krum", "trimmed_mean"])
+def test_bucket_aggregate_on_the_card_matches_the_cpu(rule, mode):
+    """``core.blocked._bucket_aggregate`` on one [8, ...] bucket tree (a
+    leaf of 2·8·6, one of 7, one of 6 columns), on the card (one launch
+    for a fixed round; the masked round and its combine for an elastic
+    one) and on the CPU: the selection exact, the aggregate within 1e-5
+    of its largest magnitude (geomedian's weights within 1e-5)."""
+    need_card()
+    from repro_torch.configs import ByzantineConfig
+    from repro_torch.core import blocked
+    rng = np.random.default_rng(3)
+    m = 8
+    tree = {"w": rng.normal(size=(m, 2 * m, 6)), "b": rng.normal(size=(m, 7)),
+            "u": rng.normal(size=(m, m - 2))}
+    tree = {k: torch.from_numpy(v.astype(np.float32)) for k, v in tree.items()}
+    tree = {k: v * torch.where(torch.arange(m) < m // 4, -4.0, 1.0).reshape(
+        (m,) + (1,) * (v.dim() - 1)) for k, v in tree.items()}
+    kw = {"max_m": m, "quorum": 6} if mode == "elastic" else {}
+    bcfg = ByzantineConfig(aggregator=rule, alpha=0.25, **kw)
+    valid = (torch.tensor([1, 1, 0, 1, 1, 1, 0, 1], dtype=torch.float32)
+             if mode == "elastic" else None)
+    want, wst = blocked._bucket_aggregate(tree, bcfg, valid)
+    ops.reset_launches()
+    got, gst = blocked._bucket_aggregate(
+        {k: v.cuda() for k, v in tree.items()}, bcfg,
+        None if valid is None else valid.cuda())
+    if mode == "fixed":
+        assert sum(ops.launches().values()) == 1, ops.launches()
+    exact(gst.selected, wst.selected)
+    for k in tree:
+        close(got[k], want[k])
+
+
+@pytest.mark.gpu
+def test_blocked_guarded_step_holds_on_the_card():
+    """A guarded blocked step (quorum 8 of 8) with a NaN on worker 5
+    holds on the card as on the CPU: params the input's bits, worker_ok
+    equal, step_ok 0; then with worker 5 inactive both take the step
+    with the same n_selected."""
+    need_card()
+    from repro_torch.configs import (ByzantineConfig, RecoveryConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.data.pipeline import LMWorkerPipeline
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as TF
+    from repro_torch.training import build_train_step
+    m = 8
+    cfg = get_config("qwen3-0.6b").reduced()
+    tcfg = TrainConfig(model=cfg, byzantine=ByzantineConfig(
+        attack="sign_flip", alpha=0.25, max_m=m, quorum=m), optimizer="sgd",
+        agg_scope="blocked", recovery=RecoveryConfig(guard=True))
+    p_cpu = PM.init_params(TF.param_defs(cfg),
+                           torch.Generator().manual_seed(0))
+    pipe = LMWorkerPipeline(cfg, m, 2, 32, seed=1)
+    flt = np.zeros(m, np.float32)
+    flt[5] = 1
+    act = np.ones(m, np.float32)
+    act[5] = 0
+    out = []
+    for dev in ("cpu", "cuda"):
+        params = _copy(p_cpu, dev)
+        before = [p.clone() for p in PM.tree_leaves(params)]
+        bundle = build_train_step(tcfg, m, dev)
+        params, _, met = bundle.step_fn(params, (), pipe.batch(0), 0, None,
+                                        None, flt)
+        assert met["step_ok"] == 0.0
+        assert all(torch.equal(a, b) for a, b in
+                   zip(before, PM.tree_leaves(params)))
+        params, _, met2 = bundle.step_fn(params, (), pipe.batch(1), 1, None,
+                                         act, flt)
+        assert met2["step_ok"] == 1.0 and met2["n_active"] == m - 1
+        out.append((met["worker_ok"], met2["n_selected"],
+                    met2["n_selected_min"]))
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    assert out[0][0][5] == 0 and out[0][0].sum() == m - 1
+    assert out[0][1:] == out[1][1:]

@@ -18,8 +18,10 @@ launcher (CPU, the plain versions):
   round past 2^24 total exactly;
   ``inplace`` zeroes the inactive rows of G itself, else G is left as it
   was;
-* ``build_train_step`` refuses what it cannot run (the blocked scope and
-  the a2a layout name ROADMAP A.4) and a fixed step refuses ``active``;
+* ``build_train_step`` refuses what it cannot run (the global scope's
+  a2a layout names ROADMAP A.4; the blocked scope, A.4's first half,
+  builds and resolves "auto" to "a2a" as the reference does) and a fixed
+  step refuses ``active``;
 * ``launch.train.main`` on the CPU: fixed, ``--quorum`` / ``--straggle``
   and ``--supervise`` with ``--ckpt-dir`` (a checkpoint the port's
   ``ckpt.restore`` reads back, telemetry rows, history.json).
@@ -208,6 +210,11 @@ def _tcfg(**kw):
 @pytest.mark.parametrize("kw", [{"agg_scope": "blocked"},
                                 {"agg_scope": "global", "agg_layout": "a2a"}])
 def test_unported_strategies_name_their_slice(kw):
+    if kw["agg_scope"] == "blocked":
+        # ported: the first half of A.4
+        b = build_train_step(_tcfg(**kw), 4, "cpu")
+        assert (b.scope, b.layout) == ("blocked", "a2a")
+        return
     with pytest.raises(ValueError, match="A.4"):
         build_train_step(_tcfg(**kw), 4, "cpu")
 

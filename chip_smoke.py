@@ -15,7 +15,7 @@ compare kernels on one card.
 Phases (any failure exits non-zero; nothing is caught and carried on),
 in this order: 1, 2's start, B6 / B7 of 3, 3b, 7 but its profile, 7e's
 and 7g's serve (their libraries build in seconds), 2's end, 3, 4, 5, 6,
-7's profile, 7b, 7c, 7d, 7h, 7e's and 7g's train steps, 7f, 8, 9 (the BrSGD
+7's profile, 7b, 7c, 7d, 7h, 7i, 7e's and 7g's train steps, 7f, 8, 9 (the BrSGD
 libraries
 take minutes to build, which the first phases use; no torch.profiler
 session runs before every library is loaded):
@@ -265,6 +265,29 @@ session runs before every library is loaded):
      layers, m = 8, a nan_burst on worker 7): held with params the
      input's bits and worker 7 evicted, then ok on 7 workers, one masked
      combine a bucket; each sub-phase's seconds;
+  7i. the torch.distributed layouts (launch/mesh.py, engine's
+     aggregate_sharded, threat.inject, build_train_step(mesh=)) through
+     their entry point, launch.train.main --mesh (its rank function
+     wrapped to time and count): 4 ranks spawned in one gloo group on
+     the one card (NCCL refuses two ranks on one device; gloo takes the
+     CUDA tensors), one rank a worker, qwen3-0.6b at full width, 2 x 128
+     tokens a worker, brsgd under sign_flip at 0.25, sgd: the flat mesh
+     of 4 under gather and under a2a, the 2 x 2 data x model mesh under
+     a2a, a warm-up and 2 timed steps each; on every step of every rank:
+     on cuda:0 and every collective's tensor a CUDA one; the
+     aggregation's all_gather / all_to_all counts equal
+     engine.expected_collectives; the statistics kernel once a leaf and
+     B6 / B6-bwd once a layer, nothing else, the plain versions refusing
+     the card; on the warm-up the post-attack G gathered once into rank
+     0 and the step's scores and selection equal to aggregate_local's on
+     it, the aggregate within 1e-6 of max|agg| (the check's launch,
+     gathers and time taken out of the step's); the launches summed
+     over every step and rank; host ms a step (median of 2), its split
+     (gradient, inject, collectives, statistics kernels, combine,
+     update), bytes each rank sends, each rank's peak and the card's
+     used GB; then card = CPU at the reduced config (launch.train.main
+     --reduced: 4 card ranks against 4 CPU ranks from the same params,
+     params within 1e-5 of max|Δp|);
   7f. the demo twins on the card: paper.train_100m --full for 3 steps
      (the ~100M qwen3 config, m = 8 workers of 4 x 512 tokens; 1 brsgd,
      96 B6 and 96 B6-bwd launches a step; the loss falls),
@@ -300,6 +323,7 @@ session runs before every library is loaded):
      16, 32, 33, 63 and 64 (12, 33 and 63 on bucket instances) at d =
      61706 and 8388608;
   9. the {"gradient": [...]}, {"train": {...}}, {"blocked": {...}},
+     {"sharded": {...}},
      {"zoo": ..., "demos": ...},
      {"hybrid_frontends": {...}},
      {"phase_seconds": {...}} and {"kernels": [...]} lines (a
@@ -311,6 +335,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2803,11 +2828,13 @@ def _swap_and_faults(torch, ckpt, get_spec, TF, serve, HotSwapper, ServeLoop,
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def _plain_versions_refuse_the_card(torch):
-    """B6's and B7's plain versions raise for a CUDA tensor while the
-    block runs: the gradient on the card must go through the kernels."""
+def _plain_versions_refuse_the_card(torch, extra=()):
+    """B6's and B7's plain versions (and ``extra`` ones of ``ref``) raise
+    for a CUDA tensor while the block runs: the gradient on the card must
+    go through the kernels."""
     from repro_torch.kernels import ref
-    names = ("flash_attention_ref", "wkv6_seq_plain", "wkv6_chunk_plain")
+    names = ("flash_attention_ref", "wkv6_seq_plain",
+             "wkv6_chunk_plain") + tuple(extra)
     saved = {n: getattr(ref, n) for n in names}
 
     def guard(name, fn):
@@ -3887,6 +3914,388 @@ def phase_blocked(torch, global_peak_gb):
             launches[k] = launches.get(k, 0) + v
     return {"qwen3": qwen, "rwkv6": rwkv, "card_vs_cpu": cpu,
             "supervised": sup, "sub_seconds": sub}, launches
+
+
+# ---------------------------------------------------------------------------
+# 7i. the torch.distributed layouts: one rank a worker, 4 ranks on one card
+# ---------------------------------------------------------------------------
+
+# qwen3-0.6b at full width, 2 x 128 tokens a worker, brsgd under sign_flip
+# at 0.25 (prefix membership: worker 0 of 4 byzantine; none of 2 on the
+# 2 x 2 mesh, where floor(0.25 * 2) = 0), sgd; each case is one call of
+# launch.train.main --mesh, 4 ranks in one gloo group on the one card
+# (NCCL refuses two ranks on one device): (mesh, --mesh, layout)
+SHARDED_ARCH, SHARDED_WORLD = "qwen3-0.6b", 4
+SHARDED_CASES = (("flat", "4", "gather"),
+                 ("flat", "4", "a2a"),
+                 ("dm", "2x2", "a2a"))
+SHARDED_STEPS, SHARDED_BATCH, SHARDED_SEQ = 2, 2, 128
+SHARDED_ALPHA = 0.25
+# the aggregate against aggregate_local on the same G, relative to its
+# largest |agg| (the reductions sum in other orders)
+SHARDED_AGG_TOL = 1e-6
+# card = CPU: the reduced config, 4 ranks each side, sgd at lr 1, params
+# relative to the largest |Δp| (launch.train gives each CPU rank
+# cpu_count / 4 threads)
+SHARDED_CPU_STEPS, SHARDED_CPU_TOL = 2, 1e-5
+SHARDED_PLAIN = AGG_PLAIN
+
+
+def _sharded_argv(spec, layout, steps, reduced=False, device="cuda"):
+    argv = ["--arch", SHARDED_ARCH, "--mesh", spec, "--agg-layout", layout,
+            "--steps", str(steps), "--batch-per-worker", str(SHARDED_BATCH),
+            "--seq", str(SHARDED_SEQ), "--attack", "sign_flip",
+            "--alpha", str(SHARDED_ALPHA), "--optimizer", "sgd",
+            "--device", device]
+    return argv + (["--reduced", "--lr", "1.0"] if reduced else [])
+
+
+def _sharded_check(torch, engine, collectives, mesh, bcfg, local, agg, st,
+                   specs):
+    """The warm-up step's aggregate against aggregate_local on the card:
+    every rank's post-attack leaves gathered once into G [m, D] on rank
+    0, and the aggregate's model shards with them (these gathers stand
+    outside the step's counts), then the one brsgd launch on G.  Scores
+    and selection exact, the aggregate within SHARDED_AGG_TOL of
+    max|agg|.  Rank 0 returns the figures."""
+    from repro_torch.launch.mesh import n_workers, worker_axes
+    waxes = worker_axes(mesh)
+    maxes = tuple(a for a in mesh.axis_names if a not in waxes)
+    m, nm = n_workers(mesh), mesh.size(maxes)
+    lead = mesh.rank == 0
+
+    def dim_of(ps):
+        return next((i for i, e in enumerate(ps or ()) if e is not None),
+                    None)
+    D = sum(g.numel() * (1 if dim_of(ps) is None else nm)
+            for g, ps in zip(local, specs))
+    G = (torch.empty((m, D), dtype=torch.float32, device=local[0].device)
+         if lead else None)
+    got, off = [], 0
+    for g, a, ps in zip(local, agg, specs):
+        dim = dim_of(ps)
+        parts = collectives.all_gather(g, mesh, mesh.axis_names)
+        if dim is not None:
+            a = torch.cat(list(collectives.all_gather(a, mesh, maxes)), dim)
+        if lead:
+            for w in range(m):
+                rows = parts[w * nm:(w + 1) * nm]
+                full = rows[0] if dim is None else torch.cat(list(rows), dim)
+                G[w, off:off + full.numel()] = full.reshape(-1)
+            off += a.numel()
+            got.append(a.reshape(-1))
+        del parts
+    if not lead:
+        return None
+    ref_agg, ref_st = engine.aggregate_local(G, bcfg, return_state=True)
+    del G
+    got = torch.cat(got)
+    scale = float(ref_agg.abs().max())
+    err = float((got - ref_agg).abs().max())
+    res = {"D": D, "agg_err_over_max": err / scale,
+           "scores_equal": bool(torch.equal(st.scores, ref_st.scores)),
+           "selected_equal": bool(torch.equal(st.selected,
+                                              ref_st.selected)),
+           "selected": st.selected.int().tolist(),
+           "scores": st.scores.tolist()}
+    del ref_agg, got
+    torch.cuda.empty_cache()
+    return res
+
+
+def _sharded_train_rank(opts, rank, args):
+    """One rank of ``launch.train.main --mesh`` (phase 7i puts this in
+    place of the launcher's rank function, which it then calls): the
+    rank's parts are wrapped in synchronised host timers (threat.inject,
+    robust_aggregate, the collectives inside it and after it, the
+    statistics pass), each step is timed and its launches and
+    collectives counted from 0, the aggregation's all_gather /
+    all_to_all counted alone, B6 / B6-bwd and the statistics' plain
+    versions refuse the card.  ``opts``: "check" runs
+    :func:`_sharded_check` on the warm-up's aggregate, its launches,
+    gathers and time taken out of the step's; "cpu_init" draws the
+    params on the CPU (so that card and CPU ranks start alike) and rank
+    0 keeps the last params.  Rank 0 returns every rank's rows."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import collectives, engine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TR
+    from repro_torch.models import params as PM
+    from repro_torch.training import step as ST
+    cuda = opts["device"] == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    split, clock, rows, info = {}, {}, [], {"check": None, "init": None}
+
+    def timer(mod, name, key):
+        fn = getattr(mod, name)
+
+        def call(*a, **kw):
+            sync()
+            t0 = time.perf_counter()
+            if key == "inject":
+                clock["inject"] = t0
+            out = fn(*a, **kw)
+            sync()
+            k = key
+            if key == "collectives" and not clock.get("inside"):
+                k = "update_collectives"
+            if clock.get("on", True):
+                split[k] = split.get(k, 0.0) + (time.perf_counter() - t0) \
+                    * 1e3
+            return out
+        setattr(mod, name, call)
+    timer(ST.threat, "inject", "inject")
+    for name in ("all_gather", "all_to_all", "all_reduce"):
+        timer(collectives, name, "collectives")
+    timer(ops, "fused_stats", "stats_kernels")
+    aggregate = ST.robust_aggregate
+
+    def robust_aggregate(local, bcfg, mesh, axes, **kw):
+        sync()
+        t0 = time.perf_counter()
+        before = collectives.counts()
+        clock["inside"] = True
+        agg, st = aggregate(local, bcfg, mesh, axes, **kw)
+        clock["inside"] = False
+        after = collectives.counts()
+        sync()
+        t1 = clock["aggregate_end"] = time.perf_counter()
+        split["aggregate"] = split.get("aggregate", 0.0) + (t1 - t0) * 1e3
+        clock["collectives"] = {k: after[k] - before[k]
+                                for k in ("all_gather", "all_to_all")}
+        info.update(device=str(local[0].device), backend=mesh.backend,
+                    n_leaves=len(local), workers=mesh.size(axes))
+        if opts["check"] and not rows:
+            l0, clock["on"] = ops.launches(), False
+            info["check"] = _sharded_check(
+                torch, engine, collectives, mesh, bcfg, local, agg, st,
+                kw["leaf_specs"])
+            clock["on"] = True
+            clock["check_launches"] = {
+                k: v - l0.get(k, 0) for k, v in ops.launches().items()
+                if v - l0.get(k, 0)}
+            t2 = clock["aggregate_end"] = time.perf_counter()
+            clock["check_ms"] = (t2 - t1) * 1e3
+        return agg, st
+    ST.robust_aggregate = robust_aggregate
+    if opts["cpu_init"]:
+        init = PM.init_params
+
+        def init_on_cpu(defs, generator, device="cpu", **kw):
+            gen = torch.Generator().manual_seed(generator.initial_seed())
+            params = init(defs, gen, **kw)
+            if rank == 0:
+                info["init"] = [p.numpy().copy()
+                                for p in PM.tree_leaves(params)]
+            return _to_device(params, device)
+        PM.init_params = init_on_cpu
+    build = ST.build_train_step
+
+    def build_timed(*a, **kw):
+        bundle = build(*a, **kw)
+
+        def step_fn(*sa):
+            split.clear()
+            collectives.reset()
+            ops.reset_launches()
+            clock.update(check_ms=0.0, check_launches={})
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            sync()
+            t0 = time.perf_counter()
+            out = bundle.step_fn(*sa)
+            sync()
+            t1 = time.perf_counter()
+            c, got = collectives.counts(), ops.launches()
+            met = out[2]
+            row = {"host_ms": (t1 - t0) * 1e3 - clock["check_ms"],
+                   "launches": {k: v - clock["check_launches"].get(k, 0)
+                                for k, v in got.items()
+                                if v - clock["check_launches"].get(k, 0)},
+                   "check_launches": clock["check_launches"],
+                   "collectives": clock["collectives"],
+                   "device_types": c["device_types"],
+                   "bytes_sent": sum(c["bytes_sent"].values()),
+                   "n_selected": met["n_selected"],
+                   "loss": met["loss"], "gnorm": met["gnorm"]}
+            if cuda:
+                free, total = torch.cuda.mem_get_info()
+                row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                row["card_used_gb"] = (total - free) / 1e9
+                sp = {k: split.get(k, 0.0) for k in (
+                    "inject", "aggregate", "collectives", "stats_kernels",
+                    "update_collectives")}
+                sp["gradient"] = (clock["inject"] - t0) * 1e3
+                # the aggregate's model shards and the losses gathered,
+                # gnorm and the update
+                sp["update"] = (t1 - clock["aggregate_end"]) * 1e3
+                sp["combine"] = sp["aggregate"] - sp["stats_kernels"] \
+                    - sp["collectives"]
+                row["split_ms"] = sp
+            rows.append(row)
+            if opts["cpu_init"] and rank == 0:
+                info["params"] = [p.detach().cpu().numpy().copy()
+                                  for p in PM.tree_leaves(out[0])]
+            return out
+        return bundle._replace(step_fn=step_fn)
+    ST.build_train_step = build_timed
+    with _plain_versions_refuse_the_card(torch, SHARDED_PLAIN if cuda
+                                         else ()):
+        TR._mesh_rank(rank, args)
+    mine = {"rank": rank, "steps": rows, **info}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every if rank == 0 else None
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(tree[k], dev) for k in sorted(tree)}
+    return tree.to(dev)
+
+
+def _sharded_main(TR, opts, argv):
+    """``launch.train.main(argv)`` with :func:`_sharded_train_rank` in
+    place of its rank function: every rank's rows, in rank order."""
+    import functools
+    inner = TR._mesh_rank
+    TR._mesh_rank = functools.partial(_sharded_train_rank, opts)
+    try:
+        return TR.main(argv)
+    finally:
+        TR._mesh_rank = inner
+
+
+def phase_sharded(torch):
+    """Phase 7i: the global scope with one rank a worker, driven through
+    its entry point, ``launch.train.main --mesh``: 4 ranks in one gloo
+    group on the one card, qwen3-0.6b at full width, 2 x 128 tokens a
+    worker, brsgd under sign_flip at 0.25 (prefix), sgd, on the flat
+    mesh of 4 under gather and under a2a and on the 2 x 2 data x model
+    mesh under a2a: a warm-up and SHARDED_STEPS timed steps each.  Gates,
+    on every step of every rank: on cuda:0 over gloo and every
+    collective's tensor a CUDA one; the aggregation's all_gather /
+    all_to_all counts equal engine.expected_collectives; the statistics
+    kernel once a leaf (and B6 / B6-bwd once a layer, nothing else; the
+    check's own launch taken out); the warm-up's scores and selection
+    equal aggregate_local's on the same post-attack G, the aggregate
+    within SHARDED_AGG_TOL; then card = CPU at the reduced config
+    (launch.train.main --reduced on the card against --device cpu,
+    params within SHARDED_CPU_TOL of max|Δp|).  Returns (the results,
+    every launch of the full-width runs: each step of each rank)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.launch import train as TR
+    torch.cuda.empty_cache()
+    sub = {}
+    spec = engine.get_spec("brsgd")
+    L = get_config(SHARDED_ARCH).n_layers
+    results, launches = [], {}
+    for name, mesh_spec, layout in SHARDED_CASES:
+        t0 = time.perf_counter()
+        per_rank = _sharded_main(
+            TR, {"check": True, "device": "cuda", "cpu_init": False},
+            _sharded_argv(mesh_spec, layout, 1 + SHARDED_STEPS))
+        sub[f"{name}_{layout}"] = time.perf_counter() - t0
+        n_leaves = per_rank[0]["n_leaves"]
+        want_c = engine.expected_collectives(spec, layout, n_leaves)
+        want_l = {"fused_stats": n_leaves, "flash_attention": L,
+                  "flash_attention_bwd": L}
+        for rk in per_rank:
+            if rk["device"] != "cuda:0" or rk["backend"] != "gloo":
+                fail(f"7i {name}/{layout}: rank {rk['rank']} on "
+                     f"{rk['device']} over {rk['backend']}")
+            if len(rk["steps"]) != 1 + SHARDED_STEPS:
+                fail(f"7i {name}/{layout}: rank {rk['rank']} ran "
+                     f"{len(rk['steps'])} steps")
+            for s, row in enumerate(rk["steps"]):
+                if row["device_types"] != ["cuda"]:
+                    fail(f"7i {name}/{layout}: a collective took a tensor "
+                         f"on {row['device_types']}")
+                got_c = row["collectives"]
+                if got_c != {k: want_c[k] for k in got_c}:
+                    fail(f"7i {name}/{layout} step {s} rank {rk['rank']}: "
+                         f"collectives {got_c}, expected {want_c}")
+                if row["launches"] != want_l:
+                    fail(f"7i {name}/{layout} step {s} rank {rk['rank']}: "
+                         f"launches {row['launches']} (the check's "
+                         f"{row['check_launches']} taken out), expected "
+                         f"{want_l}")
+                if not all(math.isfinite(row[k]) for k in ("loss",
+                                                           "gnorm")):
+                    fail(f"7i {name}/{layout} step {s}: {row}")
+                for k, v in row["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        chk = per_rank[0]["check"]
+        if not (chk["scores_equal"] and chk["selected_equal"]
+                and chk["agg_err_over_max"] <= SHARDED_AGG_TOL):
+            fail(f"7i {name}/{layout}: the sharded aggregate against "
+                 f"aggregate_local: {chk}")
+        timed = [rk["steps"][1:] for rk in per_rank]
+        host = [float(np.median([r["host_ms"] for r in t])) for t in timed]
+        split = {k: float(np.median([r["split_ms"][k] for t in timed
+                                     for r in t]))
+                 for k in timed[0][0]["split_ms"]}
+        res = {"mesh": name, "argv_mesh": mesh_spec, "layout": layout,
+               "entry": "launch.train.main",
+               "workers": per_rank[0]["workers"], "D": chk["D"],
+               "n_leaves": n_leaves, "backend": per_rank[0]["backend"],
+               "host_ms": max(host), "host_ms_by_rank": host,
+               "host_ms_runs": [[r["host_ms"] for r in t] for t in timed],
+               "warmup_host_ms": [rk["steps"][0]["host_ms"]
+                                  for rk in per_rank],
+               "split_ms": split,
+               "bytes_sent_per_rank": [rk["steps"][1]["bytes_sent"]
+                                       for rk in per_rank],
+               "peak_gb_by_rank": [max(r["peak_gb"] for r in rk["steps"])
+                                   for rk in per_rank],
+               "card_used_gb": max(r["card_used_gb"] for rk in per_rank
+                                   for r in rk["steps"]),
+               "collectives_per_step": per_rank[0]["steps"][1]["collectives"],
+               "launches_per_step": per_rank[0]["steps"][1]["launches"],
+               "launches_all_steps_all_ranks": {
+                   k: sum(r["launches"].get(k, 0) for rk in per_rank
+                          for r in rk["steps"]) for k in want_l},
+               "check_launches": per_rank[0]["steps"][0]["check_launches"],
+               "n_selected": [r["n_selected"] for r in per_rank[0]["steps"]],
+               "loss": [r["loss"] for r in per_rank[0]["steps"]],
+               "check": {k: chk[k] for k in ("agg_err_over_max",
+                                              "scores_equal",
+                                              "selected_equal",
+                                              "selected")}}
+        emit({"check": "sharded_step", **res})
+        results.append(res)
+    # card = CPU at the reduced config
+    t0 = time.perf_counter()
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = _sharded_main(
+            TR, {"check": False, "device": device, "cpu_init": True},
+            _sharded_argv("4", "a2a", SHARDED_CPU_STEPS, reduced=True,
+                          device=device))[0]
+    card, host = out["cuda"], out["cpu"]
+    cfg = get_config(SHARDED_ARCH).reduced()
+    dp = max(float(np.abs(h - p).max()) for h, p in zip(host["params"],
+                                                        host["init"]))
+    err = max(float(np.abs(c - h).max()) for c, h in zip(card["params"],
+                                                         host["params"]))
+    sel_equal = [a["n_selected"] for a in card["steps"]] == \
+        [a["n_selected"] for a in host["steps"]]
+    cpu_res = {"arch": cfg.name, "layout": "a2a", "entry":
+               "launch.train.main --reduced", "steps": SHARDED_CPU_STEPS,
+               "params_err_over_max_dp": err / dp,
+               "n_selected_equal": sel_equal}
+    emit({"check": "sharded_card_vs_cpu", **cpu_res})
+    if not (dp > 0 and err <= SHARDED_CPU_TOL * dp and sel_equal
+            and card["init"] is not None
+            and all(np.array_equal(a, b) for a, b in zip(card["init"],
+                                                         host["init"]))):
+        fail(f"7i card = CPU: {cpu_res}")
+    sub["card_vs_cpu"] = time.perf_counter() - t0
+    return {"cases": results, "card_vs_cpu": cpu_res,
+            "sub_seconds": sub}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -5281,6 +5690,7 @@ def main() -> int:
     train_res, train_launches = timed("train", phase_train, torch)
     blocked_res, blocked_launches = timed(
         "blocked", phase_blocked, torch, train_res[0]["peak_device_gb"])
+    sharded_res, sharded_launches = timed("sharded", phase_sharded, torch)
     zoo = timed("zoo_train", phase_zoo_train, torch, zoo)
     hf = timed("hybrid_train", phase_hybrid_train, torch, hf)
     demos = timed("demos", phase_demos, torch)
@@ -5313,7 +5723,8 @@ def main() -> int:
                "hbm_library_ms": h["library_ms"],
                "worker_counts_device_ms": bucket_t[key],
                "train_launches": train_launches.get(name, 0),
-               "blocked_launches": blocked_launches.get(name, 0)}
+               "blocked_launches": blocked_launches.get(name, 0),
+               "sharded_launches": sharded_launches.get(name, 0)}
         if name == "brsgd_aggregate":
             row.update(also_replaces=ALSO_REPLACES[name],
                        grid=t["grid"], resident=t["resident"],
@@ -5382,6 +5793,7 @@ def main() -> int:
                "serve_loop_launches_per_admission": per_admission[name],
                "train_launches": train_launches.get(name, 0),
                "blocked_launches": blocked_launches.get(name, 0),
+               "sharded_launches": sharded_launches.get(name, 0),
                "max_abs_err": worst[name], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -5425,6 +5837,7 @@ def main() -> int:
             "replaces": replaces, "launches": grad_launches[name],
             "train_launches": train_launches.get(name, 0),
             "blocked_launches": blocked_launches.get(name, 0),
+            "sharded_launches": sharded_launches.get(name, 0),
             "launches_per_gradient": {
                 f"{r['arch']} [{r['batch']},{r['seq']}]"
                 f"{' remat' if r['remat'] else ''}": r["launches"].get(name)
@@ -5524,6 +5937,17 @@ def main() -> int:
             "host_ms", "host_ms_runs", "split_ms", "peak_device_gb",
             "launches_per_step")}}})
     emit({"phase_seconds": phase_s})
+    emit({"sharded": {
+        "backend": sharded_res["cases"][0]["backend"],
+        "cases": [{k: c[k] for k in (
+            "mesh", "argv_mesh", "layout", "entry", "workers", "host_ms",
+            "host_ms_by_rank", "warmup_host_ms", "split_ms",
+            "bytes_sent_per_rank", "peak_gb_by_rank", "card_used_gb",
+            "collectives_per_step", "launches_per_step",
+            "launches_all_steps_all_ranks", "check_launches", "check")}
+            for c in sharded_res["cases"]],
+        "card_vs_cpu": sharded_res["card_vs_cpu"],
+        "sub_seconds": sharded_res["sub_seconds"]}})
     emit({"serve": {a: {k: r[k] for k in ("prefill_tok_s", "decode_tok_s",
                                           "prefill_s", "decode_s",
                                           "n_layers", "batch", "prompt_len",

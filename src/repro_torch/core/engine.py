@@ -1,12 +1,15 @@
-"""Robust-aggregation engine, local layout (single-host G [m, d]).
+"""Robust-aggregation engine: the local layout (single-host G [m, d])
+and the sharded ones (one rank a worker, ``torch.distributed``).
 
-Port of the JAX package's ``core/engine.py`` up to its sharded
-executors: the ``AggregatorSpec`` registry with all seven rules (mean,
-median, trimmed_mean, krum, multi_krum, geomedian, brsgd), the
-replicated BrSGD selection, ``aggregate_local`` with its two-pass brsgd
-path, and the elastic quorum path — masked statistics over a ``valid``
-mask and the streaming accumulator.  An :class:`AggregatorSpec` declares
-WHAT a rule needs:
+Port of the JAX package's ``core/engine.py``: the ``AggregatorSpec``
+registry with all seven rules (mean, median, trimmed_mean, krum,
+multi_krum, geomedian, brsgd), the replicated BrSGD selection,
+``aggregate_local`` with its two-pass brsgd path, the elastic quorum
+path — masked statistics over a ``valid`` mask and the streaming
+accumulator — and ``aggregate_sharded`` in the "gather" and "a2a"
+layouts or an explicit per-leaf plan, over a ``launch.mesh.Mesh``'s
+process groups (``core/collectives.py``).  An :class:`AggregatorSpec`
+declares WHAT a rule needs:
 
 * ``stats``  — a subset of :data:`STAT_NAMES` (scores [m], l1 [m],
   d2med [m], gram [m, m]), all additive over dimension ranges;
@@ -29,6 +32,8 @@ import torch
 
 from ..configs.base import ByzantineConfig
 from ..kernels import ops, ref
+from ..models import params as PM
+from . import collectives
 
 STAT_NAMES = ref.STAT_NAMES
 
@@ -530,3 +535,329 @@ def aggregate_local(G, cfg: ByzantineConfig, return_state: bool = False,
     r = ops.select_aggregate(G, spec.name, **rule_args(spec, cfg, m))
     return (r.agg, SelectionState(r.selected, r.w)) if return_state \
         else r.agg
+
+
+# ---------------------------------------------------------------------------
+# expected collectives of the sharded executors
+# ---------------------------------------------------------------------------
+
+def expected_collectives(spec: AggregatorSpec, layout: str, n_leaves: int,
+                         fast_paths: bool = True, plan=None) -> dict:
+    """Per-call counts of the data-moving collectives (all_gather /
+    all_to_all) :func:`aggregate_sharded` issues; the all-reduces of
+    its statistics and combines are not counted, as in the reference.
+
+      gather  each leaf gathered once (the stats pass, or the column
+              rule's view); the weighted combine gathers nothing.  A
+              stat-free select (mean) gathers nothing.
+      a2a     one all_to_all (chunk) and one all_gather (unchunk) a
+              leaf; the mean's fast path (an all-reduce) neither.
+      local   none.
+      auto    the per-leaf sum over ``plan`` (a layout sequence or an
+              object with ``layouts``), else :data:`LAST_PLAN`.
+    """
+    if layout == "local":
+        return {"all_gather": 0, "all_to_all": 0}
+    mean_fast = spec.name == "mean" and fast_paths
+    if layout == "auto":
+        plan = LAST_PLAN if plan is None else plan
+        if plan is None:
+            raise ValueError("layout='auto' needs the resolved plan "
+                             "(none traced yet)")
+        layouts = tuple(getattr(plan, "layouts", plan))
+        if getattr(plan, "fast_path", False) or mean_fast:
+            layouts = ()
+        want = {"all_gather": 0, "all_to_all": 0}
+        for ll in layouts:
+            per = expected_collectives(spec, ll, 1, fast_paths)
+            for k in want:
+                want[k] += per[k]
+        return want
+    if layout == "a2a":
+        n = 0 if mean_fast else n_leaves
+        return {"all_gather": n, "all_to_all": n}
+    if layout == "gather":
+        needs_view = spec.column is not None or bool(spec.stats)
+        return {"all_gather": n_leaves if needs_view else 0,
+                "all_to_all": 0}
+    raise ValueError(f"unknown layout {layout!r}")
+
+
+def pad_correction(stats: dict, pad, valid=None) -> dict:
+    """Remove the zero-pad columns' contribution (a2a layout): a zero
+    column puts every worker at the column mean, so it is a majority
+    column for every worker, +1 score per (active) worker per pad column;
+    the median, l1, d2med and gram of zero columns are exactly zero."""
+    if "scores" in stats and pad:
+        stats = dict(stats)
+        corr = torch.full_like(stats["scores"], float(pad))
+        if valid is not None:
+            corr = corr * valid.to(corr)
+        stats["scores"] = stats["scores"] - corr
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# sharded executors: one rank a worker (and model shard), torch.distributed
+# ---------------------------------------------------------------------------
+
+def gather_leaf(g, mesh, axes, m: int):
+    """All-gather one leaf over the worker axes to the worker-major
+    [m, cols] float32 view (``flatten_columns``: the column kernels take
+    2-D G).  The collective moves the leaf in its own dtype."""
+    return collectives.all_gather(g, mesh, axes).reshape(m, -1).to(
+        torch.float32)
+
+
+def a2a_chunk(g, mesh, axes, m: int):
+    """Flatten one leaf, zero-pad it to m·⌈D/m⌉ and all_to_all it over
+    the worker axes -> ([m, ⌈D/m⌉] float32 chunk, row r worker r's values
+    for this rank's column range; the pad column count)."""
+    flat = g.reshape(-1)
+    D = flat.numel()
+    c = -(-D // m)
+    x = torch.zeros((m * c,), dtype=g.dtype, device=g.device)
+    x[:D] = flat
+    Gc = collectives.all_to_all(x.view(m, c), mesh, axes).to(torch.float32)
+    return Gc, m * c - D
+
+
+def unchunk(vec, g, mesh, axes):
+    """Re-assemble a rank's [⌈D/m⌉] result into the leaf's shape with a
+    tiled all_gather, in the gradient's own dtype, cut to ``g.numel()``."""
+    full = collectives.all_gather(vec.to(g.dtype), mesh, axes).reshape(-1)
+    return full[:g.numel()].view(g.shape)
+
+
+def _model_split(pspec, mesh, model_axes) -> int:
+    """The number of model shards a leaf is cut into under ``pspec`` (1:
+    replicated over the model axes)."""
+    if pspec is None or not model_axes:
+        return 1
+    n = 1
+    for entry in pspec:
+        names = entry if isinstance(entry, tuple) else (entry,)
+        hit = tuple(a for a in names if a in model_axes)
+        if hit:
+            n *= mesh.size(hit)
+    return n
+
+
+def _origin(mesh, axes) -> float:
+    """1.0 on the ranks whose indices on ``axes`` are all zero, else 0.0:
+    the mask that keeps a partial every such rank holds alike from being
+    counted once per rank in a reduction across them."""
+    return float(all(mesh.index((a,)) == 0 for a in axes))
+
+
+# the most recent explicit plan resolved by aggregate_sharded (the
+# reference's LAST_PLAN: introspection for tests)
+LAST_PLAN = None
+
+
+def _resolve_plan(leaves, layout, plan):
+    """The per-leaf layouts of one aggregation: a fixed layout for every
+    leaf, or for "auto" the explicit ``plan`` (a layout sequence or an
+    object with ``layouts``).  The reference's cost model that resolves
+    "auto" without a plan (``analysis/costmodel.plan_layouts``) is not
+    ported: ROADMAP A.6."""
+    global LAST_PLAN
+    if layout != "auto":
+        return (layout,) * len(leaves)
+    if plan is None:
+        raise ValueError(
+            "layout='auto' without a plan needs the cost model "
+            "(analysis/costmodel.plan_layouts), which is not ported yet "
+            "(ROADMAP A.6): pass 'gather', 'a2a' or an explicit plan")
+    layouts = tuple(getattr(plan, "layouts", plan))
+    if len(layouts) != len(leaves):
+        raise ValueError(f"layout plan covers {len(layouts)} leaves, "
+                         f"tree has {len(leaves)}")
+    bad = set(layouts) - {"gather", "a2a"}
+    if bad:
+        raise ValueError(f"layout plan contains unknown layouts {bad}")
+    LAST_PLAN = plan
+    return layouts
+
+
+def _view_stats(Gv, needs, m: int, vf):
+    """One worker view's statistic partials with the scores in double
+    (exact counts past 2^24 columns, summed over views and ranks): the
+    column pass on the view, or in an elastic round the masked statistics
+    over blocks of :data:`ELASTIC_BLOCK` columns."""
+    if vf is None:
+        return ops.fused_stats(Gv, needs, scores_dtype=torch.float64)
+    d = Gv.shape[1]
+    parts = [leaf_stats(Gv[:, a:min(a + ELASTIC_BLOCK, d)], needs, m,
+                        valid=vf) for a in range(0, d, ELASTIC_BLOCK)]
+    tot = {}
+    for k in parts[0]:
+        dt = torch.float64 if k == "scores" else torch.float32
+        tot[k] = parts[0][k].to(dt)
+        for p in parts[1:]:
+            tot[k] = tot[k] + p[k].to(dt)
+    return tot
+
+
+def aggregate_sharded(grads, cfg: ByzantineConfig, mesh, axes=("data",),
+                      layout: str = "gather",
+                      spec: AggregatorSpec | None = None, model_axes=(),
+                      leaf_specs=None, valid=None, plan=None):
+    """Aggregate this rank's gradient leaves across the worker axes of
+    ``mesh`` -> (aggregate, the same on every worker with its model
+    shards intact; state | None).  ``grads`` is a nested dict (sorted
+    keys) or a list; every rank of the worker group calls this with
+    leaves of the same shapes.
+
+    ``gather``: each leaf all-gathered once to [m, cols] for the
+    statistics (or the column rule), and the combine an all-reduce of
+    each worker's own wᵢgᵢ in float32 over Σw (never a second gather).
+    ``a2a``: each leaf flattened, zero-padded to m·⌈D/m⌉ and
+    all_to_all'd, so a rank holds every worker for 1/m of the columns;
+    the chunks are kept, the statistic partials closed by one
+    all-reduce, and the aggregated chunk re-assembled with a tiled
+    all_gather.  ``auto`` takes an explicit per-leaf ``plan``; without
+    one it raises (the cost model is ROADMAP A.6).  The statistics run
+    on the worker views through ``kernels.ops`` (the column pass, or the
+    gram kernel, on a CUDA view); scores are counted in double.
+
+    ``model_axes``/``leaf_specs``: the tensor-parallel axes and each
+    leaf's spec (:func:`models.params.pspec_tree`).  A model-sharded
+    leaf is this rank's shard, its partials over disjoint columns;
+    model-replicated leaves' partials are alike on every model shard and
+    are masked to the model origin, and one all-reduce over worker and
+    model axes closes both.  The worker views are always [m, cols] (the
+    reference's ``flatten_columns=True``, which its global step passes).
+
+    ``valid`` ([m] 0/1, the same on every rank) runs the elastic round:
+    an inactive worker's leaves are zeroed first (exact zeros, whatever
+    they held), the statistics and selection cover the active workers,
+    and in the a2a layout the validity one-hot rides the statistics'
+    all-reduce."""
+    if layout not in ("gather", "a2a", "auto"):
+        raise ValueError(f"unknown layout {layout!r}")
+    spec = spec or get_spec(cfg.aggregator)
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    model_axes = tuple(model_axes)
+    m = mesh.size(axes)
+    me = mesh.index(axes)
+    leaves, rebuild = PM.tree_flatten(grads)
+    layouts = _resolve_plan(leaves, layout, plan)
+    any_a2a = "a2a" in layouts
+    spec_leaves = ([None] * len(leaves) if leaf_specs is None
+                   else PM.tree_flatten(leaf_specs)[0])
+    if len(spec_leaves) != len(leaves):
+        raise ValueError(f"{len(spec_leaves)} leaf specs for "
+                         f"{len(leaves)} leaves")
+    dev = leaves[0].device
+    # model-replicated leaves' partials counted once across model shards
+    origin = _origin(mesh, model_axes) if model_axes else None
+    elastic = valid is not None
+    vf = None
+    if elastic:
+        vf = torch.as_tensor(valid).to(device=dev, dtype=torch.float32)
+        if float(vf[me]) <= 0:
+            leaves = [torch.zeros_like(g) for g in leaves]
+
+    if spec.name == "mean" and not elastic:
+        # uniform weights: an all-reduce mean, no gather / a2a
+        out = [collectives.all_reduce(g.clone(), mesh, axes) / m
+               for g in leaves]
+        return rebuild(out), None
+
+    # -- per-dimension rules: no replicated phase -----------------------
+    if spec.column is not None:
+        out = []
+        for g, ll in zip(leaves, layouts):
+            if ll == "a2a":
+                Gc, _pad = a2a_chunk(g, mesh, axes, m)
+                out.append(unchunk(spec.column(Gc, cfg, m, valid=vf), g,
+                                   mesh, axes))
+                continue
+            col = spec.column(gather_leaf(g, mesh, axes, m), cfg, m,
+                              valid=vf)
+            out.append(col.to(g.dtype).reshape(g.shape))
+        st = SelectionState(vf > 0, vf) if elastic else None
+        return rebuild(out), st
+
+    # -- phase 1: per-leaf statistic partials ---------------------------
+    # gather: each leaf gathered once, its view dropped after the stats
+    # (one gathered leaf live at a time); a2a: the chunks are kept (1/m of
+    # the columns of every worker, 1x in all) for the combine
+    needs = tuple(sorted(spec.stats))
+    stats = {k: torch.zeros((m, m) if k == "gram" else (m,),
+                            dtype=torch.float64 if k == "scores"
+                            else torch.float32, device=dev)
+             for k in needs}
+    cached, total_pad = [], 0
+    # a mixed plan's gather-leaf partials (from the full gathered view,
+    # alike on every worker) counted once when the a2a leaves' reduction
+    # runs over the workers
+    worigin = _origin(mesh, axes) if any_a2a else None
+    for g, ps, ll in zip(leaves, spec_leaves, layouts):
+        n_split = _model_split(ps, mesh, model_axes)
+        if ll == "a2a":
+            Gv, pad = a2a_chunk(g, mesh, axes, m)
+            # each model shard pads its own chunk and the all-reduce sums
+            # them: a sharded leaf brings n_split pads
+            total_pad += pad * n_split
+            cached.append(Gv)
+        elif not needs:
+            cached.append(None)
+            continue            # stat-free select (mean): nothing to gather
+        else:
+            Gv = gather_leaf(g, mesh, axes, m)
+            cached.append(None)
+        part = _view_stats(Gv, needs, m, vf)
+        scale = 1.0
+        if origin is not None and n_split == 1:
+            scale *= origin     # model-replicated: the origin's copy only
+        if worigin is not None and ll == "gather":
+            scale *= worigin    # worker-replicated gather partial
+        for k in stats:
+            stats[k] += part[k] * scale if scale != 1.0 else part[k]
+        del Gv
+    if stats and (any_a2a or model_axes):
+        # a2a partials close over the worker axes, model-sharded leaves'
+        # over the model axes, in the same reduction
+        red_axes = (axes if any_a2a else ()) + model_axes
+        if elastic and any_a2a:
+            # the validity one-hot rides the statistics' all-reduce (each
+            # worker its own slot, at the model origin only)
+            vpart = torch.zeros((m,), dtype=torch.float32, device=dev)
+            vpart[me] = 1.0
+            vpart = vpart * vf[me]
+            stats["valid"] = vpart if origin is None else vpart * origin
+        flat32 = [k for k in stats if k != "scores"]
+        if flat32:
+            buf = torch.cat([stats[k].reshape(-1) for k in flat32])
+            collectives.all_reduce(buf, mesh, red_axes)
+            a = 0
+            for k in flat32:
+                n = stats[k].numel()
+                stats[k] = buf[a:a + n].view(stats[k].shape)
+                a += n
+        if "scores" in stats:
+            collectives.all_reduce(stats["scores"], mesh, red_axes)
+        stats = pad_correction(stats, total_pad, valid=vf)
+    if "scores" in stats:
+        stats["scores"] = stats["scores"].to(torch.float32)
+    if elastic:
+        stats = dict(stats)
+        stats.setdefault("valid", vf)
+
+    # -- phase 2: replicated selection and the weighted combine ---------
+    w, st, denom = resolve_select(spec, stats, cfg, m, dev)
+    out = []
+    # gather-free combine: Σᵢ wᵢgᵢ is an all-reduce of each worker's own
+    # weighted gradient in float32, over Σw
+    wi = w[me] if "gather" in layouts else None
+    for g, Gv, ll in zip(leaves, cached, layouts):
+        if ll == "a2a":
+            out.append(unchunk(torch.tensordot(w, Gv, dims=1) / denom, g,
+                               mesh, axes))
+        else:
+            part = (wi * g.to(torch.float32)).contiguous()
+            agg = collectives.all_reduce(part, mesh, axes) / denom
+            out.append(agg.to(g.dtype))
+    return rebuild(out), st

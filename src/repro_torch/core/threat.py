@@ -13,6 +13,11 @@ Membership: ``"prefix"`` (workers 0..⌊αm⌋-1, the paper's setting),
 Draws come from ``torch.Generator``s; their bits differ from
 ``jax.random``'s, so the keyed policies and gaussian noise agree with
 the JAX package in distribution only.
+
+Executors: ``apply_dense_`` / ``apply_dense`` on the single-host G
+[m, d], and ``inject`` on one rank's gradient leaves across a rank mesh
+(``launch.mesh``; the global scope with one rank a worker), its honest
+knowledge all-reduced over the worker group.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ByzantineConfig
+from ..models import params as PM
+from . import collectives
 
 KNOWLEDGE = ("hsum", "hsqsum")
 MEMBERSHIP_POLICIES = ("prefix", "random", "resample")
@@ -167,9 +174,17 @@ def registered() -> tuple:
 # g is the byzantine rows [n, d] (or one row for shared-row rules)
 
 def _gaussian(g, know, gen, cfg):
-    """Replace byzantine values with N(0, std²) noise (paper: std=200)."""
-    noise = torch.randn(g.shape, generator=gen, dtype=torch.float32,
+    """Replace byzantine values with N(0, std²) noise (paper: std=200).
+
+    On a model-sharded view of a leaf the sharded executor passes the
+    leaf's global shape and this shard's slices (``noise_shape`` /
+    ``noise_slices``, :func:`inject`): the noise is drawn for the whole
+    leaf and sliced, so it does not depend on the model sharding."""
+    shape = know.get("noise_shape", tuple(g.shape))
+    noise = torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=g.device)
+    if "noise_slices" in know:
+        noise = noise[know["noise_slices"]]
     return noise * cfg.gaussian_std
 
 
@@ -345,3 +360,128 @@ def apply_dense(G, generator, cfg: ByzantineConfig, active=None):
             active is None and n_byzantine(cfg, G.shape[0]) == 0):
         return G
     return apply_dense_(G.clone(), generator, cfg, active)
+
+
+# ---------------------------------------------------------------------------
+# the sharded executor: one rank a worker (and model shard)
+# ---------------------------------------------------------------------------
+
+def inject_collectives(cfg: ByzantineConfig, n_leaves: int,
+                       m: Optional[int] = None) -> dict:
+    """Per-call collectives of :func:`inject`: an all-reduce per declared
+    knowledge entry per leaf for an omniscient attack, none for the
+    others.  ``axis_index`` counts the worker index read (the reference's
+    one collective of that name; here the rank's coordinate, no
+    communication)."""
+    if not is_gradient_attack(cfg) or (m is not None
+                                       and n_byzantine(cfg, m) == 0):
+        return {"all_reduce": 0, "axis_index": 0}
+    knows = len(get_spec(cfg.attack).knows)
+    return {"all_reduce": knows * n_leaves, "axis_index": 1}
+
+
+def _sharded_knowledge(g, drop: bool, knows, mesh, axes, n_honest) -> dict:
+    """The honest moments across ranks: this worker's leaf, or exact
+    zeros where it is byzantine (or inactive), all-reduced over the
+    worker axes."""
+    know = {}
+    if knows:
+        keep = (torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                if drop else g.to(torch.float32).clone())
+        if "hsqsum" in knows:
+            know["hsqsum"] = collectives.all_reduce(keep * keep, mesh, axes)
+        if "hsum" in knows:
+            know["hsum"] = collectives.all_reduce(keep, mesh, axes)
+        know["n_honest"] = torch.as_tensor(n_honest, dtype=torch.float32,
+                                           device=g.device)
+    return know
+
+
+def leaf_generator(seed: int, worker: int, leaf: int,
+                   device) -> torch.Generator:
+    """The noise generator of one (worker, leaf) of a step: seeded from
+    the step's seed and the two indices, so a worker's noise for a leaf
+    is the same on every mesh (the reference's ``_leaf_key``)."""
+    s = np.random.SeedSequence([int(seed), int(worker), int(leaf)])
+    return torch.Generator(device=device).manual_seed(
+        int(s.generate_state(1)[0]))
+
+
+def _noise_view(g, pspec, mesh, model_axes):
+    """(global shape, slices) of this rank's view of a leaf sharded over
+    ``model_axes``, or None when it is replicated over them."""
+    if pspec is None or not model_axes:
+        return None
+    spec = []
+    for dim in range(g.dim()):
+        entry = pspec[dim] if dim < len(pspec) else None
+        names = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        names = tuple(a for a in names if a in model_axes)
+        spec.append(names or None)
+    if all(e is None for e in spec):
+        return None
+    shape = tuple(n if e is None else n * mesh.size(e)
+                  for n, e in zip(g.shape, spec))
+    return shape, PM.shard_view(shape, spec, mesh)
+
+
+def inject(grads, key, cfg: ByzantineConfig, mesh, axes, membership=None,
+           leaf_specs=None, model_axes=(), active=None):
+    """Corrupt this rank's gradient leaves (a nested dict in sorted-key
+    order, or a list) when its worker is byzantine; the global scope's
+    attack before ``robust_aggregate``.  Returns the same structure; an
+    honest worker's leaves are returned as they are.
+
+    ``key`` is the step's generator (or its seed): "resample" draws the
+    membership from it, and gaussian noise comes from one generator a
+    (worker, leaf), seeded from its ``initial_seed``
+    (:func:`leaf_generator`).  ``membership`` ([m] bool) gives the
+    byzantine set instead of drawing it.  Knowledge (``hsum``,
+    ``hsqsum``) is all-reduced over the worker axes, one all-reduce per
+    entry and leaf.  ``leaf_specs`` / ``model_axes``: a model-sharded
+    leaf is this rank's shard; its noise is drawn for the whole leaf and
+    sliced, so it does not depend on the model sharding.  ``active``
+    ([m] 0/1, elastic rounds): membership and knowledge over the active
+    workers only; an inactive worker is never corrupted."""
+    if not is_gradient_attack(cfg):
+        return grads
+    spec = get_spec(cfg.attack)
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    m, idx = mesh.size(axes), mesh.index(axes)
+    leaves, rebuild = PM.tree_flatten(grads)
+    dev = leaves[0].device
+    gen = key if isinstance(key, torch.Generator) else None
+    seed = key.initial_seed() if gen is not None else int(key)
+    if active is None:
+        n_byz = n_byzantine(cfg, m)
+        if n_byz == 0:
+            return grads
+        mask = (membership_mask(cfg, m, gen if gen is not None else seed,
+                                device=dev)
+                if membership is None else membership.to(dev))
+        n_honest, is_active = m - n_byz, True
+    else:
+        act = torch.as_tensor(active).to(device=dev, dtype=torch.float32)
+        na = (act > 0).sum()
+        mask = (membership_mask(cfg, m, gen if gen is not None else seed,
+                                active=act)
+                if membership is None else membership.to(dev))
+        n_honest = na - n_byzantine(cfg, m, na)
+        is_active = bool(act[idx] > 0)
+    is_byz = bool(mask[idx])
+    spec_leaves = ([None] * len(leaves) if leaf_specs is None
+                   else PM.tree_flatten(leaf_specs)[0])
+    out = []
+    for li, (g, ps) in enumerate(zip(leaves, spec_leaves)):
+        know = _sharded_knowledge(g, is_byz or not is_active, spec.knows,
+                                  mesh, axes, n_honest)
+        if not is_byz:
+            out.append(g)
+            continue
+        view = _noise_view(g, ps, mesh, tuple(model_axes))
+        if view is not None:
+            know["noise_shape"], know["noise_slices"] = view
+        evil = spec.corrupt(g, know, leaf_generator(seed, idx, li, dev), cfg)
+        out.append(evil.to(g.dtype).reshape(g.shape))
+    return rebuild(out)

@@ -240,19 +240,21 @@ def column_launch_plan(G, variant: int) -> ColumnPlan:
 MAX_BLOCK_COLUMNS = 1 << 24
 
 
-def _total(name: str, parts):
+def _total(name: str, parts, scores_dtype=torch.float32):
     """A statistic's total over the blocks' partials [grid, ...].  Score
     partials are whole counts: they are summed in double, exact past 2^24
-    columns, and rounded to float once (below 2^24 the float sum's
-    bits)."""
+    columns, and rounded once to ``scores_dtype`` (float: below 2^24 the
+    float sum's bits; double: the exact count)."""
     if name == "scores":
-        return parts.sum(dim=0, dtype=torch.float64).to(torch.float32)
+        return parts.sum(dim=0, dtype=torch.float64).to(scores_dtype)
     return parts.sum(dim=0)
 
 
-def fused_stats(G, needs) -> dict:
+def fused_stats(G, needs, scores_dtype=torch.float32) -> dict:
     """G [m, d] -> {stat: tensor} for any subset of ``ref.STAT_NAMES``
-    in one read of G: scores/l1/d2med [m], gram [m, m]."""
+    in one read of G: scores/l1/d2med [m], gram [m, m].  The scores come
+    in ``scores_dtype`` (double keeps a count past 2^24 exact for a sum
+    over views, as the sharded layouts take)."""
     m, d = _check_matrix(G, "fused_stats")
     needs = tuple(n for n in ref.STAT_NAMES if n in needs)
     if not needs:
@@ -270,7 +272,7 @@ def fused_stats(G, needs) -> dict:
     _launch(lib, "fused_stats", lib.brsgd_fused_stats, G, _ptr(G), m, d,
             bits, _ptr(parts.get("scores")), _ptr(parts.get("l1")),
             _ptr(parts.get("d2med")), _ptr(parts.get("gram")), nb, stages)
-    return {n: _total(n, p) for n, p in parts.items()}
+    return {n: _total(n, p, scores_dtype) for n, p in parts.items()}
 
 
 def brsgd_partials(G):

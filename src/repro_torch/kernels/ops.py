@@ -55,12 +55,15 @@ def _canonical(needs) -> tuple:
     return tuple(n for n in ref.STAT_NAMES if n in needs)
 
 
-def fused_stats(G, needs, valid=None, rows=None, refs=None) -> dict:
+def fused_stats(G, needs, valid=None, rows=None, refs=None,
+                scores_dtype=torch.float32) -> dict:
     """Any subset of ``ref.STAT_NAMES`` from one read of G [m, d].
 
     ``valid`` ([m] 0/1) switches to the masked pass over the active
     workers; ``rows``/``refs`` are the streaming-accumulator hooks (one
-    arrival bucket's output slots, shared active-set invariants)."""
+    arrival bucket's output slots, shared active-set invariants).
+    ``scores_dtype`` (unmasked pass) is the type the exact score counts
+    are rounded to once: double keeps them exact past 2^24 columns."""
     needs = _canonical(needs)
     if not needs:
         return {}
@@ -68,8 +71,8 @@ def fused_stats(G, needs, valid=None, rows=None, refs=None) -> dict:
         return ref.masked_fused_stats_ref(G, needs, valid, rows=rows,
                                           refs=refs)
     if G.is_cuda:
-        return kern.fused_stats(G, needs)
-    return ref.fused_stats_ref(G, needs)
+        return kern.fused_stats(G, needs, scores_dtype)
+    return ref.fused_stats_ref(G, needs, scores_dtype)
 
 
 def masked_stat_refs(G, needs, valid) -> dict:

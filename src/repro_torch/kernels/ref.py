@@ -134,14 +134,14 @@ def cwise_median_ref(G):
     return median_from_sorted(sorted_worker_stack(G))
 
 
-def fused_stats_ref(G, needs) -> dict:
+def fused_stats_ref(G, needs, scores_dtype=torch.float32) -> dict:
     """Any subset of :data:`STAT_NAMES` of G [m, d] from one shared
     sorted-rows pass: scores [m], l1 [m], d2med [m], gram [m, m].  The
     median is computed at most once and shared by l1 and d2med."""
     x = G.to(torch.float32)
     out = {}
     if "scores" in needs:
-        out["scores"] = majority_score_ref(x)
+        out["scores"] = majority_score_ref(x, scores_dtype)
     if "l1" in needs or "d2med" in needs:
         diff = x - median_from_sorted(sorted_worker_stack(x))[None]
         if "l1" in needs:
@@ -153,13 +153,13 @@ def fused_stats_ref(G, needs) -> dict:
     return out
 
 
-def majority_score_ref(G):
+def majority_score_ref(G, dtype=torch.float32):
     """Paper Algorithm 2, Constraint-2 scores [m].  Per column: split
     workers by the column mean (row-order sum over m, IEEE-divided);
     workers on the larger side score 1, ties at exactly m/2 favour the
     >= mean side.  Score_i = sum over columns, counted in integers and
-    rounded to float once (exact past 2^24 columns, as the kernels'
-    counts are; below, the float sum's bits)."""
+    rounded once to ``dtype`` (a float is exact up to 2^24 columns, as the
+    kernels' counts are; below, the float sum's bits)."""
     x = G.to(torch.float32)
     m = x.shape[0]
     mean_c = exact_div(det_sum_rows(x), float(m))
@@ -167,7 +167,7 @@ def majority_score_ref(G):
     n_above = above.to(torch.int32).sum(dim=0)
     majority_is_above = n_above * 2 >= m
     M = torch.where(majority_is_above[None], above, ~above)
-    return M.sum(dim=1).to(torch.float32)
+    return M.sum(dim=1).to(dtype)
 
 
 def l1_to_median_ref(G, med=None):

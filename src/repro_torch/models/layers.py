@@ -57,13 +57,26 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** ex)
 
 
+def _cos_sin(ang):
+    """(cos, sin) of the float32 angles; on the CPU in float64, rounded
+    once to float32, so no float32 CPU cos is on the path: in some
+    processes torch's float32 CPU cos returned values 1.5e-4 off (at
+    angles up to the sequence length) where it is otherwise within
+    4e-8.  The card keeps float32."""
+    if ang.is_cuda:
+        return torch.cos(ang), torch.sin(ang)
+    a = ang.to(torch.float64)
+    return torch.cos(a).to(ang.dtype), torch.sin(a).to(ang.dtype)
+
+
 def apply_rope(x, positions, theta: float):
     """x: [..., S, H, D] (D even), positions: [..., S].  Rotates the two
     halves of the head dimension (not interleaved pairs)."""
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)                     # [D/2]
     ang = positions[..., None].float() * inv                 # [..., S, D/2]
-    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    cos, sin = _cos_sin(ang)
+    cos, sin = cos[..., None, :], sin[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

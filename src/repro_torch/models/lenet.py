@@ -6,12 +6,16 @@ Parameters keep the JAX layouts (HWIO convolutions, [in, out] dense)
 and images arrive NHWC; the forward permutes to PyTorch's NCHW/OIHW
 for ``F.conv2d`` and flattens in NHWC order, as the JAX model does.
 
-On the CPU both convolutions accumulate in float64 and round once to
-float32 (:func:`_conv`), so oneDNN's float32 convolution is off the
-path: in some processes it was seen to drift the float32 result (and
-the per-worker gradients) ~50x further from float64 than in the rest,
-from the second convolution on, for a reason not pinned down.  On the
-card the convolutions stay float32 (cuDNN, TF32 off).
+On the CPU both convolutions and every tanh run in float64 and round
+once to float32 (:func:`_conv`, :func:`_tanh`), so no float32 CPU
+kernel of theirs is on the path.  In some fresh processes the float32
+result (and the per-worker gradients) drifted ~50x further from float64
+than in the rest; a per-stage report caught the first float32
+``torch.tanh`` of a process, on the first convolution's output, 4.25e-5
+off float64 where it is 5.7e-8 elsewhere (6 of 192 processes at
+ATEN_CPU_CAPABILITY=avx2, none in 240 under this rule; the same call
+again in that process was right).  On the card the convolutions and
+tanh stay float32 (cuDNN with TF32 off, and torch's CUDA tanh).
 """
 from __future__ import annotations
 
@@ -57,16 +61,24 @@ def _conv(x, w_hwio, b, padding=0):
                     padding=padding).to(x.dtype)
 
 
+def _tanh(x):
+    """torch.tanh; on the CPU in float64, rounded once to x's dtype (and
+    its gradient likewise), so no float32 CPU tanh is on the path."""
+    if x.is_cuda:
+        return torch.tanh(x)
+    return torch.tanh(x.to(torch.float64)).to(x.dtype)
+
+
 def lenet_forward(p, images):
     """images [B,28,28,1] (NHWC) -> logits [B,10]."""
     x = images.permute(0, 3, 1, 2)
     x = _conv(x, p["conv1_w"], p["conv1_b"], padding=2)
-    x = F.avg_pool2d(torch.tanh(x), 2)
+    x = F.avg_pool2d(_tanh(x), 2)
     x = _conv(x, p["conv2_w"], p["conv2_b"])
-    x = F.avg_pool2d(torch.tanh(x), 2)
+    x = F.avg_pool2d(_tanh(x), 2)
     x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)      # NHWC flatten
-    x = torch.tanh(x @ p["fc1_w"] + p["fc1_b"])
-    x = torch.tanh(x @ p["fc2_w"] + p["fc2_b"])
+    x = _tanh(x @ p["fc1_w"] + p["fc1_b"])
+    x = _tanh(x @ p["fc2_w"] + p["fc2_b"])
     return x @ p["out_w"] + p["out_b"]
 
 

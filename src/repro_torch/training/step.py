@@ -42,6 +42,14 @@ scope (clipped by the aggregate's global norm).
 
 The guard's hold is decided on the host before the update: a held step
 never touches params or optimizer state, so they are the input's bits.
+
+With ``mesh=`` (``launch.mesh``) the global scope runs as the reference
+does, one rank a worker (:func:`_build_mesh_step`): each rank takes its
+worker's gradient on its row of the [m, B, S] batch, keeps its model
+shard (``models.params.pspec_tree``), and ``threat.inject`` and
+``distributed.robust_aggregate`` run across the ranks in the "gather" or
+"a2a" layout, or an explicit per-leaf plan; the aggregate's model shards
+are all-gathered and every rank takes the same update.
 """
 from __future__ import annotations
 
@@ -53,7 +61,8 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import TrainConfig
-from ..core import blocked, engine, threat
+from ..core import blocked, collectives, engine, threat
+from ..core.distributed import robust_aggregate
 from ..models import params as PM
 from ..models import transformer as TF
 from ..optim import get_optimizer, global_norm
@@ -93,17 +102,6 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(s))
 
 
-def _unflatten(tree, leaves):
-    """A tree of ``tree``'s structure holding ``leaves`` in leaf order."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(tree)
-
-
 def _host_mask(v, m: int, fill: float) -> np.ndarray:
     if v is None:
         return np.full(m, fill, np.float32)
@@ -141,7 +139,7 @@ def _build_global_step(tcfg: TrainConfig, m: int, device):
             raise ValueError(f"batch has {wbatch['tokens'].shape[0]} "
                              f"workers, the step {m}")
         rg = [p.detach().requires_grad_(True) for p in leaves]
-        ptree = _unflatten(params, rg)
+        ptree = PM.tree_unflatten(params, rg)
         nan = torch.tensor(float("nan"), device=device)
         losses, ces = [], []
         for i in range(m):
@@ -213,6 +211,96 @@ def _loss_metrics(metrics, losses, ces, act, guard: bool, device):
     return metrics
 
 
+def _build_mesh_step(tcfg: TrainConfig, mesh, device, layout: str,
+                     plan=None):
+    """The global-scope round with one rank a worker: (params, batch,
+    step, key, active, faults) -> (param leaves, aggregate leaves,
+    metrics); the update is the caller's, alike on every rank.
+
+    The rank takes its worker's loss and gradient over every parameter
+    on its row of the batch (an inactive worker's loss only; its
+    gradient is zero), keeps the model shard of each leaf that
+    ``pspec_tree`` shards (the reference's GSPMD loss computes the same
+    numbers; tensor-parallel compute is not ported), runs
+    ``threat.inject`` and ``robust_aggregate`` over the worker axes,
+    then all-gathers the aggregate's model shards.  The workers' losses
+    are all-gathered for the metrics."""
+    from ..launch.mesh import n_workers, worker_axes
+    cfg, bcfg = tcfg.model, tcfg.byzantine
+    remat = tcfg.remat == "block"
+    elastic, guard = bcfg.elastic, tcfg.recovery.guard
+    waxes = worker_axes(mesh)
+    maxes = tuple(a for a in mesh.axis_names if a not in waxes)
+    m, me = n_workers(mesh), mesh.index(waxes)
+    defs = TF.param_defs(cfg)
+    shapes = [tuple(d.shape) for d in PM.tree_leaves(defs)]
+    specs = PM.tree_leaves(PM.pspec_tree(defs, mesh))
+    views = [PM.shard_view(s, ps, mesh) for s, ps in zip(shapes, specs)]
+
+    def round_(params, batch, step_idx, key, act, flt):
+        leaves = PM.tree_leaves(params)
+        if [tuple(p.shape) for p in leaves] != shapes:
+            raise ValueError(f"params do not have {cfg.name}'s leaves")
+        if np.shape(batch["tokens"])[0] != m:
+            raise ValueError(f"batch has {np.shape(batch['tokens'])[0]} "
+                             f"workers, the mesh {m}")
+        wb = {k: torch.as_tensor(v[me]).to(device) for k, v in batch.items()}
+        nan = torch.tensor(float("nan"), device=device)
+        faulted = guard and flt[me] > 0
+        if elastic and act[me] <= 0:
+            with torch.no_grad():
+                loss, met = TF.loss_fn(cfg, params, wb)
+                if faulted:
+                    loss = loss * nan
+            grads = [torch.zeros_like(p) for p in leaves]
+        else:
+            rg = [p.detach().requires_grad_(True) for p in leaves]
+            with torch.enable_grad():
+                loss, met = TF.loss_fn(cfg, PM.tree_unflatten(params, rg), wb,
+                                       remat=remat)
+                if faulted:
+                    loss = loss * nan
+                grads = list(torch.autograd.grad(loss, rg))
+            del rg
+        local = [g[v].contiguous() for g, v in zip(grads, views)]
+        del grads
+        gen = (key if isinstance(key, torch.Generator)
+               else step_generator(tcfg.seed, step_idx, device))
+        vf = torch.from_numpy(act).to(device) if elastic else None
+        local = threat.inject(local, gen, bcfg, mesh, waxes,
+                              leaf_specs=specs, model_axes=maxes,
+                              active=vf)
+        agg, st = robust_aggregate(local, bcfg, mesh, waxes, layout=layout,
+                                   model_axes=maxes, leaf_specs=specs,
+                                   valid=vf, plan=plan)
+        del local
+        if st is not None:
+            n_sel = float(st.selected.sum())
+        else:
+            n_sel = float((act > 0).sum()) if elastic else float(m)
+        agg_leaves = []
+        for a, s, v in zip(agg, shapes, views):
+            if v == (slice(None),) * len(s):
+                agg_leaves.append(a)
+                continue
+            # the model shards, gathered in model-axis order along the
+            # sharded dimension
+            dim = next(i for i, sl in enumerate(v) if sl != slice(None))
+            parts = collectives.all_gather(a, mesh, maxes)
+            agg_leaves.append(torch.cat(list(parts), dim=dim))
+        del agg
+        lc = collectives.all_gather(
+            torch.stack([loss.detach().to(torch.float32),
+                         met["ce"].detach().to(torch.float32)]), mesh, waxes)
+        metrics = {"gnorm": float(global_norm(agg_leaves))}
+        _loss_metrics(metrics, list(lc[:, 0]), list(lc[:, 1]), act, guard,
+                      device)
+        metrics["n_selected"] = metrics["n_selected_min"] = n_sel
+        return leaves, agg_leaves, metrics
+
+    return round_
+
+
 def _build_blocked_step(tcfg: TrainConfig, m: int, device):
     """The blocked-scope round: (params, batch, step, key, active,
     faults) -> (param leaves, aggregate leaves, metrics), each bucket
@@ -262,7 +350,7 @@ def _build_blocked_step(tcfg: TrainConfig, m: int, device):
             threat.step_membership(bcfg, m, gen, active=vf, device=device),
             vf)
         agg_leaves = agg_buffers()
-        agg_tree = _unflatten(params, agg_leaves)
+        agg_tree = PM.tree_unflatten(params, agg_leaves)
         toks = {k: blocked.selection_token(m, device)
                 for k in [f"seg_{i}" for i in range(len(segs))] + ["top"]}
         barriers = {k: blocked.make_agg_barrier(rnd, k) for k in toks}
@@ -320,17 +408,22 @@ def _build_blocked_step(tcfg: TrainConfig, m: int, device):
     return round_
 
 
-def build_train_step(tcfg: TrainConfig, m: int,
-                     device="cuda") -> StepBundle:
+def build_train_step(tcfg: TrainConfig, m: int | None = None,
+                     device="cuda", mesh=None, plan=None) -> StepBundle:
     """The train step of ``tcfg`` for ``m`` simulated workers on
-    ``device`` (the card unless the caller asks for the CPU).
+    ``device`` (the card unless the caller asks for the CPU), or, with
+    ``mesh`` (this rank's ``launch.mesh.Mesh``), with one rank a worker
+    and m and the device the mesh's (:func:`_build_mesh_step`).
 
     ``tcfg.agg_scope`` picks the scope (:func:`resolve_strategy`).  The
     blocked scope takes every layout the reference's does ("gather",
     "a2a", "auto"): with every worker on one device they all run the
-    same code, the bucket aggregate on the bucket's rows.  The global
-    scope refuses "a2a", which waits for the torch.distributed layouts
-    (ROADMAP A.4).
+    same code, the bucket aggregate on the bucket's rows; across ranks
+    it waits for ROADMAP A.4.  On one device the global scope runs the
+    local executor for "gather" and "auto" and refuses "a2a", which
+    needs ranks; on a mesh it takes "gather", "a2a", or "auto" with an
+    explicit per-leaf ``plan`` (without one, "auto" waits for the cost
+    model, ROADMAP A.6).
 
     ``step_fn(params, opt_state, batch, step, key)`` takes the parameter
     tree, the optimizer state (``opt_init(params)``), ``{"tokens": [m,
@@ -350,14 +443,32 @@ def build_train_step(tcfg: TrainConfig, m: int,
     scope, layout = resolve_strategy(tcfg)
     if scope not in ("global", "blocked"):
         raise ValueError(f"unknown agg_scope {scope!r}")
-    if scope == "global" and layout not in ("gather", "auto"):
-        raise ValueError(
-            f"agg_layout={layout!r} is not ported yet in the global scope: "
-            f"it waits for ROADMAP A.4's torch.distributed layouts; one "
-            f"device holds all of G, so 'gather' and 'auto' run the local "
-            f"executor")
-    if scope == "blocked" and layout not in ("gather", "a2a", "auto"):
+    if layout not in ("gather", "a2a", "auto"):
         raise ValueError(f"unknown agg_layout {layout!r}")
+    if mesh is not None:
+        from ..launch.mesh import n_workers
+        if scope != "global":
+            raise ValueError(
+                f"agg_scope={scope!r} across ranks waits for the blocked "
+                f"scope's FSDP gathers (ROADMAP A.4); mesh= runs the global "
+                f"scope")
+        if m is not None and m != n_workers(mesh):
+            raise ValueError(f"m={m} but the mesh has {n_workers(mesh)} "
+                             f"workers")
+        m = n_workers(mesh)
+        if layout == "auto" and plan is None:
+            raise ValueError(
+                "agg_layout='auto' across ranks needs an explicit plan: the "
+                "cost model that resolves it (analysis/costmodel) waits for "
+                "ROADMAP A.6")
+    elif m is None:
+        raise ValueError("build_train_step needs m, or mesh=")
+    elif scope == "global" and layout == "a2a":
+        raise ValueError(
+            "agg_layout='a2a' in the global scope needs ranks: pass mesh= "
+            "(launch.mesh; ROADMAP A.4's torch.distributed layouts); one "
+            "device holds all of G, so 'gather' and 'auto' run the local "
+            "executor")
     bcfg, rcfg = tcfg.byzantine, tcfg.recovery
     if rcfg.guard and not bcfg.elastic:
         raise ValueError(
@@ -373,10 +484,14 @@ def build_train_step(tcfg: TrainConfig, m: int,
             raise ValueError(
                 f"ByzantineConfig.quorum={bcfg.quorum} exceeds the step's "
                 f"{m} worker slots for scope={scope!r}")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     opt = get_optimizer(tcfg)
-    build = _build_blocked_step if scope == "blocked" else _build_global_step
-    round_ = build(tcfg, m, dev)
+    if mesh is not None:
+        round_ = _build_mesh_step(tcfg, mesh, dev, layout, plan)
+    else:
+        build = (_build_blocked_step if scope == "blocked"
+                 else _build_global_step)
+        round_ = build(tcfg, m, dev)
 
     def opt_init(params):
         return opt.init(PM.tree_leaves(params))

@@ -1768,3 +1768,93 @@ def test_blocked_guarded_step_holds_on_the_card():
     np.testing.assert_array_equal(out[0][0], out[1][0])
     assert out[0][0][5] == 0 and out[0][0].sum() == m - 1
     assert out[0][1:] == out[1][1:]
+
+
+# ---------------------------------------------------------------------------
+# the torch.distributed layouts: 4 gloo ranks on the card against 4 CPU
+# ranks (tests/torch_dist_ranks.py; the CPU ranks are held against the JAX
+# package in tests/test_torch_distributed.py)
+# ---------------------------------------------------------------------------
+
+_DIST_TRAIN = ("flat_gather", "flat_a2a", "dm_a2a")
+
+
+@pytest.fixture(scope="module")
+def dist_runs(tmp_path_factory):
+    """(inputs, the card's rank outputs, the CPU's rank outputs) of the
+    engine matrix, the deterministic attacks and three train steps."""
+    need_card()
+    import torch_dist_ranks as R
+    from repro_torch.launch import mesh as MM
+    out = {}
+    d = tmp_path_factory.mktemp("dist_gpu")
+    inp = R.make_inputs(str(d / "inputs.npz"))
+    for dev, threads in (("cuda", 0), ("cpu", 2)):
+        sub = d / dev
+        sub.mkdir()
+        paths = MM.launch(R.run_cases, 4, (str(d / "inputs.npz"), str(sub),
+                                           dev, ("engine", "inject",
+                                                 "train"), _DIST_TRAIN),
+                          device=dev, threads=threads, timeout_s=900)
+        out[dev] = [dict(np.load(p)) for p in paths]
+    return inp, out["cuda"], out["cpu"]
+
+
+def _dist_engine_cases():
+    import torch_dist_ranks as R
+    from repro_torch.core import engine
+    return [(n, lay, el, r) for n in R.MESHES for lay in R.LAYOUTS
+            for el in (False, True) for r in engine.registered()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _dist_engine_cases(),
+                         ids=lambda c: f"{c[0]}-{c[1]}-{int(c[2])}-{c[3]}")
+def test_aggregate_sharded_on_the_card_matches_cpu_ranks(case, dist_runs):
+    """Every rule in gather, a2a and the mixed plan, fixed and elastic,
+    on CUDA tensors (the statistics on the kernels, every collective's
+    tensor on the card) against the same ranks on the CPU: selections
+    and scores exact, aggregates within 1e-6 of max|agg|, the same
+    all_gather / all_to_all counts."""
+    import torch_dist_ranks as R
+    _inp, card, cpu = dist_runs
+    name, layout, elastic, rule = case
+    key = f"{name}/{layout}/{int(elastic)}/{rule}"
+    for r in range(4):
+        for k in R.LEAVES:
+            g, c = card[r][f"{key}/agg/{k}"], cpu[r][f"{key}/agg/{k}"]
+            scale = max(float(np.abs(c).max()), 1e-30)
+            assert float(np.abs(g - c).max()) <= 1e-6 * scale, (key, r, k)
+        for sk in R.state_keys(rule, elastic):
+            if sk in ("selected", "scores"):
+                np.testing.assert_array_equal(card[r][f"{key}/st/{sk}"],
+                                              cpu[r][f"{key}/st/{sk}"])
+        np.testing.assert_array_equal(card[r][f"{key}/collectives"],
+                                      cpu[r][f"{key}/collectives"])
+        assert list(card[r][f"{key}/device_types"]) in ([], ["cuda"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _DIST_TRAIN)
+def test_reduced_step_on_four_card_ranks_matches_cpu_ranks(case,
+                                                           dist_runs):
+    """The reduced qwen3's global step with one rank a worker, 2 steps,
+    on 4 ranks on the card against 4 CPU ranks from the same params and
+    tokens: n_selected equal, params within 1e-5 of the largest |Δp|."""
+    import torch_dist_ranks as R
+    inp, card, cpu = dist_runs
+    name, layout, guard = R.train_cases()[case]
+    from repro_torch.models import transformer as TF
+    paths = R.tree_paths(TF.param_defs(R.train_config(name, layout,
+                                                      guard).model))
+    before = [inp["params" + p] for p in paths]
+    for s in range(R.STEPS):
+        key = f"train/{case}/{s}"
+        assert float(card[0][f"{key}/met/n_selected"]) == float(
+            cpu[0][f"{key}/met/n_selected"])
+        got = [card[0][f"{key}/params{p}"] for p in paths]
+        want = [cpu[0][f"{key}/params{p}"] for p in paths]
+        dp = max(float(np.abs(w - b).max()) for w, b in zip(want, before))
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        assert dp > 0 and err <= 1e-5 * dp, (key, err, dp)
+        before = want

@@ -280,6 +280,28 @@ def test_rms_norm_mlp_and_rope_match_jax():
         close(TL.mlp(tp, t(h), act), JL.mlp(jp, jnp.asarray(h), act))
 
 
+@pytest.mark.parametrize("S", [128, 4096])
+def test_rope_angles_on_the_cpu_are_float64_rounded_once(S):
+    """The rotation's cos and sin on the CPU are those of float64,
+    rounded once to float32 (no float32 CPU cos on the path), at every
+    angle up to the sequence length; the rotation stays within float32
+    rounding of a float64 one."""
+    pos = torch.arange(S)[None]
+    inv = TL.rope_freqs(64, 1e6)
+    ang = pos[..., None].float() * inv
+    cos, sin = TL._cos_sin(ang)
+    assert cos.dtype == sin.dtype == torch.float32
+    assert torch.equal(cos, torch.cos(ang.double()).float())
+    assert torch.equal(sin, torch.sin(ang.double()).float())
+    x = normal(np.random.default_rng(1), 1, S, 2, 64)
+    got = TL.apply_rope(t(x), pos, 1e6).numpy()
+    a = ang.double().numpy()[..., None, :]
+    x1, x2 = np.split(x.astype(np.float64), 2, axis=-1)
+    want = np.concatenate([x1 * np.cos(a) - x2 * np.sin(a),
+                           x1 * np.sin(a) + x2 * np.cos(a)], axis=-1)
+    close(got, want, rtol=1e-6)
+
+
 @pytest.mark.parametrize("window", [0, 4])
 def test_gqa_attention_matches_jax(window):
     rng = np.random.default_rng(window)
